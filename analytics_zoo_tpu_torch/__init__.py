@@ -3,18 +3,23 @@
 The package keeps the module layout and public names of the JAX package,
 so every module here has one counterpart there:
 
-- ``core``     — config, context (global config + device), host timers.
+- ``core``     — config, context (global config + device), host timers,
+                 training triggers.
 - ``observe``  — labelled metrics registry.
 - ``robust``   — typed serving errors.
 - ``ops``      — hand-written CUDA kernels (``csrc/``) with their plain
                  PyTorch versions and the dispatch that chooses between
-                 them: the embedding-bag forward and the dequantize-matmul.
+                 them: the embedding-bag forward and backward, and the
+                 dequantize-matmul.
 - ``nn``       — layers as ``torch.nn.Module``s, the ``Input``/``Model``
-                 graph DSL.
-- ``models``   — NeuralCF.
+                 graph DSL with its compile/fit facade, losses, metrics,
+                 regularizers.
+- ``train``    — the ``Estimator`` and optax-equivalent optimizers.
+- ``data``     — ``FeatureSet`` (HOST / DEVICE cache levels), MovieLens.
+- ``models``   — NeuralCF and the implicit-feedback samplers.
 - ``deploy``   — ``InferenceModel`` (int8/int4 weights) and
                  ``DynamicBatcher``.
-- ``convert``  — loads a JAX-package parameter tree into a port model.
+- ``convert``  — a JAX-package parameter tree into a port model and back.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device they raise instead of falling back.

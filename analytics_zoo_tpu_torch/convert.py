@@ -1,5 +1,6 @@
-"""Weights across packages: load a JAX-package parameter tree into a port
-model by layer and leaf name."""
+"""Weights across packages, by layer and leaf name: load a JAX-package
+parameter tree into a port model (``load_jax_params``), and export a port
+model's weights as such a tree (``export_params``)."""
 
 from __future__ import annotations
 
@@ -82,3 +83,17 @@ def _float_shape(qleaf: dict) -> tuple:
         rows, cols = qleaf["q4"].shape
         return (2 * rows, cols)
     return tuple(qleaf["q"].shape)
+
+
+def export_params(model) -> dict:
+    """The reverse of ``load_jax_params``: ``model``'s weights as the JAX
+    package's tree ``{layer_name: {leaf: np.ndarray}}`` on the host (a
+    quantized leaf as its ``{"q"|"q4", "scale"}`` arrays).  The arrays
+    are copies: training the model on goes on without changing them."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+
+    return {layer: {leaf: ({k: host(v) for k, v in value.items()}
+                           if is_qleaf(value) else host(value))
+                    for leaf, value in leaves.items()}
+            for layer, leaves in model.params().items()}

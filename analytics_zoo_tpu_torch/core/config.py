@@ -28,8 +28,32 @@ class ZooConfig:
     # channel and dequantize inside the serving forward — Dense kernels
     # through the fused dequantize-matmul kernel.
     serving_weight_dtype: str = "float32"
-    # Seed of the default parameter-initialisation generator.
+    # Seed of the default parameter-initialisation generator, of the
+    # Estimator's shuffles and of its dropout generator.
     seed: int = 42
+
+    # -- training (train/estimator.py), the JAX package's defaults -------
+    # K > 1 moves K batches to the device in one copy per array and runs
+    # them as K steps (the same step sequence as K = 1).
+    steps_per_execution: int = 1
+    # What a non-finite training loss does.  Every such step is discarded
+    # on the device (params and optimizer state keep their values) and
+    # counted; the policy is applied once per epoch:
+    #   "skip"     — go on; raise once >= max_bad_steps are consecutive.
+    #   "raise"    — raise FloatingPointError at the epoch boundary.
+    #   "rollback" — like skip, plus: >= max_bad_steps consecutive bad
+    #                steps roll back to the last checkpoint and scale the
+    #                learning rate by nan_backoff_factor.  Checkpoints are
+    #                not ported yet, so this raises as the JAX package
+    #                does without a checkpoint.
+    nan_policy: str = "skip"
+    max_bad_steps: int = 5
+    nan_backoff_factor: float = 0.5
+    # Default cache level of a FeatureSet without one: "HOST" batches on
+    # the host and copies each to the device; "DEVICE" holds the whole set
+    # on the device when it fits data_device_budget_bytes (else HOST).
+    data_cache_level: str = "HOST"
+    data_device_budget_bytes: int = 4 << 30
 
     @classmethod
     def from_env(cls, **overrides: Any) -> "ZooConfig":
@@ -50,4 +74,6 @@ def _coerce(raw: str, typ: Any) -> Any:
     t = str(typ)
     if "int" in t:
         return int(raw)
+    if "float" in t:
+        return float(raw)
     return raw

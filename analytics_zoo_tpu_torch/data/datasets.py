@@ -1,0 +1,69 @@
+"""MovieLens readers, copied from the JAX package's ``data/datasets.py``
+(numpy only): the ml-1m ``ratings.dat`` parser, its MovieLens-1M-shaped
+synthetic stand-in, and both as an Estimator-ready ``FeatureSet``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+__all__ = ["read_movielens_1m", "generate_movielens_like",
+           "movielens_featureset"]
+
+
+def read_movielens_1m(path: str) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]:
+    """Parse ml-1m ``ratings.dat`` (``user::item::rating::ts``) ->
+    (user_ids, item_ids, ratings), 1-based ids."""
+    f = os.path.join(path, "ratings.dat") if os.path.isdir(path) else path
+    users, items, ratings = [], [], []
+    with open(f) as fh:
+        for line in fh:
+            parts = line.strip().split("::")
+            if len(parts) < 3:
+                continue
+            users.append(int(parts[0]))
+            items.append(int(parts[1]))
+            ratings.append(float(parts[2]))
+    return (np.asarray(users, np.int64), np.asarray(items, np.int64),
+            np.asarray(ratings, np.float32))
+
+
+def generate_movielens_like(n_users: int = 6040, n_items: int = 3706,
+                            ratings_per_user: int = 20, latent: int = 8,
+                            seed: int = 0):
+    """MovieLens-1M-shaped synthetic ratings with a low-rank preference
+    structure (learnable): ``ratings_per_user`` ratings for each user,
+    1-based ids, ratings 1..5.  Bit-identical to the JAX package's."""
+    rs = np.random.RandomState(seed)
+    zu = rs.randn(n_users + 1, latent)
+    zi = rs.randn(n_items + 1, latent)
+    users, items, ratings = [], [], []
+    for u in range(1, n_users + 1):
+        picked = rs.randint(1, n_items + 1, ratings_per_user)
+        score = (zu[u] * zi[picked]).sum(axis=1)
+        r = np.clip(np.round(3 + score), 1, 5)
+        users.extend([u] * ratings_per_user)
+        items.extend(picked.tolist())
+        ratings.extend(r.tolist())
+    return (np.asarray(users, np.int64), np.asarray(items, np.int64),
+            np.asarray(ratings, np.float32))
+
+
+def movielens_featureset(path: Optional[str] = None,
+                         cache_level: Optional[str] = None, **generate_kw):
+    """Ratings as an Estimator-ready ``FeatureSet``: arrays
+    ``(user[:, None], item[:, None], rating)`` — the NeuralCF input
+    layout.  Reads ml-1m from ``path`` when given, else generates the
+    synthetic stand-in (``generate_movielens_like(**generate_kw)``).
+    ``cache_level="DEVICE"`` holds the set on the device."""
+    from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+
+    users, items, ratings = (read_movielens_1m(path) if path
+                             else generate_movielens_like(**generate_kw))
+    return FeatureSet.from_ndarrays(
+        [users[:, None].astype(np.int32), items[:, None].astype(np.int32)],
+        ratings, cache_level=cache_level)

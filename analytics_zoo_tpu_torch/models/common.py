@@ -1,6 +1,8 @@
 """ZooModel base: a built-in model owns a ``KerasNet`` (its ``model``),
-its hyper-parameters and the device its weights live on.  Persistence and
-training belong to later slices."""
+its hyper-parameters and the device its weights live on; ``compile`` /
+``fit`` / ``evaluate`` / ``predict`` delegate to the net (and so to
+``train.Estimator``) on that device.  Persistence belongs to a later
+slice."""
 
 from __future__ import annotations
 
@@ -41,3 +43,23 @@ class ZooModel:
         """Allocate ``net``'s weights and place them on the device."""
         net.build(self.generator)
         self.model = net.to(self.device)
+
+    # -- training facade --------------------------------------------------
+    def compile(self, optimizer, loss, metrics=None, device=None):
+        """``KerasNet.compile`` on this model's device by default."""
+        self.model.compile(optimizer, loss, metrics=metrics,
+                           device=self.device if device is None else device)
+        return self
+
+    def fit(self, *a, **kw):
+        return self.model.fit(*a, **kw)
+
+    def evaluate(self, *a, **kw):
+        return self.model.evaluate(*a, **kw)
+
+    def predict(self, *a, **kw):
+        return self.model.predict(*a, **kw)
+
+    @property
+    def estimator(self):
+        return self.model.estimator

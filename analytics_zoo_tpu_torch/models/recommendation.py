@@ -1,4 +1,6 @@
-"""Recommendation models: NeuralCF and its ``Recommender`` base.
+"""Recommendation models: NeuralCF and its ``Recommender`` base, and the
+implicit-feedback samplers ``negative_sample`` (host) and
+``presample_implicit_epochs`` (on the device).
 
 NeuralCF: GMF embeddings ⊙ + an MLP tower over (user, item) ids, concat,
 class-softmax head.  The graph is built in the JAX package's order, so
@@ -14,6 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.core.context import resolve_device
 from analytics_zoo_tpu_torch.models.common import ZooModel, register_model
 from analytics_zoo_tpu_torch.nn import Input, Model
 from analytics_zoo_tpu_torch.nn.layers.core import Dense, Dropout, Flatten
@@ -139,3 +142,100 @@ class NeuralCF(Recommender):
         out = Dense(self.class_num, activation="softmax", name="ncf_head")(h)
         self._finish(Model([user, item], out, name="NeuralCF"))
         return self
+
+
+# ---------------------------------------------------------------------------
+# implicit-feedback sampling
+
+
+def negative_sample(user_ids: np.ndarray, item_ids: np.ndarray,
+                    item_count: int, neg_per_pos: int = 1, seed: int = 0
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Implicit-feedback negatives on the host (the JAX package's numpy
+    sampler, copied): for each positive (u, i) pair, ``neg_per_pos`` items
+    the user has not interacted with (up to 10 redraws).  Returns
+    shuffled (users, items, labels) with labels 1 / 0."""
+    rs = np.random.RandomState(seed)
+    seen = {}
+    for u, i in zip(user_ids, item_ids):
+        seen.setdefault(int(u), set()).add(int(i))
+    neg_u, neg_i = [], []
+    for u in user_ids:
+        s = seen[int(u)]
+        for _ in range(neg_per_pos):
+            j = int(rs.randint(1, item_count + 1))
+            tries = 0
+            while j in s and tries < 10:
+                j = int(rs.randint(1, item_count + 1))
+                tries += 1
+            neg_u.append(u)
+            neg_i.append(j)
+    users = np.concatenate([user_ids, np.asarray(neg_u)])
+    items = np.concatenate([item_ids, np.asarray(neg_i)])
+    labels = np.concatenate([np.ones(len(user_ids)), np.zeros(len(neg_u))])
+    perm = rs.permutation(len(users))
+    return users[perm], items[perm], labels[perm]
+
+
+def presample_implicit_epochs(user_ids, item_ids, item_count: int, *,
+                              epochs: int, neg_per_pos: int = 1,
+                              seed: int = 0, trim_multiple: int = 1,
+                              user_count: Optional[int] = None,
+                              device=None,
+                              generator: Optional[torch.Generator] = None):
+    """Negative sampling for every epoch, on the device.
+
+    For each epoch, every positive (u, i) contributes itself and
+    ``neg_per_pos`` uniform negatives in [1, item_count], redrawn against
+    the user's seen items in three fixed rejection rounds over a dense
+    (users + 1, items + 1) seen-matrix (a negative stays seen only at odds
+    of about (seen / item_count)^4); item 0, the pad row, is never drawn.
+    The epoch's stream is then permuted and trimmed to a multiple of
+    ``trim_multiple`` (pass the batch size so ``fit`` drops nothing).
+
+    Draws come from ``generator`` (a ``torch.Generator`` on ``device``;
+    default one seeded with ``seed``), not ``jax.random``'s bits.
+    Returns ``(users, items, labels)``, (epochs, S) int32 tensors on
+    ``device`` — feed epoch slices to ``fit`` for device-resident
+    training.
+    """
+    device = resolve_device(device)
+    n_pos = int(len(user_ids))
+    uc = int(user_count if user_count is not None else np.max(user_ids))
+    pos_u = torch.as_tensor(np.asarray(user_ids, np.int64), device=device)
+    pos_i = torch.as_tensor(np.asarray(item_ids, np.int64), device=device)
+    seen = torch.zeros((uc + 1, item_count + 1), dtype=torch.bool,
+                       device=device)
+    seen[pos_u, pos_i] = True
+    seen[:, 0] = True                          # pad item never sampled
+    s_raw = n_pos * (1 + neg_per_pos)
+    s_out = (s_raw // trim_multiple) * trim_multiple
+    if s_out == 0:
+        raise ValueError(
+            f"trim_multiple={trim_multiple} exceeds the epoch stream "
+            f"({s_raw} samples = {n_pos} positives x (1+{neg_per_pos}))")
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    neg_u = pos_u.repeat_interleave(neg_per_pos)
+    labels = torch.cat([torch.ones(n_pos, dtype=torch.int32, device=device),
+                        torch.zeros(n_pos * neg_per_pos, dtype=torch.int32,
+                                    device=device)])
+    users = torch.cat([pos_u, neg_u])
+
+    def draw():
+        return torch.randint(1, item_count + 1, neg_u.shape,
+                             generator=generator, device=device)
+
+    out_u, out_i, out_l = [], [], []
+    for _ in range(epochs):
+        neg_i = draw()
+        for _ in range(3):                     # fixed rejection rounds
+            neg_i = torch.where(seen[neg_u, neg_i], draw(), neg_i)
+        items = torch.cat([pos_i, neg_i])
+        perm = torch.randperm(s_raw, generator=generator,
+                              device=device)[:s_out]
+        out_u.append(users[perm])
+        out_i.append(items[perm])
+        out_l.append(labels[perm])
+    return (torch.stack(out_u).to(torch.int32),
+            torch.stack(out_i).to(torch.int32), torch.stack(out_l))

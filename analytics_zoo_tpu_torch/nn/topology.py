@@ -3,7 +3,8 @@
 Both own their layers as submodules, keyed by layer name, so
 ``params()`` returns the JAX package's tree layout
 (``{layer_name: {leaf: tensor}}``, empty dicts for weightless layers).
-Training (``compile``/``fit``) belongs to a later slice.
+``compile`` / ``fit`` / ``evaluate`` / ``predict`` are thin facades over
+``train.Estimator``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +19,20 @@ from analytics_zoo_tpu_torch.nn.module import Layer
 
 
 class KerasNet(Layer):
-    """Shared base of Sequential and Model."""
+    """Shared base of Sequential and Model: the compile / fit / evaluate /
+    predict facade over ``train.Estimator``."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self._estimator = None          # created by compile()
+        self._pending_init = None       # set_initial_weights before it
+
+    def __getstate__(self):
+        """A copy (``copy.deepcopy``, pickle) carries the net's weights,
+        not its estimator: serving copies stay small."""
+        state = dict(self.__dict__)
+        state["_estimator"] = state["_pending_init"] = None
+        return state
 
     @property
     def layers(self) -> List[Layer]:
@@ -26,6 +40,76 @@ class KerasNet(Layer):
 
     def params(self) -> Dict[str, Dict[str, object]]:
         return {layer.name: layer.params() for layer in self.layers}
+
+    def regularization_loss(self):
+        """Sum of every layer's weight penalty (``w_regularizer`` /
+        ``b_regularizer``), added to the training objective by the
+        Estimator; 0.0 when no layer has one."""
+        total = 0.0
+        for layer in self.layers:
+            fn = getattr(layer, "regularization_loss", None)
+            if fn is not None:
+                total = total + fn()
+        return total
+
+    # -- training facade (delegates to train.Estimator) -------------------
+    def compile(self, optimizer, loss, metrics=None, device=None):
+        """Configure training: ``optimizer`` / ``loss`` / ``metrics`` take
+        Keras names or objects; ``device`` defaults to the context's,
+        else ``cuda``.  Re-compiling keeps the live weights (they live in
+        this net); weights staged by ``set_initial_weights`` — before this
+        call, or on the previous estimator and not yet applied — carry
+        over."""
+        from analytics_zoo_tpu_torch.train.estimator import Estimator
+
+        prev = self._estimator
+        self._estimator = Estimator(self, optimizer=optimizer, loss=loss,
+                                    metrics=metrics, device=device)
+        carried = prev._initial_weights if prev is not None else None
+        if self._pending_init is not None:
+            carried, self._pending_init = self._pending_init, None
+        if carried is not None:
+            self._estimator.set_initial_weights(carried)
+        return self
+
+    def set_initial_weights(self, params, state=None):
+        """Seed weights by layer name (``{layer: {leaf: array}}``) before
+        or after ``compile``; uncovered layers warn at build."""
+        if self._estimator is not None:
+            self._estimator.set_initial_weights(params, state)
+        else:
+            self._pending_init = params
+        return self
+
+    @property
+    def estimator(self):
+        if self._estimator is None:
+            raise RuntimeError("call compile(optimizer, loss) before "
+                               "fit/evaluate")
+        return self._estimator
+
+    def fit(self, x, y=None, batch_size: int = 32,
+            nb_epoch: Optional[int] = None, validation_data=None,
+            epochs: Optional[int] = None, **kw):
+        """``nb_epoch`` and ``epochs`` are aliases; pass one of them."""
+        if nb_epoch is not None and epochs is not None:
+            raise ValueError(
+                "pass either nb_epoch= or epochs= (aliases), not both")
+        n = nb_epoch if nb_epoch is not None else (
+            epochs if epochs is not None else 1)
+        return self.estimator.fit(x, y, batch_size=batch_size, epochs=n,
+                                  validation_data=validation_data, **kw)
+
+    def evaluate(self, x, y=None, batch_size: int = 32):
+        return self.estimator.evaluate(x, y, batch_size=batch_size)
+
+    def predict(self, x, batch_size: int = 32):
+        return self.estimator.predict(x, batch_size=batch_size)
+
+    def predict_classes(self, x, batch_size: int = 32,
+                        zero_based_label: bool = True):
+        return self.estimator.predict_classes(
+            x, batch_size=batch_size, zero_based_label=zero_based_label)
 
 
 class Sequential(KerasNet):

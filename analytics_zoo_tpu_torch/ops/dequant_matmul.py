@@ -13,8 +13,11 @@ to the JAX package's, so quantized trees interchange.
 
 Routing (``ops.dispatch.select_path``): a CUDA tensor launches the kernel
 or raises; a CPU tensor takes the plain version.  Like the JAX package's
-``dequant_matmul`` it has no config knob.  Forward only: serving never
-differentiates it.
+``dequant_matmul`` it has no config knob.  Differentiable with respect to
+``x`` on every path, by the JAX package's rule ``dx = g @ (dequant(q) *
+scale).T`` — a plain matrix product (``torch.matmul``), which the JAX
+package also leaves outside its kernel; ``q`` and ``scale`` get no
+gradient.
 """
 
 from __future__ import annotations
@@ -158,5 +161,36 @@ def dequant_matmul(x, q, scale, bits: int = 8, rows: Optional[int] = None):
         shape=f"a {q.ndim}-D weight {tuple(q.shape)} (it takes (K, N))")
     if path == dispatch.PATH_REFERENCE:
         return dequant_matmul_reference(x, q, scale, bits, rows)
-    out = _launch(x.reshape(-1, k), q, scale, bits)
+    save = torch.is_grad_enabled() and x.requires_grad
+    out = _DequantMatmul.apply(x.reshape(-1, k), q, scale, bits, save)
     return out.reshape(lead + (q.shape[1],))
+
+
+def _dequant(q, scale, bits, rows):
+    """(rows, N) f32 weight from int8 or packed-int4 ``q``."""
+    if bits == 4:
+        q = unpack_int4(q, rows)
+    return q[:rows].to(torch.float32) * scale.reshape(1, -1)
+
+
+class _DequantMatmul(torch.autograd.Function):
+    """The kernel's forward; the backward is the JAX package's rule
+    ``dx = g @ w.T`` with ``w`` dequantized in device memory, and no
+    gradient for ``q`` or ``scale``.  ``save`` is False when the caller's
+    grad mode is off, so serving keeps nothing."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, bits, save):
+        if save:
+            ctx.save_for_backward(q, scale)
+        ctx.bits, ctx.k = bits, x.shape[1]
+        return _launch(x, q, scale, bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = None
+        if ctx.needs_input_grad[0]:
+            q, scale = ctx.saved_tensors
+            w = _dequant(q, scale, ctx.bits, ctx.k)
+            dx = torch.matmul(g.to(torch.float32), w.t()).to(g.dtype)
+        return dx, None, None, None, None

@@ -1,16 +1,27 @@
-"""Fused embedding-bag forward (multi-hot gather + combine).
+"""Fused embedding bag (multi-hot gather + combine), forward and backward.
 
-The plain PyTorch version (``embedding_bag_reference``) gathers the
-(B, N, D) rows into device memory and reduces them; the CUDA kernel
-(``csrc/embedding_bag.cu``, the port of the JAX package's Pallas
-``_fwd_kernel``) reads each row once and writes only the (B, D) result.
+The plain PyTorch versions (``embedding_bag_reference`` and
+``embedding_bag_backward_reference``) gather the (B, N, D) rows, or
+scatter the (B, N, D) contributions, through device memory; the CUDA
+kernels (``csrc/embedding_bag.cu``, the ports of the JAX package's Pallas
+``_fwd_kernel`` and ``_bwd_kernel``) read each row once and write only
+the (B, D) result, and scatter ``scale_b * g[b]`` straight into the
+(V, D) table gradient.
 
 Routing (``ops.dispatch.select_path``, knob ``ZooConfig.fused_embedding``):
 a CUDA tensor launches the kernel unless the knob says ``off``; a CPU
 tensor takes the plain version.  For a CUDA tensor the wrapper launches or
 raises — it never falls back.  Out-of-range ids clip to ``[0, V-1]`` on
-both paths (the rule of the TPU kernel).  Forward only: the backward
-kernel belongs to the training slice.
+both paths (the rule of the TPU kernel).
+
+Both lookups are one ``torch.autograd.Function`` (``_Bag``) on every
+device, differentiable with respect to the table: the forward saves only
+the ids and the table's shape (nothing under ``torch.no_grad`` or
+``torch.inference_mode``), and the backward is the scatter kernel, or
+its plain version on the CPU.  The backward is the true gradient of this
+forward: every live slot (``id != pad_id``, every slot when ``pad_id`` is
+None) scatters to its clipped row, negative ids included — where the JAX
+kernel, with ``pad_id=None``, skips negative ids.
 """
 
 from __future__ import annotations
@@ -25,14 +36,16 @@ COMBINERS = ("sum", "mean", "sqrtn")
 _COMBINER_CODE = {"sum": 0, "mean": 1, "sqrtn": 2}
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
-# one per launch of the CUDA kernel, nowhere else
-LAUNCHES = dispatch.LaunchCount()
+# one per launch of each CUDA kernel, nowhere else
+LAUNCHES = dispatch.LaunchCount()           # forward
+BWD_LAUNCHES = dispatch.LaunchCount()       # backward
 
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+         ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
-    "zoo_embedding_bag_fwd_f32": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "zoo_embedding_bag_fwd_f32": (ctypes.c_int, _ARGS),
+    "zoo_embedding_bag_bwd_f32": (ctypes.c_int, _ARGS),
     "zoo_embedding_bag_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -47,17 +60,22 @@ def _check_args(table, ids, combiner):
                          f"got {combiner!r}")
 
 
-def _bag_mask(ids, pad_id):
-    """(B, N) f32 validity mask; ``pad_id=None`` means every slot counts."""
+def _acc_dtype(dtype):
+    """Accumulation type: f32, or f64 for an f64 table (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _bag_mask(ids, pad_id, dtype=torch.float32):
+    """(B, N) validity mask; ``pad_id=None`` means every slot counts."""
     if pad_id is None:
-        return torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
-    return (ids != pad_id).to(torch.float32)
+        return torch.ones(ids.shape, dtype=dtype, device=ids.device)
+    return (ids != pad_id).to(dtype)
 
 
 def _combiner_scale(mask, combiner):
-    """(B, 1) f32 per-bag weight applied after the masked sum."""
+    """(B, 1) per-bag weight applied after the masked sum."""
     if combiner == "sum":
-        return torch.ones((mask.shape[0], 1), dtype=torch.float32,
+        return torch.ones((mask.shape[0], 1), dtype=mask.dtype,
                           device=mask.device)
     n = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
     return 1.0 / (n if combiner == "mean" else torch.sqrt(n))
@@ -74,27 +92,58 @@ def embedding_bag_reference(table, ids, combiner: str = "sum", pad_id=0):
     materialises the (B, N, D) gathered rows, which the kernel never
     does."""
     _check_args(table, ids, combiner)
-    mask = _bag_mask(ids, pad_id)
+    acc = _acc_dtype(table.dtype)
+    mask = _bag_mask(ids, pad_id, acc)
     rows = table[_clip_ids(ids, table.shape[0])]           # (B, N, D)
-    out = (rows.to(torch.float32) * mask[..., None]).sum(dim=1)
+    out = (rows.to(acc) * mask[..., None]).sum(dim=1)
     out = out * _combiner_scale(mask, combiner)
     return out.to(table.dtype)
+
+
+def embedding_bag_backward_reference(vocab: int, ids, g,
+                                     combiner: str = "sum", pad_id=0):
+    """Plain PyTorch version of the backward: the (vocab, D) table
+    gradient ``zeros.index_add_(0, clipped ids, (g * scale)[:, None] *
+    mask)`` — autograd of ``embedding_bag_reference``, with the (B, N, D)
+    contributions materialised.  f32 (f64 for an f64 ``g``)."""
+    if ids.ndim != 2 or g.ndim != 2 or g.shape[0] != ids.shape[0]:
+        raise ValueError(f"ids (bags, max_nnz) and g (bags, dim) must "
+                         f"agree, got {tuple(ids.shape)} and "
+                         f"{tuple(g.shape)}")
+    acc = _acc_dtype(g.dtype)
+    mask = _bag_mask(ids, pad_id, acc)
+    g_scaled = g.to(acc) * _combiner_scale(mask, combiner)   # (B, D)
+    contrib = g_scaled[:, None, :] * mask[..., None]         # (B, N, D)
+    dim = g.shape[1]
+    return torch.zeros((vocab, dim), dtype=acc, device=g.device).index_add_(
+        0, _clip_ids(ids, vocab).reshape(-1), contrib.reshape(-1, dim))
 
 
 def _lib():
     return _build.library("embedding_bag", _SIGNATURES)
 
 
+def _check_pad(pad_id):
+    if pad_id is not None and not _INT32[0] <= int(pad_id) <= _INT32[1]:
+        raise ValueError(f"pad_id {pad_id} does not fit int32")
+
+
+def _raise_on(rc, what, shapes):
+    if rc != 0:
+        msg = _lib().zoo_embedding_bag_error_string(rc).decode()
+        raise RuntimeError(f"embedding_bag {what} CUDA kernel launch failed "
+                           f"({msg}) for {shapes}")
+
+
 def _launch(table, ids, combiner, pad_id):
-    """Run the CUDA kernel on (V, D) ``table`` and (B, N) ``ids``."""
+    """Run the forward kernel on (V, D) ``table`` and (B, N) ``ids``."""
     if table.device.type != "cuda" or ids.device != table.device:
         raise ValueError(f"embedding_bag kernel needs table and ids on one "
                          f"CUDA device, got {table.device} and {ids.device}")
     if table.dtype != torch.float32:
         raise TypeError(f"embedding_bag kernel takes a float32 table, "
                         f"got {table.dtype}")
-    if pad_id is not None and not _INT32[0] <= int(pad_id) <= _INT32[1]:
-        raise ValueError(f"pad_id {pad_id} does not fit int32")
+    _check_pad(pad_id)
     vocab, dim = table.shape
     ids32 = ids.to(torch.int32).contiguous()
     table = table.contiguous()
@@ -109,13 +158,90 @@ def _launch(table, ids, combiner, pad_id):
             bags, nnz, int(pad_id is not None),
             0 if pad_id is None else int(pad_id), _COMBINER_CODE[combiner],
             stream)
-    if rc != 0:
-        msg = _lib().zoo_embedding_bag_error_string(rc).decode()
-        raise RuntimeError(
-            f"embedding_bag CUDA kernel launch failed ({msg}) for table "
-            f"{tuple(table.shape)} and ids {tuple(ids32.shape)}")
+    _raise_on(rc, "forward",
+              f"table {tuple(table.shape)} and ids {tuple(ids32.shape)}")
     LAUNCHES.add()
     return out
+
+
+def _launch_bwd(vocab, ids, g, combiner, pad_id):
+    """Run the backward kernel: (B, N) ``ids`` and (B, D) ``g`` into a
+    fresh (vocab, D) f32 gradient, zero-filled by the kernel's entry."""
+    if g.device.type != "cuda" or ids.device != g.device:
+        raise ValueError(f"embedding_bag backward kernel needs ids and g on "
+                         f"one CUDA device, got {ids.device} and {g.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"embedding_bag backward kernel takes a float32 "
+                        f"gradient, got {g.dtype}")
+    _check_pad(pad_id)
+    ids32 = ids.to(torch.int32).contiguous()
+    g = g.contiguous()
+    bags, nnz = ids32.shape
+    dim = g.shape[1]
+    if bags == 0:
+        return torch.zeros((vocab, dim), dtype=torch.float32, device=g.device)
+    dtab = torch.empty((vocab, dim), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().zoo_embedding_bag_bwd_f32(
+            ids32.data_ptr(), g.data_ptr(), dtab.data_ptr(), vocab, dim,
+            bags, nnz, int(pad_id is not None),
+            0 if pad_id is None else int(pad_id), _COMBINER_CODE[combiner],
+            stream)
+    _raise_on(rc, "backward", f"table ({vocab}, {dim}), ids "
+              f"{tuple(ids32.shape)} and g {tuple(g.shape)}")
+    BWD_LAUNCHES.add()
+    return dtab
+
+
+def _knob():
+    return dispatch.config_knob("fused_embedding", "auto")
+
+
+def embedding_bag_backward(vocab: int, ids, g, combiner: str = "sum",
+                           pad_id=0):
+    """The (vocab, D) f32 gradient of ``embedding_bag`` with respect to
+    its table, for (B, N) ``ids`` and the (B, D) output gradient ``g``:
+    the scatter kernel for a CUDA tensor, the plain version on the CPU
+    (``select_path("embedding_bag_bwd")``, knob ``fused_embedding``)."""
+    path = dispatch.select_path("embedding_bag_bwd", device=g.device,
+                                knob=_knob())
+    if path == dispatch.PATH_REFERENCE:
+        return embedding_bag_backward_reference(vocab, ids, g, combiner,
+                                                pad_id)
+    return _launch_bwd(vocab, ids, g, combiner, pad_id)
+
+
+class _Bag(torch.autograd.Function):
+    """The bag lookup with its scatter backward.  ``path`` is the
+    forward's routing decision; ``save`` is False when the caller's grad
+    mode is off, so serving under ``inference_mode`` keeps nothing."""
+
+    @staticmethod
+    def forward(ctx, table, ids, combiner, pad_id, path, save):
+        if path == dispatch.PATH_REFERENCE:
+            out = embedding_bag_reference(table, ids, combiner, pad_id)
+        else:
+            out = _launch(table, ids, combiner, pad_id)
+        if save:
+            ctx.save_for_backward(ids)
+        ctx.vocab, ctx.dtype = table.shape[0], table.dtype
+        ctx.combiner, ctx.pad_id = combiner, pad_id
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        (ids,) = ctx.saved_tensors
+        dtab = embedding_bag_backward(ctx.vocab, ids, g, ctx.combiner,
+                                      ctx.pad_id)
+        return dtab.to(ctx.dtype), None, None, None, None, None
+
+
+def _apply(table, ids, combiner, pad_id, path):
+    save = torch.is_grad_enabled() and table.requires_grad
+    return _Bag.apply(table, ids, combiner, pad_id, path, save)
 
 
 def embedding_bag(table, ids, combiner: str = "sum", pad_id=0):
@@ -124,17 +250,16 @@ def embedding_bag(table, ids, combiner: str = "sum", pad_id=0):
     ``table`` (vocab, dim) float; ``ids`` (bags, max_nnz) int.  Slots
     equal to ``pad_id`` contribute nothing (``pad_id=None`` counts every
     slot).  ``combiner`` is ``"sum" | "mean" | "sqrtn"`` over each bag's
-    valid slots.  Out-of-range ids clip.
+    valid slots.  Out-of-range ids clip.  Differentiable with respect to
+    ``table``.
     """
     _check_args(table, ids, combiner)
     path = dispatch.select_path(
         "embedding_bag", device=table.device,
         shapes_ok=table.shape[0] >= 1,
         shape=f"an empty table {tuple(table.shape)}",
-        knob=dispatch.config_knob("fused_embedding", "auto"))
-    if path == dispatch.PATH_REFERENCE:
-        return embedding_bag_reference(table, ids, combiner, pad_id)
-    return _launch(table, ids, combiner, pad_id)
+        knob=_knob())
+    return _apply(table, ids, combiner, pad_id, path)
 
 
 def embedding_gather(table, ids):
@@ -143,13 +268,14 @@ def embedding_gather(table, ids):
     A gather is the degenerate bag (one id per bag, no combine): ids of
     any shape flatten to (num, 1) singleton bags and the result folds
     back to ``ids.shape + (dim,)``.  Ids clip like the bag's.
+    Differentiable with respect to ``table``.
     """
     if table.ndim != 2:
         raise ValueError(f"table must be (vocab, dim), got {tuple(table.shape)}")
     path = dispatch.select_path(
         "embedding_gather", device=table.device,
-        knob=dispatch.config_knob("fused_embedding", "auto"))
-    if path == dispatch.PATH_REFERENCE:
-        return table[_clip_ids(ids, table.shape[0])]
-    out = _launch(table, ids.reshape(-1, 1), "sum", None)
+        shapes_ok=table.shape[0] >= 1,
+        shape=f"an empty table {tuple(table.shape)}",
+        knob=_knob())
+    out = _apply(table, ids.reshape(-1, 1), "sum", None, path)
     return out.reshape(tuple(ids.shape) + (table.shape[1],))

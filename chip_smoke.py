@@ -7,27 +7,47 @@
    ``nvcc`` (one process per source, started together) and prints the
    card (``nvidia-smi --query-gpu=name,power.limit``).
 2. Kernel phase: each kernel against its plain PyTorch version on the
-   card, at the serving slice's shapes and at the repo's kernel-bench
-   shapes; times the kernel, the plain version and, where one exists, a
-   single PyTorch call computing the same function, beside the least
-   time the card could take (``bound_ms``: bytes over 3.35 TB/s or f32
+   card, at the slices' shapes and at the repo's kernel-bench shapes;
+   times the kernel, the plain version and, where one exists, a single
+   PyTorch call computing the same function, beside the least time the
+   card could take (``bound_ms``: bytes over 3.35 TB/s or f32
    operations over 67 TFLOP/s, the larger).  ``*_ms`` is device time
    (the calls captured in a CUDA graph and replayed, timed by CUDA
    events); ``*_call_ms`` is time per call from a host loop, launch
    cost included.
-   Tolerances: embedding bag rtol 1e-5 / atol 1e-5 elementwise;
+   Tolerances: embedding-bag forward rtol 1e-5 / atol 1e-5 elementwise;
+   embedding-bag backward atol 1e-6 plus rtol 1e-5 of the summed
+   magnitude of each element's contributions (|dT| itself where a row
+   gets one add; duplicate ids meet in f32 atomics whose order is free,
+   so a hot row's cancelling sum cannot be held to 1e-5 of itself);
    dequantize-matmul max |err| <= 1e-4 * max |plain| (K-long f32 sums
    in another order).
-3. Serving phase (the main path): NeuralCF at the MovieLens-1M width
-   (6040 users, 3706 items, embeds 20, MLP 40/20/10, 5 classes) with
-   seeded weights, served through ``InferenceModel`` in float32, int8
-   and int4: single requests from several threads through a
+3. Serving phase (the first main path): NeuralCF at the MovieLens-1M
+   width (6040 users, 3706 items, embeds 20, MLP 40/20/10, 5 classes)
+   with seeded weights, served through ``InferenceModel`` in float32,
+   int8 and int4: single requests from several threads through a
    ``DynamicBatcher`` and one ``recommend_for_user`` over every item.
    Kernel launch counts are zeroed just before and read just after; the
    outputs are held against the same model run with every kernel call
    routed to its plain version on the card (``ops.dispatch.forced``),
    atol 1e-5.
-4. Prints the kernels JSON line and, last, the ok line.
+4. Training phase (the second main path): the same NeuralCF trains
+   through ``compile`` / ``fit`` on ``generate_movielens_like(seed=0)``
+   (120,800 ratings, labels rating - 1) with Adam(lr=1e-3), batch 2048,
+   3 epochs of shuffled host arrays, then one device-resident epoch
+   from CUDA tensors; launch counts are zeroed just before and read just
+   after.  The same 3 epochs from the same initial weights run again
+   under ``forced("reference")``: the per-epoch losses must agree within
+   rtol 1e-4, and one step from the same weights and batch must give
+   weights within atol 1e-6; the loss must fall from epoch 1 to epoch
+   3; every step launches exactly 4 bag forwards, 4 bag backwards and
+   no dequantize-matmul.  The final weights after 3 epochs are reported
+   beside a second plain run's, not held to a bound: both backward
+   paths add duplicate ids with atomics in a free order, and Adam turns
+   those last-bit differences into larger ones on a few elements, so
+   two plain runs differ from each other too.  One more epoch runs
+   under ``torch.profiler`` for the device's busy share.
+5. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -47,8 +67,10 @@ PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 BAG_SRC = "analytics_zoo_tpu_torch/csrc/embedding_bag.cu"
 DQ_SRC = "analytics_zoo_tpu_torch/csrc/dequant_matmul.cu"
 BAG_TPU = "analytics_zoo_tpu/ops/embedding_bag.py:98"
+BAG_BWD_TPU = "analytics_zoo_tpu/ops/embedding_bag.py:183"
 DQ_TPU = "analytics_zoo_tpu/ops/dequant_matmul.py:112"
 USERS, ITEMS = 6040, 3706
+TRAIN_BATCH, TRAIN_EPOCHS = 2048, 3
 
 
 def log(*a):
@@ -168,6 +190,73 @@ def bag_case(torch, eb, label, vocab, dim, bags, nnz, combiner, pad_id,
     return case
 
 
+def zipf_ids(torch, gen, vocab, shape, s=1.0):
+    """Ids drawn with P(row k) proportional to 1 / (k + 1)^s: row 0 is
+    the hottest, as in skewed recommender traffic."""
+    weights = torch.arange(1, vocab + 1, device="cuda",
+                           dtype=torch.float64) ** -s
+    cdf = torch.cumsum(weights, 0)
+    u = torch.rand(shape, device="cuda", generator=gen,
+                   dtype=torch.float64) * cdf[-1]
+    return torch.searchsorted(cdf, u).clamp_(max=vocab - 1).to(torch.int32)
+
+
+def bag_bwd_case(torch, eb, label, vocab, dim, bags, nnz, combiner,
+                 pad_id, clip=False, zipf=False, iters=200):
+    g_ = torch.Generator(device="cuda").manual_seed(SEED + 7 * vocab + nnz)
+    if zipf:
+        ids = zipf_ids(torch, g_, vocab, (bags, nnz))
+    else:
+        lo, hi = (-vocab // 8, vocab + vocab // 8) if clip else (0, vocab)
+        ids = torch.randint(lo, hi, (bags, nnz), device="cuda",
+                            generator=g_, dtype=torch.int32)
+    if pad_id is not None:
+        ids[torch.rand(bags, nnz, device="cuda", generator=g_) < 0.25] = \
+            pad_id
+    grad = torch.randn(bags, dim, device="cuda", generator=g_)
+    got = eb.embedding_bag_backward(vocab, ids, grad, combiner, pad_id)
+    ref = eb.embedding_bag_backward_reference(vocab, ids, grad, combiner,
+                                              pad_id)
+    mass = eb.embedding_bag_backward_reference(vocab, ids, grad.abs(),
+                                               combiner, pad_id)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    ok = bool(torch.all(err <= 1e-6 + 1e-5 * mass))
+    live = (torch.ones_like(ids, dtype=torch.bool) if pad_id is None
+            else ids != pad_id)
+    n_live = int(live.sum())
+    # the same contributions for the one-call yardstick
+    mask = live.float()
+    scale = eb._combiner_scale(mask, combiner)
+    contrib = ((grad * scale)[:, None, :] * mask[..., None])[live]
+    lids = ids.long().clamp(0, vocab - 1)[live]
+
+    def library():
+        return torch.zeros(vocab, dim, device="cuda").index_add_(
+            0, lids, contrib)
+
+    rows = int(torch.unique(lids).numel())
+    case = {
+        "case": label, "vocab": vocab, "dim": dim, "bags": bags,
+        "nnz": nnz, "combiner": combiner, "pad_id": pad_id, "clip": clip,
+        "zipf": zipf, "live_slots": n_live, "distinct_rows": rows,
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / mass.clamp_min(1e-30)).max()),
+        **bound(4 * (vocab * dim + bags * dim + bags * nnz),
+                n_live * dim + bags * dim),
+        **timings(torch, {
+            "kernel": lambda: eb.embedding_bag_backward(
+                vocab, ids, grad, combiner, pad_id),
+            "plain": lambda: eb.embedding_bag_backward_reference(
+                vocab, ids, grad, combiner, pad_id),
+            "library": library}, iters),
+    }
+    if not ok:
+        raise AssertionError(f"embedding_bag backward kernel disagrees with "
+                             f"its plain version: {case}")
+    return case
+
+
 def dq_case(torch, dq, label, m, k, n, bits, iters=200):
     rs = np.random.RandomState(SEED + m + k + bits)
     w = torch.from_numpy(rs.randn(k, n).astype(np.float32))
@@ -212,6 +301,19 @@ def kernel_phase(torch, eb, dq):
                 pad_id, iters=20))
     bag_cases.append(bag_case(torch, eb, "large_clip", 1 << 20, 64, 4096,
                               32, "sum", None, clip=True, iters=20))
+    bwd_cases = [bag_bwd_case(torch, eb, "slice", USERS + 1, 20,
+                              TRAIN_BATCH, 1, "sum", None),
+                 bag_bwd_case(torch, eb, "slice", ITEMS + 1, 20,
+                              TRAIN_BATCH, 1, "sum", None)]
+    for combiner in ("sum", "mean", "sqrtn"):
+        for pad_id in (None, 0):
+            bwd_cases.append(bag_bwd_case(
+                torch, eb, "large", 1 << 20, 64, 4096, 32, combiner, pad_id,
+                iters=20))
+    bwd_cases.append(bag_bwd_case(torch, eb, "large_zipf", 1 << 20, 64, 4096,
+                                  32, "sum", None, zipf=True, iters=20))
+    bwd_cases.append(bag_bwd_case(torch, eb, "large_clip", 1 << 20, 64, 4096,
+                                  32, "sum", None, clip=True, iters=20))
     for bits in (8, 4):
         for m in (1, 8, 64, 256):
             dq_cases.append(dq_case(torch, dq, "slice", m, 40, 40, bits))
@@ -219,9 +321,9 @@ def kernel_phase(torch, eb, dq):
                                 iters=10))
     dq_cases.append(dq_case(torch, dq, "large_odd_k", 1024, 4095, 4096, 4,
                             iters=10))
-    for c in bag_cases + dq_cases:
+    for c in bag_cases + bwd_cases + dq_cases:
         log("kernel_case", json.dumps(c))
-    return bag_cases, dq_cases
+    return bag_cases, bwd_cases, dq_cases
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +392,7 @@ def serving_phase(torch, eb, dq):
     # the main path's window: the launch counts start at 0 here, and the
     # routing counters are read as the window since this snapshot
     eb.LAUNCHES.reset()
+    eb.BWD_LAUNCHES.reset()
     dq.LAUNCHES.reset()
     window = METRICS.snapshot()
     for wd in ("float32", "int8", "int4"):
@@ -351,6 +454,196 @@ def serving_phase(torch, eb, dq):
     if not all(routed.values()) or not all(launches.values()):
         raise AssertionError(f"main path missed a kernel: {launches} "
                              f"{routed}")
+    if eb.BWD_LAUNCHES.value:
+        raise AssertionError("serving launched the backward kernel")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# training phase
+
+
+def train_ncf(torch, init, u, i, y, epochs=TRAIN_EPOCHS):
+    """NeuralCF at the ML-1M width from ``init``, ``epochs`` epochs of
+    shuffled host arrays; returns the model and its history."""
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    reset_name_scope()
+    ncf = NeuralCF(USERS, ITEMS, class_num=5, user_embed=20, item_embed=20,
+                   hidden_layers=(40, 20, 10), mf_embed=20, device="cuda")
+    load_jax_params(ncf.model, init)
+    ncf.compile(optimizer=Adam(lr=1e-3),
+                loss="sparse_categorical_crossentropy", metrics=["accuracy"])
+    hist = ncf.fit([u, i], y, batch_size=TRAIN_BATCH, epochs=epochs,
+                   shuffle=True, verbose=False)
+    return ncf, [dict(h) for h in hist]
+
+
+def max_diff(a, b):
+    """Largest |a - b| over two weight trees, and how many elements
+    differ by more than 1e-4."""
+    d = [np.abs(a[k][j] - b[k][j]) for k in a for j in a[k]]
+    return float(max(x.max() for x in d)), int(sum((x > 1e-4).sum()
+                                                   for x in d))
+
+
+def rates(hist, steps):
+    """Samples/s (epochs 2 and later: the first holds warm-up) and ms per
+    step, from the epochs' host clocks (each epoch ends in its one read
+    of the device)."""
+    per_s = [h["throughput"] for h in hist[1:]]
+    sps = float(np.mean(per_s))
+    return {"samples_per_s": sps, "samples_per_s_epochs": per_s,
+            "ms_per_step": 1e3 * TRAIN_BATCH / sps, "steps_per_epoch": steps,
+            "epoch_loss": [h["loss"] for h in hist]}
+
+
+def profile_epoch(torch, ncf, u, i, y):
+    """One more host-array epoch of the trained model under
+    ``torch.profiler``: device time per step (the kernels' self time
+    summed) against the epoch's wall time per step, so the device's busy
+    share says how far the host's launch work holds the card back.  The
+    profiler's own cost is inside the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    epochs = ncf.estimator.finished_epochs + 1
+    steps0 = ncf.estimator.global_step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ncf.fit([u, i], y, batch_size=TRAIN_BATCH, epochs=epochs,
+                verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = ncf.estimator.global_step - steps0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    busy = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    out = {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+           "device_ms_per_step": busy / steps if events else None,
+           "device_busy_share": busy / (1e3 * wall) if events else None,
+           "top_device_ms_per_step": {e.key[:60]: device_us(e) / 1e3 / steps
+                                      for e in top}}
+    log("training_profile", json.dumps(out))
+    return out
+
+
+def training_phase(torch, eb, dq):
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.data import generate_movielens_like
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+
+    init_zoo_context()
+    users, items, ratings = generate_movielens_like(seed=SEED)
+    u = users[:, None].astype(np.int32)
+    i = items[:, None].astype(np.int32)
+    y = (ratings - 1).astype(np.int32)
+    steps = len(y) // TRAIN_BATCH
+    reset_name_scope()
+    init = export_params(NeuralCF(USERS, ITEMS, device="cuda").model)
+
+    # the main path's window: counts start at 0 here, read after the
+    # device-resident epoch
+    eb.LAUNCHES.reset()
+    eb.BWD_LAUNCHES.reset()
+    dq.LAUNCHES.reset()
+    ncf, hist = train_ncf(torch, init, u, i, y)
+    host_steps = ncf.estimator.global_step
+    after_host = (eb.LAUNCHES.value, eb.BWD_LAUNCHES.value, dq.LAUNCHES.value)
+    weights = export_params(ncf.model)
+    cuda_in = [torch.from_numpy(a).cuda() for a in (u, i, y)]
+    t0 = time.perf_counter()
+    res_hist = ncf.fit(cuda_in[:2], cuda_in[2], batch_size=TRAIN_BATCH,
+                       epochs=TRAIN_EPOCHS + 1, verbose=False)
+    torch.cuda.synchronize()
+    res_wall = time.perf_counter() - t0
+    path = ncf.estimator.last_data_path
+    total_steps = ncf.estimator.global_step
+    launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                "embedding_bag_bwd": eb.BWD_LAUNCHES.value,
+                "dequant_matmul": dq.LAUNCHES.value}
+
+    ev = ncf.evaluate([u, i], y, batch_size=8192)
+    probs = ncf.predict([u[:4096], i[:4096]], batch_size=1024)
+
+    # the same three epochs through the plain versions, on the card, twice:
+    # the second run is the yardstick of the plain path's own order noise
+    before = (eb.LAUNCHES.value, eb.BWD_LAUNCHES.value, dq.LAUNCHES.value)
+    with forced(PATH_REFERENCE):
+        ref, ref_hist = train_ncf(torch, init, u, i, y)
+        ref2, _ = train_ncf(torch, init, u, i, y)
+        plain_step, _ = train_ncf(torch, init, u[:TRAIN_BATCH],
+                                  i[:TRAIN_BATCH], y[:TRAIN_BATCH], epochs=1)
+    plain_launched = (eb.LAUNCHES.value, eb.BWD_LAUNCHES.value,
+                      dq.LAUNCHES.value) != before
+    kernel_step, _ = train_ncf(torch, init, u[:TRAIN_BATCH], i[:TRAIN_BATCH],
+                               y[:TRAIN_BATCH], epochs=1)
+    step_err, _ = max_diff(export_params(kernel_step.model),
+                           export_params(plain_step.model))
+    loss = [h["loss"] for h in hist]
+    ref_loss = [h["loss"] for h in ref_hist]
+    ref_weights = export_params(ref.model)
+    w_err, w_far = max_diff(weights, ref_weights)
+    noise_err, noise_far = max_diff(export_params(ref2.model), ref_weights)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss, ref_loss))
+    moved = {k: float(np.abs(weights[k]["table"] - init[k]["table"]).max())
+             for k in weights if k.endswith("_embed")}
+    out = {
+        "data": {"ratings": int(len(y)), "users": USERS, "items": ITEMS,
+                 "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS},
+        "kernels": rates(hist, steps), "plain": rates(ref_hist, steps),
+        "resident_epoch": {"loss": res_hist[-1]["loss"],
+                           "samples_per_s": res_hist[-1]["throughput"],
+                           "wall_s": res_wall, "path": path},
+        "loss_max_rel_diff_vs_plain": loss_rel,
+        "one_step_weights_max_abs_diff_vs_plain": step_err,
+        "weights_max_abs_diff_vs_plain": w_err,
+        "weights_beyond_1e-4_vs_plain": w_far,
+        "plain_vs_plain_weights_max_abs_diff": noise_err,
+        "plain_vs_plain_weights_beyond_1e-4": noise_far,
+        "tables_max_abs_move": moved, "evaluate": ev,
+        "launches": launches, "steps": total_steps,
+        "launches_per_step": {k: v / total_steps
+                              for k, v in launches.items()},
+    }
+    out["profile"] = profile_epoch(torch, ncf, u, i, y)
+    log("training", json.dumps(out))
+    want = (4 * host_steps, 4 * host_steps, 0)
+    if after_host != want or path != "device_resident" or tuple(
+            launches.values()) != (4 * total_steps, 4 * total_steps, 0):
+        raise AssertionError(
+            f"training launches {after_host} after {host_steps} host steps "
+            f"(want {want}), {launches} after {total_steps} steps, data "
+            f"path {path}")
+    if plain_launched:
+        raise AssertionError("a kernel launched on the plain path")
+    if (probs.shape != (4096, 5) or not np.all(np.isfinite(probs))
+            or not np.allclose(probs.sum(-1), 1.0, atol=1e-5)
+            or not all(np.isfinite(v) for v in ev.values())):
+        raise AssertionError(f"bad evaluate/predict: {ev} {probs.shape}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"loss did not fall: {loss}")
+    if loss_rel > 1e-4 or step_err > 1e-6:
+        raise AssertionError(f"kernel training disagrees with the plain "
+                             f"path: losses {loss} vs {ref_loss}, one-step "
+                             f"weights max |diff| {step_err}")
+    if not all(np.all(np.isfinite(w)) for t in weights.values()
+               for w in t.values()):
+        raise AssertionError("non-finite weights after training")
+    if not all(v > 0 for v in moved.values()) or len(moved) != 4:
+        raise AssertionError(f"an embedding table did not train: {moved}")
     return launches
 
 
@@ -400,16 +693,27 @@ def main() -> int:
             ln.strip() for ln in path.with_suffix(".log").read_text()
             .splitlines() if "registers" in ln or "spill" in ln))
 
-    bag_cases, dq_cases = kernel_phase(torch, eb, dq)
-    launches = serving_phase(torch, eb, dq)
+    bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
+    served = serving_phase(torch, eb, dq)
+    trained = training_phase(torch, eb, dq)
+    fwd_by_path = {"serving": served["embedding_bag"],
+                   "training": trained["embedding_bag_fwd"]}
     kernels = [
         headline(bag_cases, "embedding_bag_fwd", "cuda", BAG_SRC, BAG_TPU,
-                 launches["embedding_bag"],
+                 sum(fwd_by_path.values()),
                  lambda c: c["vocab"] == USERS + 1 and c["bags"] == 256),
+        headline(bwd_cases, "embedding_bag_bwd", "cuda", BAG_SRC,
+                 BAG_BWD_TPU, trained["embedding_bag_bwd"],
+                 lambda c: c["vocab"] == USERS + 1),
         headline(dq_cases, "dequant_matmul", "cuda", DQ_SRC, DQ_TPU,
-                 launches["dequant_matmul"],
+                 served["dequant_matmul"],
                  lambda c: c["m"] == 256 and c["bits"] == 8),
     ]
+    kernels[0]["launches_by_path"] = fwd_by_path
+    kernels[1]["launches_by_path"] = {"training": trained[
+        "embedding_bag_bwd"]}
+    kernels[2]["launches_by_path"] = {"serving": served["dequant_matmul"],
+                                      "training": trained["dequant_matmul"]}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

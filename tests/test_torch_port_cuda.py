@@ -116,3 +116,108 @@ def test_ncf_serving_on_card_matches_cpu(cuda_device, weight_dtype):
     assert tdq.LAUNCHES.value - d0 == (0 if weight_dtype == "float32"
                                        else 2)
     np.testing.assert_allclose(got, cpu.predict([u, i]), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", teb.COMBINERS)
+@pytest.mark.parametrize("pad_id", [0, None])
+def test_bag_backward_kernel_matches_plain_on_card(cuda_device, combiner,
+                                                   pad_id):
+    """The scatter kernel against the plain backward: duplicates within
+    and across bags, the clip rule, an all-pad bag.  Atomic adds sum the
+    duplicates in a run-dependent order: rtol 1e-5, atol 1e-6."""
+    _, ids = _bag_inputs(6041, 20, 515, 4, pad_id, seed=2)
+    ids[1, :] = 7
+    ids[2:40, 0] = 7
+    ids[3, 1], ids[4, 2] = -7, 10 ** 6
+    rs = np.random.RandomState(3)
+    g = torch.from_numpy(rs.randn(515, 20).astype(np.float32)).to(cuda_device)
+    i = torch.from_numpy(ids).to(cuda_device)
+    n0 = teb.BWD_LAUNCHES.value
+    got = teb.embedding_bag_backward(6041, i, g, combiner, pad_id)
+    torch.cuda.synchronize()
+    assert teb.BWD_LAUNCHES.value == n0 + 1
+    want = teb.embedding_bag_backward_reference(6041, i, g, combiner, pad_id)
+    # rtol against the summed magnitude of each element's contributions
+    # (|dT| itself where a row gets one add): the atomic order is free
+    mass = teb.embedding_bag_backward_reference(6041, i, g.abs(), combiner,
+                                                pad_id)
+    assert bool(((got - want).abs() <= 1e-6 + RTOL * mass).all())
+    empty = teb.embedding_bag_backward(6041, i[:0], g[:0], combiner, pad_id)
+    assert teb.BWD_LAUNCHES.value == n0 + 1 and not empty.any()
+
+
+@pytest.mark.cuda
+def test_gradient_through_the_function_on_card(cuda_device):
+    """Autograd through the bag and the gather on the card (both kernels)
+    equals the same graph under ``forced("reference")``."""
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    table, ids = _bag_inputs(3707, 20, 300, 3, 0, seed=4)
+    t = torch.from_numpy(table).to(cuda_device)
+    i = torch.from_numpy(ids).to(cuda_device)
+    cot = torch.randn(300, 20, device=cuda_device)
+
+    def grad():
+        leaf = t.clone().requires_grad_(True)
+        out = (teb.embedding_bag(leaf, i, "mean", 0) * cot).sum() \
+            + teb.embedding_gather(leaf, i[:, :1]).square().sum()
+        out.backward()
+        return leaf.grad
+
+    b0, f0 = teb.BWD_LAUNCHES.value, teb.LAUNCHES.value
+    got = grad()
+    assert (teb.LAUNCHES.value - f0, teb.BWD_LAUNCHES.value - b0) == (2, 2)
+    with dispatch.forced(dispatch.PATH_REFERENCE):
+        want = grad()
+    assert teb.BWD_LAUNCHES.value - b0 == 2
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ncf_fit_on_card_matches_plain_path(cuda_device):
+    """A few NCF steps on the card change all four tables (the gradients
+    reach them through the backward kernel) and agree with the same steps
+    through the plain versions on the card: losses within rtol 1e-4, and
+    one step's weights within atol 1e-6.  Weights after many steps are
+    not compared: duplicate ids add in a free atomic order on both paths,
+    and Adam can grow those last-bit differences on a few elements."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    rs = np.random.RandomState(0)
+    u = rs.randint(1, 201, (512, 1)).astype(np.int32)
+    i = rs.randint(1, 151, (512, 1)).astype(np.int32)
+    y = rs.randint(0, 5, 512).astype(np.int32)
+    params = None
+
+    def run(rows=512, epochs=2):
+        nonlocal params
+        reset_name_scope()
+        ncf = NeuralCF(200, 150, device=cuda_device)
+        if params is None:
+            params = export_params(ncf.model)
+        load_jax_params(ncf.model, params)
+        ncf.compile("adam", "sparse_categorical_crossentropy")
+        hist = ncf.fit([u[:rows], i[:rows]], y[:rows], batch_size=128,
+                       epochs=epochs, verbose=False)
+        return [h["loss"] for h in hist], export_params(ncf.model)
+
+    b0 = teb.BWD_LAUNCHES.value
+    loss, trained = run()
+    assert teb.BWD_LAUNCHES.value - b0 == 4 * 8          # 4 tables x 8 steps
+    for name in ("mlp_user_embed", "mlp_item_embed", "mf_user_embed",
+                 "mf_item_embed"):
+        assert not np.array_equal(trained[name]["table"],
+                                  params[name]["table"]), name
+    _, one = run(rows=128, epochs=1)
+    with dispatch.forced(dispatch.PATH_REFERENCE):
+        ref_loss, _ = run()
+        _, ref_one = run(rows=128, epochs=1)
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
+    for layer, leaves in ref_one.items():
+        for leaf, w in leaves.items():
+            np.testing.assert_allclose(one[layer][leaf], w, rtol=0,
+                                       atol=1e-6)

@@ -365,13 +365,19 @@ def test_graph_and_sequential_build_shapes():
 
 
 def test_port_imports_no_jax():
-    """Serving NCF through the port loads neither jax nor the JAX
-    package."""
+    """Training and serving NCF through the port load neither jax nor the
+    JAX package."""
     code = (
         "import sys, numpy as np\n"
+        "import analytics_zoo_tpu_torch.train.estimator\n"
+        "from analytics_zoo_tpu_torch.data import movielens_featureset\n"
         "from analytics_zoo_tpu_torch.models import NeuralCF\n"
         "from analytics_zoo_tpu_torch.deploy import InferenceModel\n"
         "ncf = NeuralCF(30, 20, device='cpu')\n"
+        "ncf.compile('adam', 'sparse_categorical_crossentropy',"
+        " metrics=['accuracy'])\n"
+        "ncf.fit([np.ones((8, 1), np.int32), np.ones((8, 1), np.int32)],"
+        " np.ones(8, np.int32), batch_size=4, epochs=1, verbose=False)\n"
         "m = InferenceModel.from_keras_net(ncf.model, weight_dtype='int4',"
         " device='cpu')\n"
         "out = m.predict([np.ones((3, 1), np.int32),"
