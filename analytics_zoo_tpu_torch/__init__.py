@@ -9,14 +9,16 @@ so every module here has one counterpart there:
 - ``robust``   — typed serving errors.
 - ``ops``      — hand-written CUDA kernels (``csrc/``) with their plain
                  PyTorch versions and the dispatch that chooses between
-                 them: the embedding-bag forward and backward, and the
-                 dequantize-matmul.
-- ``nn``       — layers as ``torch.nn.Module``s, the ``Input``/``Model``
-                 graph DSL with its compile/fit facade, losses, metrics,
-                 regularizers.
+                 them: the embedding-bag forward and backward, the
+                 dequantize-matmul and the flash-attention forward; the
+                 attention ops around the last.
+- ``nn``       — layers as ``torch.nn.Module``s (the attention layers and
+                 BERT among them), the ``Input``/``Model`` graph DSL with
+                 its compile/fit facade, losses, metrics, regularizers.
 - ``train``    — the ``Estimator`` and optax-equivalent optimizers.
 - ``data``     — ``FeatureSet`` (HOST / DEVICE cache levels), MovieLens.
 - ``models``   — NeuralCF and the implicit-feedback samplers.
+- ``tfpark``   — BERTClassifier, BERTNER and BERTSQuAD.
 - ``deploy``   — ``InferenceModel`` (int8/int4 weights) and
                  ``DynamicBatcher``.
 - ``convert``  — a JAX-package parameter tree into a port model and back.

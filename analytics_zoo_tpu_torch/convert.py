@@ -1,6 +1,13 @@
-"""Weights across packages, by layer and leaf name: load a JAX-package
-parameter tree into a port model (``load_jax_params``), and export a port
-model's weights as such a tree (``export_params``)."""
+"""Weights across packages, by key path: load a JAX-package parameter tree
+into a port model (``load_jax_params``), and export a port model's
+weights as such a tree (``export_params``).
+
+Trees nest as the JAX package's do — ``{layer_name: {leaf: array}}`` for
+flat layers, deeper for the attention layers (``{"enc0": {"attn": {"q":
+{"kernel", "bias"}}}}``), a stacked ``blocks`` sub-tree whose leaves carry
+a leading ``n_block`` dim, and entries that are not layers (BERTClassifier's
+``"head"``).  A quantized ``{"q"|"q4", "scale"}`` dict is a leaf wherever
+it sits."""
 
 from __future__ import annotations
 
@@ -14,6 +21,10 @@ def _as_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.detach()
     return torch.from_numpy(np.array(a))
+
+
+def _is_subtree(x) -> bool:
+    return isinstance(x, dict) and not is_qleaf(x)
 
 
 def _check_qleaf(where: str, want: tuple, leaf: dict) -> dict:
@@ -36,48 +47,6 @@ def _check_qleaf(where: str, want: tuple, leaf: dict) -> dict:
     return {kind: q, "scale": scale.to(torch.float32)}
 
 
-def load_jax_params(model, params) -> None:
-    """Fill ``model`` (a port ``KerasNet``) from ``params``, the JAX
-    package's tree ``{layer_name: {leaf: array}}`` — numpy arrays or
-    tensors, float leaves or quantized ``{"q"|"q4", "scale"}`` leaves.
-
-    Raises on a missing or extra layer or leaf, and on a leaf whose shape
-    does not fit; nothing is changed before every leaf has been checked.
-    """
-    layers = {layer.name: layer for layer in model.layers}
-    extra = sorted(set(params) - set(layers))
-    missing = sorted(set(layers) - set(params))
-    if extra or missing:
-        raise ValueError(f"parameter tree does not match the model: "
-                         f"missing layers {missing}, extra layers {extra}")
-    staged = []
-    for name, layer in layers.items():
-        have = layer.params()
-        given = params[name]
-        extra = sorted(set(given) - set(have))
-        missing = sorted(set(have) - set(given))
-        if extra or missing:
-            raise ValueError(f"layer {name}: missing leaves {missing}, "
-                             f"extra leaves {extra}")
-        for leaf, value in given.items():
-            cur = have[leaf]
-            want = (tuple(cur.shape) if not is_qleaf(cur) else
-                    _float_shape(cur))
-            where = f"{name}.{leaf}"
-            if is_qleaf(value):
-                staged.append((layer, leaf, _check_qleaf(where, want, value)))
-                continue
-            t = _as_tensor(value)
-            if tuple(t.shape) != want:
-                raise ValueError(f"{where}: shape {tuple(t.shape)} != "
-                                 f"model's {want}")
-            if t.is_floating_point() and not is_qleaf(cur):
-                t = t.to(cur.dtype)
-            staged.append((layer, leaf, t))
-    for layer, leaf, value in staged:
-        layer.set_leaf(leaf, value)
-
-
 def _float_shape(qleaf: dict) -> tuple:
     if "q4" in qleaf:
         rows, cols = qleaf["q4"].shape
@@ -85,15 +54,69 @@ def _float_shape(qleaf: dict) -> tuple:
     return tuple(qleaf["q"].shape)
 
 
+def _stage(have: dict, given, path: tuple, staged: list) -> None:
+    """Check ``given`` against the model's tree ``have`` under ``path``
+    and append ``(key path, value)`` for each leaf."""
+    where = ".".join(path)
+    if not _is_subtree(given):
+        raise ValueError(f"{where}: expected a sub-tree with keys "
+                         f"{sorted(have)}, got a leaf")
+    extra = sorted(set(given) - set(have))
+    missing = sorted(set(have) - set(given))
+    if extra or missing:
+        if not path:
+            raise ValueError(f"parameter tree does not match the model: "
+                             f"missing layers {missing}, extra layers "
+                             f"{extra}")
+        raise ValueError(f"{where}: missing leaves {missing}, extra leaves "
+                         f"{extra}")
+    for key, cur in have.items():
+        sub, value = path + (key,), given[key]
+        if _is_subtree(cur):
+            _stage(cur, value, sub, staged)
+            continue
+        where = ".".join(sub)
+        want = _float_shape(cur) if is_qleaf(cur) else tuple(cur.shape)
+        if _is_subtree(value):
+            raise ValueError(f"{where}: expected a leaf of shape {want}, "
+                             f"got a sub-tree")
+        if is_qleaf(value):
+            staged.append((sub, _check_qleaf(where, want, value)))
+            continue
+        t = _as_tensor(value)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{where}: shape {tuple(t.shape)} != "
+                             f"model's {want}")
+        if t.is_floating_point() and not is_qleaf(cur):
+            t = t.to(cur.dtype)
+        staged.append((sub, t))
+
+
+def load_jax_params(model, params) -> None:
+    """Fill ``model`` (a port ``KerasNet``, or any layer) from ``params``,
+    a JAX-package tree of numpy arrays or tensors, float leaves or
+    quantized ``{"q"|"q4", "scale"}`` leaves.
+
+    Raises on a missing or extra key or a leaf whose shape does not fit,
+    naming its full path; nothing is changed before every leaf has been
+    checked.
+    """
+    staged: list = []
+    _stage(model.params(), params, (), staged)
+    for path, value in staged:
+        model.set_leaf(path, value)
+
+
 def export_params(model) -> dict:
     """The reverse of ``load_jax_params``: ``model``'s weights as the JAX
-    package's tree ``{layer_name: {leaf: np.ndarray}}`` on the host (a
-    quantized leaf as its ``{"q"|"q4", "scale"}`` arrays).  The arrays
-    are copies: training the model on goes on without changing them."""
+    package's tree on the host (a quantized leaf as its ``{"q"|"q4",
+    "scale"}`` arrays).  The arrays are copies: training the model on
+    goes on without changing them."""
     def host(t):
+        if _is_subtree(t):
+            return {k: host(v) for k, v in t.items()}
+        if is_qleaf(t):
+            return {k: host(v) for k, v in t.items()}
         return t.detach().cpu().numpy().copy()
 
-    return {layer: {leaf: ({k: host(v) for k, v in value.items()}
-                           if is_qleaf(value) else host(value))
-                    for leaf, value in leaves.items()}
-            for layer, leaves in model.params().items()}
+    return host(model.params())

@@ -28,6 +28,11 @@ class ZooConfig:
     # channel and dequantize inside the serving forward — Dense kernels
     # through the fused dequantize-matmul kernel.
     serving_weight_dtype: str = "float32"
+    # Sequence shards for the attention layers (nn/layers/attention.py):
+    # > 1 routes self-attention through ring attention over that many
+    # devices, which needs the multi-GPU slice and raises until then;
+    # 0 = off.
+    seq_shards: int = 0
     # Seed of the default parameter-initialisation generator, of the
     # Estimator's shuffles and of its dropout generator.
     seed: int = 42

@@ -11,6 +11,11 @@ packages and weights carry across by name (``convert.load_jax_params``).
     output_shape(*input_shapes)      the output shape, without computing
     forward(*inputs)                 the computation
 
+A layer may own sub-layers under tree keys (``add_subtree``): its
+``params()`` then nests theirs, as the JAX package's trees nest (BERT's
+``{"enc0": {"attn": {"q": {"kernel", "bias"}}, "ln1": ...}}``), and
+``set_leaf`` takes a key path into them.
+
 A leaf may be held quantized — ``{"q", "scale"}`` (int8) or
 ``{"q4", "scale"}`` (packed int4), the serving tree's format.  ``leaf()``
 then returns it dequantized to f32, in the forward; a layer that can use
@@ -73,6 +78,8 @@ class Layer(nn.Module):
                             else None)
         self._leaf_names: list = []
         self._qkinds: Dict[str, str] = {}
+        # sub-layers by tree key (their params() nest under the key)
+        self._tree = nn.ModuleDict()
 
     # -- to be implemented by subclasses ---------------------------------
     def build(self, generator: torch.Generator, *input_shapes) -> None:
@@ -82,9 +89,26 @@ class Layer(nn.Module):
         return tuple(input_shapes[0])
 
     # -- generic machinery ------------------------------------------------
-    def set_leaf(self, name: str, value) -> None:
-        """Install leaf ``name``: a tensor (becomes a Parameter on the
+    def add_subtree(self, key: str, layer: "Layer") -> "Layer":
+        """Own ``layer`` under tree key ``key``; returns it."""
+        self._tree[key] = layer
+        return layer
+
+    def subtree(self, key: str) -> "Layer":
+        """The sub-layer whose leaves nest under ``key``."""
+        if key not in self._tree:
+            raise KeyError(f"{self.name} has no sub-tree {key!r}")
+        return self._tree[key]
+
+    def set_leaf(self, name, value) -> None:
+        """Install leaf ``name`` — a leaf name, or a key path (a tuple)
+        through sub-trees to one: a tensor (becomes a Parameter on the
         device of the leaf it replaces) or a quantized leaf dict."""
+        path = (name,) if isinstance(name, str) else tuple(name)
+        if len(path) > 1:
+            self.subtree(path[0]).set_leaf(path[1:], value)
+            return
+        name = path[0]
         old = self._leaf_device(name)
         self._parameters.pop(name, None)
         for kind in QLEAF_KINDS + ("scale",):
@@ -125,10 +149,13 @@ class Layer(nn.Module):
         return dequantize_leaf(q) if q is not None else self._parameters[name]
 
     def params(self) -> Dict[str, object]:
-        """This layer's leaves by name: tensors, or quantized leaf dicts."""
-        return {n: (self.qleaf(n) if n in self._qkinds
-                    else self._parameters[n].detach())
-                for n in self._leaf_names}
+        """This layer's leaves by name — tensors, or quantized leaf dicts —
+        and its sub-layers' trees by key."""
+        out = {n: (self.qleaf(n) if n in self._qkinds
+                   else self._parameters[n].detach())
+               for n in self._leaf_names}
+        out.update({k: sub.params() for k, sub in self._tree.items()})
+        return out
 
     # -- symbolic application (autograd DSL) ------------------------------
     def __call__(self, *args, **kw):

@@ -39,7 +39,18 @@ class KerasNet(Layer):
         raise NotImplementedError
 
     def params(self) -> Dict[str, Dict[str, object]]:
-        return {layer.name: layer.params() for layer in self.layers}
+        """``{layer_name: layer tree}``, plus the net's own sub-trees
+        (a task head that is not a layer, as BERTClassifier's)."""
+        out = {layer.name: layer.params() for layer in self.layers}
+        out.update(super().params())
+        return out
+
+    def subtree(self, key: str) -> Layer:
+        """A layer by name, else one of the net's own sub-trees."""
+        for layer in self.layers:
+            if layer.name == key:
+                return layer
+        return super().subtree(key)
 
     def regularization_loss(self):
         """Sum of every layer's weight penalty (``w_regularizer`` /
@@ -53,14 +64,23 @@ class KerasNet(Layer):
         return total
 
     # -- training facade (delegates to train.Estimator) -------------------
-    def compile(self, optimizer, loss, metrics=None, device=None):
+    def compile(self, optimizer, loss, metrics=None, device=None,
+                sharding: str = "dp"):
         """Configure training: ``optimizer`` / ``loss`` / ``metrics`` take
         Keras names or objects; ``device`` defaults to the context's,
         else ``cuda``.  Re-compiling keeps the live weights (they live in
         this net); weights staged by ``set_initial_weights`` — before this
         call, or on the previous estimator and not yet applied — carry
-        over."""
+        over.  ``sharding`` is "dp" (one device here); the JAX package's
+        other regimes (tp / ep / sp / pp) raise until the multi-GPU
+        slice."""
         from analytics_zoo_tpu_torch.train.estimator import Estimator
+
+        if sharding != "dp":
+            raise NotImplementedError(
+                f"sharding={sharding!r} (the sequence-parallel, pipeline and "
+                f"model-parallel regimes) needs the multi-GPU slice "
+                f"(ROADMAP A7); the port trains on one device")
 
         prev = self._estimator
         self._estimator = Estimator(self, optimizer=optimizer, loss=loss,

@@ -1,11 +1,13 @@
 """Shared routing for the CUDA kernels in ``ops/``.
 
-Every hand-written kernel here (embedding_bag, dequant_matmul) faces the
-same choice:
+Every hand-written kernel here (embedding_bag, dequant_matmul,
+flash_attention) faces the same choice:
 
 - ``"cuda"``       — the kernel compiled from ``csrc/`` for ``sm_90a``;
   taken for every CUDA tensor unless the bag's knob ``fused_embedding``
-  says ``off`` (the dequantize-matmul has no knob).
+  says ``off`` (the dequantize-matmul and flash attention have no knob;
+  a masked or dropout attention takes the JAX package's other route,
+  ``ops.attention.dot_product_attention``, counted as ``reference``).
 - ``"reference"``  — the plain PyTorch version: the oracle the tests and
   ``chip_smoke.py`` compare against, and the path for CPU tensors.
 
@@ -17,7 +19,8 @@ raise rather than quietly run the plain version on the card.
 decision in ``ops_kernel_selected_total{kernel,path}``, so a serving run
 can show from metrics alone that its hot loop went through the kernels.
 The JAX package's TPU minimum-work gates (a 4096-row table, a 256x256
-weight) are not carried over: they come back once measured on the card.
+weight, the flash kernel's D % 128 and L >= 2048) are not carried over:
+they come back once measured on the card.
 """
 
 from __future__ import annotations

@@ -21,7 +21,15 @@
    gets one add; duplicate ids meet in f32 atomics whose order is free,
    so a hot row's cancelling sum cannot be held to 1e-5 of itself);
    dequantize-matmul max |err| <= 1e-4 * max |plain| (K-long f32 sums
-   in another order).
+   in another order); flash attention f32 |err| <= 2e-5 + 1e-4 * |plain|
+   elementwise, bf16 |err| <= 8e-3 + 8e-3 * |plain| (one bf16 rounding
+   of an f32 result), and rows with no live key exactly 0.  Flash cases:
+   the BERT-Base shapes (B=32, L=128 and B=8, L=512; 12 heads, D=64),
+   the kernel bench's L=2048 (D=64, and D=128 causal), a ragged causal
+   L=77, causal Lq < Lk and Lq > Lk, and one bf16 case; the yardstick is
+   ``F.scaled_dot_product_attention`` on the backend named in the case.
+   A backward through the flash kernel must raise NotImplementedError.
+   TF32 is off for every matmul and cuDNN call (set and printed).
 3. Serving phase (the first main path): NeuralCF at the MovieLens-1M
    width (6040 users, 3706 items, embeds 20, MLP 40/20/10, 5 classes)
    with seeded weights, served through ``InferenceModel`` in float32,
@@ -47,7 +55,19 @@
    those last-bit differences into larger ones on a few elements, so
    two plain runs differ from each other too.  One more epoch runs
    under ``torch.profiler`` for the device's busy share.
-5. Prints the kernels JSON line and, last, the ok line.
+5. BERT serving phase (the third main path): BERTClassifier at the
+   BERT-Base width (vocab 30522, hidden 768, 12 blocks, 12 heads,
+   intermediate 3072), f32 weights from a seeded generator, served
+   through ``InferenceModel`` behind a ``DynamicBatcher`` (buckets 1, 8,
+   32): 48 single L=128 requests from six threads, then 8 single L=512
+   requests from two, no mask.  Counts are zeroed just before and read
+   just after; every forward must launch the flash kernel 12 times and
+   select no reference attention; the answers are held against the same
+   requests under ``forced("reference")`` (max |d logit| <= 1e-3, 12
+   blocks of f32 sums in another order).  One masked request then takes
+   the reference route (reported apart), and one forward at each length
+   runs under ``torch.profiler``.
+6. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -64,13 +84,20 @@ import numpy as np
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 BAG_SRC = "analytics_zoo_tpu_torch/csrc/embedding_bag.cu"
 DQ_SRC = "analytics_zoo_tpu_torch/csrc/dequant_matmul.cu"
+FLASH_SRC = "analytics_zoo_tpu_torch/csrc/flash_attention.cu"
 BAG_TPU = "analytics_zoo_tpu/ops/embedding_bag.py:98"
 BAG_BWD_TPU = "analytics_zoo_tpu/ops/embedding_bag.py:183"
 DQ_TPU = "analytics_zoo_tpu/ops/dequant_matmul.py:112"
+FLASH_TPU = "analytics_zoo_tpu/ops/flash_attention.py:41"
 USERS, ITEMS = 6040, 3706
 TRAIN_BATCH, TRAIN_EPOCHS = 2048, 3
+# BERT-Base (google-research/bert uncased_L-12_H-768_A-12/bert_config.json)
+BERT_BASE = dict(vocab=30522, hidden_size=768, n_block=12, nhead=12,
+                 intermediate_size=3072, max_position_len=512,
+                 type_vocab_size=2)
 
 
 def log(*a):
@@ -131,14 +158,30 @@ def timings(torch, fns, iters):
     return out
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time the card could take: the larger of bytes over the
-    memory rate and f32 operations over the f32 rate."""
+    memory rate and operations over the rate for their type (f32 unless
+    ``peak_flops`` says otherwise)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_bound_ms": t_bytes, "ops_bound_ms": t_ops}
+
+
+def device_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_events(torch, prof):
+    """``key_averages`` rows of the device's kernels only.  The row of a
+    host op (``aten::mm``, an autograd Function) carries the device time
+    of the kernels it launched as well, so summing every row counts each
+    kernel twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and device_us(e) > 0]
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +329,132 @@ def dq_case(torch, dq, label, m, k, n, bits, iters=200):
         raise AssertionError(f"dequant_matmul kernel disagrees with its "
                              f"plain version: {case}")
     return case
+
+
+def sdpa_call(torch, q, k, v, causal):
+    """The one-call yardstick for flash attention:
+    ``F.scaled_dot_product_attention`` on the same inputs, pinned to the
+    first backend of flash, memory-efficient, cuDNN and math that takes
+    them.  Its ``is_causal`` is top-left aligned, so a causal call with
+    Lq < Lk passes the bottom-right mask explicitly; with Lq > Lk some
+    rows see no key, which SDPA does not answer with 0, so there is no
+    yardstick (None, None)."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    lq, lk = q.shape[2], k.shape[2]
+    if causal and lq > lk:
+        return None, None
+    kw = {}
+    if causal and lq == lk:
+        kw["is_causal"] = True
+    elif causal:
+        qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        kw["attn_mask"] = qpos >= torch.arange(lk, device=q.device)[None, :]
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, **kw)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    return None, None
+
+
+def flash_case(torch, fa, label, b, h, lq, lk, d, causal,
+               dtype=None, iters=50):
+    """The flash kernel against its plain version.  Tolerance: f32
+    |err| <= 2e-5 + 1e-4 * |plain| elementwise (sums in another order);
+    bf16 inputs run in f32 in both, so the outputs differ by at most one
+    bf16 rounding: |err| <= 8e-3 + 8e-3 * |plain|.  Rows with no live key
+    must be exactly 0."""
+    dtype = dtype or torch.float32
+    g = torch.Generator(device="cuda").manual_seed(SEED + lq + 3 * lk + d)
+    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=g)
+               .to(dtype) for n in (lq, lk, lk))
+    out = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    atol, rtol = (8e-3, 8e-3) if dtype == torch.bfloat16 else (2e-5, 1e-4)
+    ok = bool(torch.all(err <= atol + rtol * ref.float().abs()))
+    zero_rows = max(lq - lk, 0) if causal else 0
+    if zero_rows:
+        ok = ok and not bool(out[:, :, :zero_rows].any())
+    # live (query, key) pairs: this run's work, causal masking included
+    if causal:
+        i = torch.arange(lq, dtype=torch.int64)
+        pairs = int((i + (lk - lq) + 1).clamp(0, lk).sum())
+    else:
+        pairs = lq * lk
+    elt = out.element_size()
+    library, backend = sdpa_call(torch, q, k, v, causal)
+    lib_err = None
+    if library is not None:
+        lib_err = float((library().float() - ref.float()).abs().max())
+    case = {
+        "case": label, "b": b, "h": h, "lq": lq, "lk": lk, "d": d,
+        "causal": causal, "dtype": str(dtype).replace("torch.", ""),
+        "tolerance": {"atol": atol, "rtol": rtol}, "zero_rows": zero_rows,
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float(err.max() / ref.float().abs().max()
+                             .clamp_min(1e-30)),
+        "library_call": (f"scaled_dot_product_attention[{backend}]"
+                         if backend else None),
+        "library_max_abs_err_vs_plain": lib_err,
+        **bound(elt * b * h * (2 * lq + 2 * lk) * d, 4 * b * h * pairs * d,
+                PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                else PEAK_F32_FLOPS),
+        **timings(torch, {
+            "kernel": lambda: fa.flash_attention(q, k, v, causal=causal),
+            "plain": lambda: fa.flash_attention_reference(q, k, v,
+                                                          causal=causal),
+            "library": library}, iters),
+    }
+    if not ok:
+        raise AssertionError(f"flash_attention kernel disagrees with its "
+                             f"plain version: {case}")
+    return case
+
+
+def flash_cases(torch, fa):
+    bf16 = torch.bfloat16
+    return [
+        flash_case(torch, fa, "bert_l128", 32, 12, 128, 128, 64, False),
+        flash_case(torch, fa, "bert_l512", 8, 12, 512, 512, 64, False),
+        flash_case(torch, fa, "bench_l2048", 4, 8, 2048, 2048, 64, False,
+                   iters=5),
+        flash_case(torch, fa, "bench_l2048_d128_causal", 4, 8, 2048, 2048,
+                   128, True, iters=5),
+        flash_case(torch, fa, "ragged_l77_causal", 8, 12, 77, 77, 64, True),
+        flash_case(torch, fa, "causal_lq128_lk384", 8, 12, 128, 384, 64,
+                   True),
+        flash_case(torch, fa, "causal_lq384_lk128", 8, 12, 384, 128, 64,
+                   True),
+        flash_case(torch, fa, "bert_l512_bf16", 8, 12, 512, 512, 64, False,
+                   dtype=bf16),
+    ]
+
+
+def backward_guard(torch, fa):
+    """On the card a loss through the kernel must raise in backward."""
+    q = torch.randn(1, 2, 64, 64, device="cuda", requires_grad=True)
+    out = fa.flash_attention(q, q, q)
+    try:
+        out.sum().backward()
+    except NotImplementedError as e:
+        log("flash_backward_guard", json.dumps({"raised": str(e)[:80]}))
+        return True
+    raise AssertionError("a backward through the flash kernel did not raise")
 
 
 def kernel_phase(torch, eb, dq):
@@ -460,6 +629,210 @@ def serving_phase(torch, eb, dq):
 
 
 # ---------------------------------------------------------------------------
+# BERT serving phase
+
+
+def bert_requests(n, length, seed):
+    rs = np.random.RandomState(seed)
+    return [[rs.randint(0, BERT_BASE["vocab"], (1, length)).astype(np.int32),
+             rs.randint(0, 2, (1, length)).astype(np.int32)]
+            for _ in range(n)]
+
+
+def serve_requests(batcher, reqs, n_threads):
+    """Each request alone through the batcher, from ``n_threads``
+    threads; returns the answers and their latencies in ms."""
+    answers = [None] * len(reqs)
+    lat_ms = [None] * len(reqs)
+    errors = []
+
+    def client(rows):
+        for r in rows:
+            t0 = time.perf_counter()
+            try:
+                answers[r] = batcher.predict(reqs[r])
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+            lat_ms[r] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client,
+                                args=(range(t, len(reqs), n_threads),))
+               for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"BERT serving failed: {errors[:1]}")
+    return np.concatenate(answers), lat_ms
+
+
+def batch_of(reqs):
+    """One batch from single-row requests."""
+    return [np.concatenate([r[i] for r in reqs]) for i in range(2)]
+
+
+def profile_forward(torch, im, xs):
+    """One served forward under ``torch.profiler``: device time by kernel
+    and the flash kernel's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        im.predict(xs)
+        wall = time.perf_counter() - t0
+
+    events = kernel_events(torch, prof)
+    busy = sum(device_us(e) for e in events) / 1e3
+    flash = sum(device_us(e) for e in events if "flash_fwd" in e.key) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    return {"rows": int(xs[0].shape[0]), "length": int(xs[0].shape[1]),
+            "wall_ms": 1e3 * wall, "device_ms": busy,
+            "device_busy_share": busy / (1e3 * wall) if wall else None,
+            "flash_ms": flash, "flash_share_of_device": flash / busy
+            if busy else None,
+            "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top}}
+
+
+def bert_serving_phase(torch, eb, dq, fa):
+    """BERT-Base (12 blocks) served through ``InferenceModel`` behind a
+    ``DynamicBatcher``: 48 single L=128 requests from six threads, then 8
+    single L=512 requests from two, all tokens real (no mask).  Every
+    block's self-attention launches the flash kernel."""
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.deploy import DynamicBatcher, InferenceModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    init_zoo_context()
+    reset_name_scope()
+    t0 = time.perf_counter()
+    net = BERTClassifier(num_classes=2, bert_config=BERT_BASE,
+                         generator=torch.Generator().manual_seed(SEED))
+    im = InferenceModel.from_keras_net(net, device="cuda",
+                                       batch_buckets=(1, 8, 32))
+    del net
+    setup_s = time.perf_counter() - t0
+    forwards = [0]
+    plain_forward = im._forward
+
+    rows = []
+
+    def counted(xs):
+        forwards[0] += 1
+        rows.append(int(xs[0].shape[0]))
+        return plain_forward(xs)
+
+    im._forward = counted
+    short = bert_requests(48, 128, SEED + 2)
+    long = bert_requests(8, 512, SEED + 3)
+    for xs in (short[0], long[0], batch_of(short[:32])):
+        im.predict(xs)                  # first calls: cuBLAS and loads
+
+    # the main path's window: counts start at 0 here
+    eb.LAUNCHES.reset()
+    eb.BWD_LAUNCHES.reset()
+    dq.LAUNCHES.reset()
+    fa.LAUNCHES.reset()
+    forwards[0] = 0
+    rows.clear()
+    window = METRICS.snapshot()
+    im.predict(short[0])
+    per_forward = fa.LAUNCHES.value
+    batcher = DynamicBatcher(im, max_batch=32, max_latency_ms=2.0)
+    t0 = time.perf_counter()
+    ans128, lat128 = serve_requests(batcher, short, 6)
+    wall128 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ans512, lat512 = serve_requests(batcher, long, 2)
+    wall512 = time.perf_counter() - t0
+    batcher.close()
+    torch.cuda.synchronize()
+    launches = {"embedding_bag": eb.LAUNCHES.value,
+                "embedding_bag_bwd": eb.BWD_LAUNCHES.value,
+                "dequant_matmul": dq.LAUNCHES.value,
+                "flash_attention": fa.LAUNCHES.value}
+    n_forwards = forwards[0]
+    bucket_rows = {str(b): rows.count(b) for b in sorted(set(rows))}
+    counters = METRICS.delta(window)["counters"]
+    sel = {p: counters.get(f'ops_kernel_selected_total{{kernel='
+                           f'"flash_attention",path="{p}"}}', 0)
+           for p in ("cuda", "reference")}
+
+    # the same requests through the plain versions, on the card
+    with forced(PATH_REFERENCE):
+        ref128 = im.predict(batch_of(short))
+        ref512 = im.predict(batch_of(long))
+    err128 = float(np.abs(ans128 - ref128).max())
+    err512 = float(np.abs(ans512 - ref512).max())
+
+    # one masked request: the JAX package's other route, counted apart
+    ids, seg = short[1]
+    mask = np.ones_like(ids)
+    mask[:, 100:] = 0
+    w2 = METRICS.snapshot()
+    n2 = fa.LAUNCHES.value
+    masked = im.predict([ids, seg, mask])
+    c2 = METRICS.delta(w2)["counters"]
+    masked_sel = {p: c2.get(f'ops_kernel_selected_total{{kernel='
+                            f'"flash_attention",path="{p}"}}', 0)
+                  for p in ("cuda", "reference")}
+    masked_launches = fa.LAUNCHES.value - n2
+
+    profiles = [profile_forward(torch, im, batch_of(short[:32])),
+                profile_forward(torch, im, batch_of(short[:8])),
+                profile_forward(torch, im, batch_of(long))]
+    out = {
+        "model": {**BERT_BASE, "num_classes": 2, "weights": "float32",
+                  "params": sum(int(np.prod(p.shape))
+                                for p in im._net.parameters())},
+        "setup_s": setup_s, "buckets": [1, 8, 32],
+        "l128": {"requests": len(lat128),
+                 "p50_ms": float(np.percentile(lat128, 50)),
+                 "p99_ms": float(np.percentile(lat128, 99)),
+                 "batcher_wall_s": wall128,
+                 "max_abs_logit_diff_vs_plain": err128},
+        "l512": {"requests": len(lat512),
+                 "p50_ms": float(np.percentile(lat512, 50)),
+                 "p99_ms": float(np.percentile(lat512, 99)),
+                 "batcher_wall_s": wall512,
+                 "max_abs_logit_diff_vs_plain": err512},
+        "forwards": n_forwards, "forwards_by_bucket_rows": bucket_rows,
+        "launches": launches,
+        "flash_launches_one_forward": per_forward,
+        "flash_selected": sel,
+        "masked_request": {"flash_selected": masked_sel,
+                           "flash_launches": masked_launches,
+                           "finite": bool(np.all(np.isfinite(masked)))},
+        "profile": profiles,
+    }
+    log("bert_serving", json.dumps(out))
+    if per_forward != BERT_BASE["n_block"]:
+        raise AssertionError(f"one BERT-Base forward launched {per_forward} "
+                             f"flash kernels, want {BERT_BASE['n_block']}")
+    if (launches["flash_attention"] != BERT_BASE["n_block"] * n_forwards
+            or sel["reference"] or sel["cuda"] != launches["flash_attention"]
+            or launches["embedding_bag"] or launches["dequant_matmul"]
+            or launches["embedding_bag_bwd"]):
+        raise AssertionError(f"BERT serving path: {launches} over "
+                             f"{n_forwards} forwards, selections {sel}")
+    for name, ans, n in (("l128", ans128, 48), ("l512", ans512, 8)):
+        if ans.shape != (n, 2) or not np.all(np.isfinite(ans)):
+            raise AssertionError(f"BERT {name}: bad answers {ans.shape}")
+    if max(err128, err512) > 1e-3:
+        raise AssertionError(f"BERT served through the kernel disagrees "
+                             f"with the plain path: {err128}, {err512}")
+    if (masked_launches or masked_sel["cuda"] or not out[
+            "masked_request"]["finite"]):
+        raise AssertionError(f"masked request: {out['masked_request']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # training phase
 
 
@@ -521,11 +894,7 @@ def profile_epoch(torch, ncf, u, i, y):
         wall = time.perf_counter() - t0
     steps = ncf.estimator.global_step - steps0
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    events = kernel_events(torch, prof)
     busy = sum(device_us(e) for e in events) / 1e3
     top = sorted(events, key=device_us, reverse=True)[:8]
     out = {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
@@ -661,7 +1030,8 @@ def headline(cases, name, route, src, tpu, launches, pick):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": {k: head[k] for k in head if k in (
-                "vocab", "dim", "bags", "nnz", "m", "k", "n", "bits")},
+                "vocab", "dim", "bags", "nnz", "m", "k", "n", "bits", "b",
+                "h", "lq", "lk", "d", "causal", "dtype")},
             "cases": cases}
 
 
@@ -674,9 +1044,14 @@ def main() -> int:
     from analytics_zoo_tpu_torch.ops import _build
     from analytics_zoo_tpu_torch.ops import dequant_matmul as dq
     from analytics_zoo_tpu_torch.ops import embedding_bag as eb
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
+    # full f32 in every plain version and yardstick: no TF32 in cuBLAS
+    # matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    log("tf32: matmul", torch.backends.cuda.matmul.allow_tf32, "cudnn",
+        torch.backends.cudnn.allow_tf32)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -694,10 +1069,17 @@ def main() -> int:
             .splitlines() if "registers" in ln or "spill" in ln))
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
+    fl_cases = flash_cases(torch, fa)
+    for c in fl_cases:
+        log("kernel_case", json.dumps(c))
+    backward_guard(torch, fa)
+    fa.LAUNCHES.reset()
     served = serving_phase(torch, eb, dq)
     trained = training_phase(torch, eb, dq)
+    bert = bert_serving_phase(torch, eb, dq, fa)
     fwd_by_path = {"serving": served["embedding_bag"],
-                   "training": trained["embedding_bag_fwd"]}
+                   "training": trained["embedding_bag_fwd"],
+                   "bert_serving": bert["embedding_bag"]}
     kernels = [
         headline(bag_cases, "embedding_bag_fwd", "cuda", BAG_SRC, BAG_TPU,
                  sum(fwd_by_path.values()),
@@ -713,7 +1095,18 @@ def main() -> int:
     kernels[1]["launches_by_path"] = {"training": trained[
         "embedding_bag_bwd"]}
     kernels[2]["launches_by_path"] = {"serving": served["dequant_matmul"],
-                                      "training": trained["dequant_matmul"]}
+                                      "training": trained["dequant_matmul"],
+                                      "bert_serving": bert["dequant_matmul"]}
+    flash = headline(fl_cases, "flash_attention_fwd", "cuda", FLASH_SRC,
+                     FLASH_TPU, bert["flash_attention"],
+                     lambda c: c["case"] == "bert_l128")
+    f32 = [c for c in fl_cases if c["dtype"] == "float32"]
+    flash["max_abs_err"] = max(c["max_abs_err"] for c in f32)
+    flash["max_rel_err"] = max(c["max_rel_err"] for c in f32)
+    flash["max_abs_err_bf16"] = max(c["max_abs_err"] for c in fl_cases
+                                    if c["dtype"] == "bfloat16")
+    flash["launches_by_path"] = {"bert_serving": bert["flash_attention"]}
+    kernels.append(flash)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -221,3 +221,128 @@ def test_ncf_fit_on_card_matches_plain_path(cuda_device):
         for leaf, w in leaves.items():
             np.testing.assert_allclose(one[layer][leaf], w, rtol=0,
                                        atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+
+
+FLASH_CASES = [
+    # (b, h, lq, lk, d, causal, dtype)
+    (2, 12, 128, 128, 64, False, torch.float32),     # BERT-Base heads
+    (1, 4, 512, 512, 64, False, torch.float32),
+    (1, 2, 77, 77, 64, True, torch.float32),         # ragged tiles
+    (1, 2, 128, 384, 64, True, torch.float32),       # causal Lq < Lk
+    (1, 2, 200, 72, 64, True, torch.float32),        # causal Lq > Lk
+    (1, 2, 256, 256, 128, True, torch.float32),
+    (2, 3, 33, 65, 24, False, torch.float32),        # D < 64, not a power
+    (2, 4, 256, 256, 64, False, torch.bfloat16),
+    (1, 2, 100, 130, 128, True, torch.bfloat16),
+]
+
+
+def _flash_inputs(device, b, h, lq, lk, d, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(b, h, n, d, device=device, generator=g)
+                 .to(dtype) for n in (lq, lk, lk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, b, h, lq, lk, d,
+                                            causal, dtype):
+    """The kernel against its plain version on the same inputs: f32 atol
+    2e-5 + rtol 1e-4 (sums in another order); bf16 inputs run in f32 in
+    both, so the outputs differ by at most one bf16 rounding (atol 8e-3 +
+    rtol 8e-3).  Rows with no live key are exactly 0."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v = _flash_inputs(cuda_device, b, h, lq, lk, d, dtype, lq + lk)
+    n0 = tfa.LAUNCHES.value
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES.value == n0 + 1 and got.dtype == dtype
+    want = tfa.flash_attention_reference(q, k, v, causal=causal)
+    tol = 8e-3 if dtype == torch.bfloat16 else None
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=tol or 2e-5, rtol=tol or 1e-4)
+    if causal and lq > lk:
+        assert not got[:, :, :lq - lk].any()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_strided_heads_on_card(cuda_device):
+    """q, k, v as the transposed head views MultiHeadAttention makes
+    (D contiguous, other strides free): no copy, the same answer."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    x = torch.randn(3, 97, 12 * 64, device=cuda_device)
+    q = x.reshape(3, 97, 12, 64).transpose(1, 2)
+    assert not q.is_contiguous()
+    got = tfa.flash_attention(q, q, q)
+    want = tfa.flash_attention_reference(q.contiguous(), q.contiguous(),
+                                         q.contiguous())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_backward_guard_on_card(cuda_device):
+    """A loss through the kernel raises in backward instead of training
+    nothing; under inference_mode the output carries no graph."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v = (t.requires_grad_(True) for t in _flash_inputs(
+        cuda_device, 1, 2, 64, 64, 32, torch.float32, 0))
+    out = tfa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="B4/B5"):
+        out.sum().backward()
+    with torch.inference_mode():
+        assert tfa.flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_flash_rejects_what_the_kernel_cannot_take(cuda_device):
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    n0 = tfa.LAUNCHES.value
+    for d, dtype in ((160, torch.float32), (64, torch.float16)):
+        q = torch.zeros(1, 1, 8, d, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="flash_attention CUDA kernel"):
+            tfa.flash_attention(q, q, q)
+    assert tfa.LAUNCHES.value == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+def test_bert_serving_on_card_matches_cpu(cuda_device, stacked):
+    """BERTClassifier served on the card launches the flash kernel once
+    per block and forward, and answers as the same weights on the CPU
+    (atol 1e-4); a masked request takes the reference route and launches
+    nothing."""
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    reset_name_scope()
+    net = BERTClassifier(3, bert_config=dict(vocab=500, n_block=3,
+                                             stacked=stacked))
+    params = export_params(net)
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, 500, (5, 40)).astype(np.int32)
+    seg = rs.randint(0, 2, (5, 40)).astype(np.int32)
+    cpu = InferenceModel.from_keras_net(net, params, device="cpu")
+    card = InferenceModel.from_keras_net(net, params, device=cuda_device)
+    n0 = tfa.LAUNCHES.value
+    got = card.predict([ids, seg])
+    assert tfa.LAUNCHES.value - n0 == 3
+    np.testing.assert_allclose(got, cpu.predict([ids, seg]), rtol=0,
+                               atol=1e-4)
+    mask = np.ones_like(ids)
+    mask[:, 30:] = 0
+    got = card.predict([ids, seg, mask])
+    assert tfa.LAUNCHES.value - n0 == 3
+    np.testing.assert_allclose(got, cpu.predict([ids, seg, mask]), rtol=0,
+                               atol=1e-4)

@@ -365,8 +365,8 @@ def test_graph_and_sequential_build_shapes():
 
 
 def test_port_imports_no_jax():
-    """Training and serving NCF through the port load neither jax nor the
-    JAX package."""
+    """Training and serving NCF, and serving BERTClassifier, through the
+    port load neither jax nor the JAX package."""
     code = (
         "import sys, numpy as np\n"
         "import analytics_zoo_tpu_torch.train.estimator\n"
@@ -383,6 +383,12 @@ def test_port_imports_no_jax():
         "out = m.predict([np.ones((3, 1), np.int32),"
         " np.ones((3, 1), np.int32)])\n"
         "assert out.shape == (3, 5)\n"
+        "from analytics_zoo_tpu_torch.tfpark import BERTClassifier\n"
+        "bert = BERTClassifier(2, bert_config=dict(vocab=50, hidden_size=32,"
+        " intermediate_size=64))\n"
+        "bm = InferenceModel.from_keras_net(bert, device='cpu')\n"
+        "ids = np.ones((3, 8), np.int32)\n"
+        "assert bm.predict([ids, 0 * ids, ids]).shape == (3, 2)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')]\n"
         "assert not bad, bad\n"
