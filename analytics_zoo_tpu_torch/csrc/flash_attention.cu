@@ -1,10 +1,23 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), with and without the
+// per-row logsumexp.
 //
-// Replaces the Pallas TPU kernel
-// analytics_zoo_tpu/ops/flash_attention.py::_fwd_kernel (launched by
-// _flash_fwd).  For each (b, h) and each query row i,
+// Replaces the Pallas TPU kernels
+// analytics_zoo_tpu/ops/flash_attention.py::_fwd_kernel and
+// ::_fwd_lse_kernel (both launched by _flash_fwd).  For each (b, h) and
+// each query row i,
 //
 //   o[i] = sum_j softmax_j(sm_scale * q[i] . k[j] + mask) * v[j]
+//
+// and, in the lse instance (LSE = true, the training forward), also
+//
+//   lse[i] = m[i] + log(max(l[i], 1e-20))
+//
+// in f32 into a contiguous (B, H, Lq) buffer: the residual the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from.  The TPU
+// kernel pads that row to 8 sublanes ((BH, 8, Lq), a TPU tile floor);
+// here it is one f32 per row.  A row with no live key keeps m = -1e30
+// and l = 0, so its lse is -1e30 (log(1e-20) is lost in the f32 sum)
+// and the backward's mask test gives its probabilities exactly 0.
 //
 // over q (B, H, Lq, D) and k, v (B, H, Lk, D), f32 or bf16, out in q's
 // type.  q is scaled in f32 before the dot, as the TPU kernel does; the
@@ -78,11 +91,12 @@ size_t smem_bytes(int d) {
          (size_t)(d * (kBQ + 1) + d * (kBK + 1) + kBK * d + kBQ * (kBK + 1));
 }
 
-// NC = columns of D per thread (D <= 16 * NC).
-template <typename T, int NC>
+// NC = columns of D per thread (D <= 16 * NC); LSE: also write lse.
+template <typename T, int NC, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int heads, int lq,
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int heads, int lq,
           int lk, int d, int64_t sqb, int64_t sqh, int64_t sql, int64_t skb,
           int64_t skh, int64_t skl, int64_t svb, int64_t svh, int64_t svl,
           float sm_scale, int causal) {
@@ -216,6 +230,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= lq) continue;
     const float denom = fmaxf(l[i], 1e-20f);
+    // m and l are the same in the row's 16 lanes: one of them writes
+    if (LSE && tx == 0) lse[(int64_t)bh * lq + r] = m[i] + logf(denom);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
@@ -226,32 +242,56 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 // Lets a kernel instance use more than 48 KB of dynamic shared memory, once
 // per instance and device (before any launch, so outside graph capture).
-template <typename T, int NC>
+template <typename T, int NC, bool LSE>
 cudaError_t allow_smem() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd<T, NC>,
+  err = cudaFuncSetAttribute(flash_fwd<T, NC, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_bytes(kMaxD));
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
 
-template <typename T, int NC>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int heads, int lq, int lk, int d, const int64_t* st,
+template <typename T, int NC, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int heads, int lq, int lk, int d, const int64_t* st,
            float sm_scale, int causal, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<T, NC>();
+  const cudaError_t err = allow_smem<T, NC, LSE>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(batch * heads), (unsigned)((lq + kBQ - 1) / kBQ));
-  flash_fwd<T, NC><<<grid, kThreads, smem_bytes(d), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, heads, lq, lk, d, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], sm_scale,
-      causal);
+  flash_fwd<T, NC, LSE><<<grid, kThreads, smem_bytes(d), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, heads, lq, lk, d,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      sm_scale, causal);
   return (int)cudaGetLastError();
+}
+
+template <bool LSE>
+int dispatch_fwd(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int dtype, int batch, int heads, int lq, int lk,
+                 int d, const int64_t* st, float sm_scale, int causal,
+                 void* stream) {
+  if (d < 1 || d > kMaxD || lq < 1 || lk < 1 || batch < 1 || heads < 1 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)batch * heads > 2147483647LL || (lq + kBQ - 1) / kBQ > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return d <= 64 ? launch<float, 4, LSE>(q, k, v, o, lse, batch, heads, lq,
+                                           lk, d, st, sm_scale, causal, s)
+                   : launch<float, 8, LSE>(q, k, v, o, lse, batch, heads, lq,
+                                           lk, d, st, sm_scale, causal, s);
+  return d <= 64 ? launch<__nv_bfloat16, 4, LSE>(q, k, v, o, lse, batch,
+                                                 heads, lq, lk, d, st,
+                                                 sm_scale, causal, s)
+                 : launch<__nv_bfloat16, 8, LSE>(q, k, v, o, lse, batch,
+                                                 heads, lq, lk, d, st,
+                                                 sm_scale, causal, s);
 }
 
 }  // namespace
@@ -268,23 +308,23 @@ extern "C" int zoo_flash_attention_fwd(
     int batch, int heads, int lq, int lk, int d, int64_t sqb, int64_t sqh,
     int64_t sql, int64_t skb, int64_t skh, int64_t skl, int64_t svb,
     int64_t svh, int64_t svl, float sm_scale, int causal, void* stream) {
-  if (d < 1 || d > kMaxD || lq < 1 || lk < 1 || batch < 1 || heads < 1 ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if ((int64_t)batch * heads > 2147483647LL || (lq + kBQ - 1) / kBQ > 65535)
-    return (int)cudaErrorInvalidConfiguration;
   const int64_t st[9] = {sqb, sqh, sql, skb, skh, skl, svb, svh, svl};
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return d <= 64 ? launch<float, 4>(q, k, v, o, batch, heads, lq, lk, d, st,
-                                      sm_scale, causal, s)
-                   : launch<float, 8>(q, k, v, o, batch, heads, lq, lk, d, st,
-                                      sm_scale, causal, s);
-  return d <= 64
-             ? launch<__nv_bfloat16, 4>(q, k, v, o, batch, heads, lq, lk, d,
-                                        st, sm_scale, causal, s)
-             : launch<__nv_bfloat16, 8>(q, k, v, o, batch, heads, lq, lk, d,
-                                        st, sm_scale, causal, s);
+  return dispatch_fwd<false>(q, k, v, o, nullptr, dtype, batch, heads, lq,
+                             lk, d, st, sm_scale, causal, stream);
+}
+
+// The training forward: as zoo_flash_attention_fwd, plus lse, a
+// contiguous (B, H, Lq) f32 buffer that receives each row's logsumexp.
+// The same checks and return codes.
+extern "C" int zoo_flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int batch, int heads, int lq, int lk, int d, int64_t sqb,
+    int64_t sqh, int64_t sql, int64_t skb, int64_t skh, int64_t skl,
+    int64_t svb, int64_t svh, int64_t svl, float sm_scale, int causal,
+    void* stream) {
+  const int64_t st[9] = {sqb, sqh, sql, skb, skh, skl, svb, svh, svl};
+  return dispatch_fwd<true>(q, k, v, o, lse, dtype, batch, heads, lq, lk, d,
+                            st, sm_scale, causal, stream);
 }
 
 extern "C" const char* zoo_flash_attention_error_string(int err) {

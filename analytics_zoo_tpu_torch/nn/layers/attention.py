@@ -6,7 +6,9 @@ Each layer owns its sub-layers under the JAX package's tree keys
 ``LayerNorm`` for ``ln1``/``ln2``/``embed_ln``), so ``params()`` nests as
 the JAX tree does and weights load by key path.  Attention goes through
 ``ops.attention.dot_product_attention``: a call with no mask and no
-dropout takes the flash-attention kernel on the card.
+dropout takes the flash-attention kernels on the card — the forward
+kernel at inference, and in training the forward that also writes the
+logsumexp, with the dQ and dK/dV kernels as its backward.
 
 ``stacked=True`` keeps the JAX package's stacked layout: one ``blocks``
 sub-tree whose leaves carry a leading ``n_block`` dim (``_BlockStack``);

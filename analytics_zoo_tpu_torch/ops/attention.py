@@ -11,7 +11,7 @@ path.
   (max, normaliser, accumulator) in f32 — masks, ragged key lengths and
   probability dropout, at O(Lq · block) memory.
 - ``flash_attention`` (``ops/flash_attention.py``): the hand-written CUDA
-  kernel; no mask, no dropout.
+  kernels, forward and backward; no mask, no dropout.
 - ``dot_product_attention`` routes between them as the JAX package does.
 """
 

@@ -1,7 +1,8 @@
 """Shared routing for the CUDA kernels in ``ops/``.
 
-Every hand-written kernel here (embedding_bag, dequant_matmul,
-flash_attention) faces the same choice:
+Every hand-written kernel here (embedding_bag and its backward,
+dequant_matmul, flash_attention and its backward) faces the same
+choice:
 
 - ``"cuda"``       — the kernel compiled from ``csrc/`` for ``sm_90a``;
   taken for every CUDA tensor unless the bag's knob ``fused_embedding``

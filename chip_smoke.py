@@ -28,7 +28,19 @@
    the kernel bench's L=2048 (D=64, and D=128 causal), a ragged causal
    L=77, causal Lq < Lk and Lq > Lk, and one bf16 case; the yardstick is
    ``F.scaled_dot_product_attention`` on the backend named in the case.
-   A backward through the flash kernel must raise NotImplementedError.
+   The training kernels — the forward with logsumexp, dQ and dK/dV — at
+   BERT training's B=32 H=12 L=128 D=64, the bench's L=2048 (D=64, and
+   D=128 causal), ragged causal L=77, causal Lq < Lk and Lq > Lk, and
+   one bf16 case: out as the forward's tolerance, lse |err| <= 2e-5 +
+   1e-5 * |plain| on rows with a live key and -1e30 on rows with none,
+   dQ, dK, dV as the forward's tolerance, dQ rows with no live key
+   exactly 0, and two runs of the backward bit-identical (no atomics).
+   Their yardsticks are aten's memory-efficient attention (SDPA's f32
+   backend): its forward with ``compute_log_sumexp=True``, and its
+   backward, which computes dQ, dK, dV and delta together, reported on
+   both backward rows as the pair's time beside ``pair_ms`` (delta and
+   both kernels); the plain time on those rows is the plain backward's,
+   the pair's too.
    TF32 is off for every matmul and cuDNN call (set and printed).
 3. Serving phase (the first main path): NeuralCF at the MovieLens-1M
    width (6040 users, 3706 items, embeds 20, MLP 40/20/10, 5 classes)
@@ -67,7 +79,28 @@
    blocks of f32 sums in another order).  One masked request then takes
    the reference route (reported apart), and one forward at each length
    runs under ``torch.profiler``.
-6. Prints the kernels JSON line and, last, the ok line.
+6. BERT training phase (the fourth main path): BERTClassifier at the
+   BERT-Base width, ``attn_drop=0`` (probability dropout would take the
+   blockwise route and no kernel), ``hidden_drop=0.1``, fine-tuned as
+   google-research/bert ``run_classifier.py`` sets it: 256 seeded
+   sequences of 128 real tokens (segments 0 then 1 at a seeded split;
+   label 1 when the split falls in the first half), batch 32,
+   AdamWeightDecay (lr 5e-5, warmup 0.1 of the 32 steps, weight decay
+   0.01, eps 1e-6), 3 epochs of host arrays then one device-resident
+   epoch.  Counts are zeroed just before and read just after: every step
+   launches exactly 12 lse forwards, 12 dQ and 12 dK/dV kernels, no
+   forward-only flash kernel and no reference attention.  evaluate and
+   predict then run the forward-only kernel.  The same 3 epochs from the
+   same weights and dropout seed under ``forced("reference")`` give
+   per-epoch losses within rtol 1e-3, and one step from the same weights
+   and batch every leaf's gradient within 1e-4 of that leaf's largest
+   plain |g| plus 1e-6 of the largest over all leaves (f32 sums in
+   another order through 12 blocks; the floor is for the key bias, whose
+   gradient is 0 in exact arithmetic — softmax ignores a shift shared by
+   a row's logits — so both paths hold only rounding noise there); the
+   loss must fall from epoch 1 to epoch 3.  One more step runs under
+   ``torch.profiler``.
+7. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -88,16 +121,24 @@ PEAK_BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 BAG_SRC = "analytics_zoo_tpu_torch/csrc/embedding_bag.cu"
 DQ_SRC = "analytics_zoo_tpu_torch/csrc/dequant_matmul.cu"
 FLASH_SRC = "analytics_zoo_tpu_torch/csrc/flash_attention.cu"
+FLASH_BWD_SRC = "analytics_zoo_tpu_torch/csrc/flash_attention_bwd.cu"
 BAG_TPU = "analytics_zoo_tpu/ops/embedding_bag.py:98"
 BAG_BWD_TPU = "analytics_zoo_tpu/ops/embedding_bag.py:183"
 DQ_TPU = "analytics_zoo_tpu/ops/dequant_matmul.py:112"
 FLASH_TPU = "analytics_zoo_tpu/ops/flash_attention.py:41"
+FLASH_LSE_TPU = "analytics_zoo_tpu/ops/flash_attention.py:94"
+FLASH_DQ_TPU = "analytics_zoo_tpu/ops/flash_attention.py:206"
+FLASH_DKV_TPU = "analytics_zoo_tpu/ops/flash_attention.py:240"
 USERS, ITEMS = 6040, 3706
 TRAIN_BATCH, TRAIN_EPOCHS = 2048, 3
 # BERT-Base (google-research/bert uncased_L-12_H-768_A-12/bert_config.json)
 BERT_BASE = dict(vocab=30522, hidden_size=768, n_block=12, nhead=12,
                  intermediate_size=3072, max_position_len=512,
                  type_vocab_size=2)
+# fine-tuning as run_classifier.py: batch 32, max_seq_length 128, lr from
+# Devlin et al.'s grid, warmup 0.1; hidden dropout 0.1, attention dropout
+# 0 (the flash kernels take none)
+BERT_TRAIN = dict(rows=256, length=128, batch=32, epochs=3, lr=5e-5)
 
 
 def log(*a):
@@ -390,12 +431,7 @@ def flash_case(torch, fa, label, b, h, lq, lk, d, causal,
     zero_rows = max(lq - lk, 0) if causal else 0
     if zero_rows:
         ok = ok and not bool(out[:, :, :zero_rows].any())
-    # live (query, key) pairs: this run's work, causal masking included
-    if causal:
-        i = torch.arange(lq, dtype=torch.int64)
-        pairs = int((i + (lk - lq) + 1).clamp(0, lk).sum())
-    else:
-        pairs = lq * lk
+    pairs = live_pairs(torch, lq, lk, causal)
     elt = out.element_size()
     library, backend = sdpa_call(torch, q, k, v, causal)
     lib_err = None
@@ -445,16 +481,180 @@ def flash_cases(torch, fa):
     ]
 
 
-def backward_guard(torch, fa):
-    """On the card a loss through the kernel must raise in backward."""
-    q = torch.randn(1, 2, 64, 64, device="cuda", requires_grad=True)
-    out = fa.flash_attention(q, q, q)
+def live_pairs(torch, lq, lk, causal):
+    """(query, key) pairs with a live logit: this run's work."""
+    if not causal:
+        return lq * lk
+    i = torch.arange(lq, dtype=torch.int64)
+    return int((i + (lk - lq) + 1).clamp(0, lk).sum())
+
+
+def efficient_attention(torch, q, k, v, do, causal):
+    """aten's memory-efficient attention, SDPA's backend for f32 (the
+    flash backend refuses f32), on the same inputs: ``(fwd, bwd)``, its
+    forward with the logsumexp and its backward (dQ, dK, dV and delta
+    together); (None, None) where it refuses the case.  Its ``is_causal``
+    is top-left aligned, so a causal call with Lq < Lk passes the
+    bottom-right mask as an additive bias; with Lq > Lk some rows see no
+    key, which it does not answer with 0, so there is no yardstick."""
+    import warnings
+
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if causal and lq > lk:
+        return None, None
+    bias, is_causal = None, False
+    if causal and lq == lk:
+        is_causal = True
+    elif causal:
+        qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        live = qpos >= torch.arange(lk, device=q.device)[None, :]
+        bias = torch.zeros(b, h, lq, lk, device=q.device,
+                           dtype=q.dtype).masked_fill(~live, float("-inf"))
+    scale = d ** -0.5
+    fwd_op = torch.ops.aten._scaled_dot_product_efficient_attention
+    bwd_op = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+
+    def fwd():
+        return fwd_op(q, k, v, bias, True, 0.0, is_causal, scale=scale)
+
     try:
-        out.sum().backward()
-    except NotImplementedError as e:
-        log("flash_backward_guard", json.dumps({"raised": str(e)[:80]}))
-        return True
-    raise AssertionError("a backward through the flash kernel did not raise")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out, lse, seed, offset = fwd()
+
+            def bwd():
+                return bwd_op(do, q, k, v, bias, out, lse, seed, offset, 0.0,
+                              [True, True, True, False], is_causal,
+                              scale=scale)
+            bwd()
+            torch.cuda.synchronize()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log("efficient_attention refused", tuple(q.shape), tuple(k.shape),
+            causal, str(e)[:160])
+        return None, None
+    return fwd, bwd
+
+
+def flash_train_case(torch, fa, label, b, h, lq, lk, d, causal, dtype=None,
+                     iters=20):
+    """The training kernels against their plain versions on one input:
+    the lse forward (out and lse), then dQ and dK/dV from its out and
+    lse.  Returns three cases, one per kernel."""
+    dtype = dtype or torch.float32
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5 * lq + lk + d)
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=g)
+                   .to(dtype) for n in (lq, lk, lk, lq))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    ref_out, ref_lse = fa.flash_attention_lse_reference(q, k, v,
+                                                        causal=causal)
+    ops = fa.bwd_operands(q, k, v, out, lse, do)
+    grads = (fa.launch_bwd_dq(*ops, causal, scale),
+             *fa.launch_bwd_dkv(*ops, causal, scale))
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    atol, rtol = (8e-3, 8e-3) if bf16 else (2e-5, 1e-4)
+
+    def check(got, want):
+        err = (got.float() - want.float()).abs()
+        top = want.float().abs()
+        return (float(err.max()), float(err.max() / top.max().clamp_min(
+            1e-30)), bool(torch.all(err <= atol + rtol * top)))
+
+    live = ref_lse > fa.NEG_INF / 2
+    lse_err = (lse - ref_lse.float()).abs()[live]
+    lse_ok = (bool(torch.all(lse_err <= 2e-5 + 1e-5 * ref_lse[live].abs()))
+              and bool(torch.all(lse[~live] <= fa.NEG_INF / 2)))
+    zero_rows = max(lq - lk, 0) if causal else 0
+    zero_ok = not zero_rows or not bool(grads[0][:, :, :zero_rows].any())
+    bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
+    pairs = live_pairs(torch, lq, lk, causal)
+    elt, bh = q.element_size(), b * h
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    lib_fwd, lib_bwd = efficient_attention(torch, q, k, v, do, causal)
+    lib_err = None
+    if lib_bwd is not None:
+        lib_err = float((lib_bwd()[0].float() - ref[0].float()).abs().max())
+    pair = timings(torch, {
+        "kernel": lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                 causal),
+        "plain": lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                          do, causal),
+        "library": lib_bwd}, iters)
+    common = {"case": label, "b": b, "h": h, "lq": lq, "lk": lk, "d": d,
+              "causal": causal, "dtype": str(dtype).replace("torch.", ""),
+              "tolerance": {"atol": atol, "rtol": rtol},
+              "zero_rows": zero_rows, "live_pairs_per_head": pairs}
+    o_abs, o_rel, o_ok = check(out, ref_out)
+    cases = [{
+        **common, "kernel": "flash_attention_fwd_lse", "max_abs_err": o_abs,
+        "max_rel_err": o_rel,
+        "lse_max_abs_err": float(lse_err.max()) if live.any() else 0.0,
+        "library_call": ("aten._scaled_dot_product_efficient_attention"
+                         "(compute_log_sumexp=True)" if lib_fwd else None),
+        **bound(bh * (elt * (2 * lq + 2 * lk) * d + 4 * lq),
+                4 * bh * pairs * d, peak),
+        **timings(torch, {
+            "kernel": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
+            "plain": lambda: fa.flash_attention_lse_reference(
+                q, k, v, causal=causal),
+            "library": lib_fwd}, iters)}]
+    oks = [o_ok, lse_ok, zero_ok, bitwise]
+    for name, got, want, nbytes, n_ops, fn in (
+            ("flash_attention_bwd_dq", grads[:1], ref[:1],
+             bh * (elt * (3 * lq + 2 * lk) * d + 8 * lq), 6,
+             lambda: fa.launch_bwd_dq(*ops, causal, scale)),
+            ("flash_attention_bwd_dkv", grads[1:], ref[1:],
+             bh * (elt * (2 * lq + 4 * lk) * d + 8 * lq), 8,
+             lambda: fa.launch_bwd_dkv(*ops, causal, scale))):
+        checks = [check(x, y) for x, y in zip(got, want)]
+        oks.append(all(c[2] for c in checks))
+        cases.append({
+            **common, "kernel": name,
+            "max_abs_err": max(c[0] for c in checks),
+            "max_rel_err": max(c[1] for c in checks),
+            "bitwise_reproducible": bitwise,
+            "library_call": (
+                "aten._scaled_dot_product_efficient_attention_backward "
+                "(dQ, dK, dV and delta together)" if lib_bwd else None),
+            "library_dq_max_abs_err_vs_plain": lib_err,
+            **bound(nbytes, n_ops * bh * pairs * d, peak),
+            **timings(torch, {"kernel": fn}, iters),
+            "pair_ms": pair["ms"], "pair_call_ms": pair["call_ms"],
+            "plain_ms": pair["plain_ms"],
+            "plain_call_ms": pair["plain_call_ms"],
+            "library_ms": pair["library_ms"],
+            "library_call_ms": pair["library_call_ms"],
+            "plain_and_library_are_the_pair": True})
+    if not all(oks):
+        raise AssertionError(f"flash training kernels disagree with their "
+                             f"plain versions (out/lse/zero rows/bitwise/"
+                             f"dq/dkv ok: {oks}): {cases}")
+    return cases
+
+
+def flash_train_cases(torch, fa):
+    """Lists of lse, dQ and dK/dV cases at the training kernels' shapes."""
+    rows = [
+        flash_train_case(torch, fa, "bert_train_l128", 32, 12, 128, 128, 64,
+                         False),
+        flash_train_case(torch, fa, "bench_l2048", 4, 8, 2048, 2048, 64,
+                         False, iters=3),
+        flash_train_case(torch, fa, "bench_l2048_d128_causal", 4, 8, 2048,
+                         2048, 128, True, iters=3),
+        flash_train_case(torch, fa, "ragged_l77_causal", 8, 12, 77, 77, 64,
+                         True),
+        flash_train_case(torch, fa, "causal_lq128_lk384", 8, 12, 128, 384,
+                         64, True),
+        flash_train_case(torch, fa, "causal_lq384_lk128", 8, 12, 384, 128,
+                         64, True),
+        flash_train_case(torch, fa, "bert_l512_bf16", 8, 12, 512, 512, 64,
+                         False, dtype=torch.bfloat16),
+    ]
+    return [list(c) for c in zip(*rows)]
 
 
 def kernel_phase(torch, eb, dq):
@@ -734,10 +934,7 @@ def bert_serving_phase(torch, eb, dq, fa):
         im.predict(xs)                  # first calls: cuBLAS and loads
 
     # the main path's window: counts start at 0 here
-    eb.LAUNCHES.reset()
-    eb.BWD_LAUNCHES.reset()
-    dq.LAUNCHES.reset()
-    fa.LAUNCHES.reset()
+    reset_counts(eb, dq, fa)
     forwards[0] = 0
     rows.clear()
     window = METRICS.snapshot()
@@ -755,7 +952,9 @@ def bert_serving_phase(torch, eb, dq, fa):
     launches = {"embedding_bag": eb.LAUNCHES.value,
                 "embedding_bag_bwd": eb.BWD_LAUNCHES.value,
                 "dequant_matmul": dq.LAUNCHES.value,
-                "flash_attention": fa.LAUNCHES.value}
+                "flash_attention": fa.LAUNCHES.value,
+                "flash_training_kernels": sum(flash_counts(fa).values())
+                - fa.LAUNCHES.value}
     n_forwards = forwards[0]
     bucket_rows = {str(b): rows.count(b) for b in sorted(set(rows))}
     counters = METRICS.delta(window)["counters"]
@@ -817,7 +1016,8 @@ def bert_serving_phase(torch, eb, dq, fa):
     if (launches["flash_attention"] != BERT_BASE["n_block"] * n_forwards
             or sel["reference"] or sel["cuda"] != launches["flash_attention"]
             or launches["embedding_bag"] or launches["dequant_matmul"]
-            or launches["embedding_bag_bwd"]):
+            or launches["embedding_bag_bwd"]
+            or launches["flash_training_kernels"]):
         raise AssertionError(f"BERT serving path: {launches} over "
                              f"{n_forwards} forwards, selections {sel}")
     for name, ans, n in (("l128", ans128, 48), ("l512", ans512, 8)):
@@ -1017,6 +1217,229 @@ def training_phase(torch, eb, dq):
 
 
 # ---------------------------------------------------------------------------
+# BERT training phase
+
+
+def flash_counts(fa):
+    return {"flash_attention_fwd": fa.LAUNCHES.value,
+            "flash_attention_fwd_lse": fa.LSE_LAUNCHES.value,
+            "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES.value,
+            "flash_attention_bwd_dkv": fa.BWD_DKV_LAUNCHES.value}
+
+
+def reset_counts(eb, dq, fa):
+    for c in (eb.LAUNCHES, eb.BWD_LAUNCHES, dq.LAUNCHES, fa.LAUNCHES,
+              fa.LSE_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES):
+        c.reset()
+
+
+def bert_train_data(n, length, seed):
+    """``n`` sequences of ``length`` real tokens; segments 0 then 1 from a
+    seeded split, and label 1 when the split falls in the first half (a
+    rule the pooled [CLS] output can read from the segment embeddings)."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, BERT_BASE["vocab"], (n, length)).astype(np.int32)
+    split = rs.randint(1, length, n)
+    seg = (np.arange(length)[None, :] >= split[:, None]).astype(np.int32)
+    return ids, seg, (split < length // 2).astype(np.int32)
+
+
+def profile_bert_step(torch, net, xs, y):
+    """One more training step under ``torch.profiler``: device time (the
+    kernels' self time summed) against the step's wall time, and the
+    share of the three training flash kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    epochs = net.estimator.finished_epochs + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(xs, y, batch_size=len(y), epochs=epochs, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = kernel_events(torch, prof)
+    busy = sum(device_us(e) for e in events) / 1e3
+    flash = {name: sum(device_us(e) for e in events if name in e.key) / 1e3
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    top = sorted(events, key=device_us, reverse=True)[:10]
+    return {"wall_ms": 1e3 * wall, "device_ms": busy,
+            "device_busy_share": busy / (1e3 * wall) if wall else None,
+            "flash_ms": flash,
+            "flash_share_of_device": sum(flash.values()) / busy
+            if busy else None,
+            "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top}}
+
+
+def bert_training_phase(torch, eb, dq, fa):
+    """BERT-Base fine-tuned through ``compile`` / ``fit`` (docstring item
+    6): returns the launch counts of its window and of the no-grad
+    forwards after it."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    from analytics_zoo_tpu_torch.train.optimizers import AdamWeightDecay
+
+    cfg = BERT_TRAIN
+    init_zoo_context()
+    reset_name_scope()
+    t0 = time.perf_counter()
+    net = BERTClassifier(num_classes=2, bert_config=dict(
+        BERT_BASE, attn_drop=0.0, hidden_drop=0.1),
+        generator=torch.Generator().manual_seed(SEED))
+    init = export_params(net)
+    setup_s = time.perf_counter() - t0
+    ids, seg, y = bert_train_data(cfg["rows"], cfg["length"], SEED + 4)
+    steps = cfg["rows"] // cfg["batch"]
+    total = steps * (cfg["epochs"] + 1)
+
+    def fresh():
+        """The initial weights and a new Estimator: a fresh optimizer
+        state and dropout generator, seeded as the first run's."""
+        load_jax_params(net, init)
+        net.compile(AdamWeightDecay(cfg["lr"], warmup_portion=0.1,
+                                    total=total),
+                    "sparse_categorical_crossentropy_with_logits",
+                    device="cuda")
+
+    def one_step_grads():
+        """Every leaf's gradient in one step from the initial weights on
+        the first batch, read by hooks on the parameters."""
+        fresh()
+        grads = {}
+        hooks = [p.register_hook(lambda g, n=n: grads.__setitem__(
+            n, g.detach().clone())) for n, p in net.named_parameters()]
+        try:
+            hist = net.fit([ids[:cfg["batch"]], seg[:cfg["batch"]]],
+                           y[:cfg["batch"]], batch_size=cfg["batch"],
+                           epochs=1, verbose=False)
+        finally:
+            for hk in hooks:
+                hk.remove()
+        return grads, hist[0]["loss"]
+
+    # the main path's window: counts start at 0 here, read after the
+    # device-resident epoch
+    fresh()
+    reset_counts(eb, dq, fa)
+    window = METRICS.snapshot()
+    t0 = time.perf_counter()
+    # fit returns the Estimator's history list, which later fits extend
+    hist = [dict(h) for h in net.fit([ids, seg], y, batch_size=cfg["batch"],
+                                     epochs=cfg["epochs"], verbose=False)]
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    host_steps = net.estimator.global_step
+    after_host = flash_counts(fa)
+    dev = [torch.from_numpy(a).cuda() for a in (ids, seg, y)]
+    t0 = time.perf_counter()
+    resident = dict(net.fit(dev[:2], dev[2], batch_size=cfg["batch"],
+                            epochs=cfg["epochs"] + 1, verbose=False)[-1])
+    torch.cuda.synchronize()
+    res_wall = time.perf_counter() - t0
+    path = net.estimator.last_data_path
+    total_steps = net.estimator.global_step
+    launches = flash_counts(fa)
+    others = (eb.LAUNCHES.value, eb.BWD_LAUNCHES.value, dq.LAUNCHES.value)
+    counters = METRICS.delta(window)["counters"]
+    sel = {f"{k}/{p}": counters.get(
+        f'ops_kernel_selected_total{{kernel="{k}",path="{p}"}}', 0)
+        for k in ("flash_attention", "flash_attention_bwd")
+        for p in ("cuda", "reference")}
+
+    # no-grad forwards of the trained model: the forward-only kernel
+    n0 = flash_counts(fa)
+    ev = net.evaluate([ids, seg], y, batch_size=64)
+    logits = net.predict([ids[:64], seg[:64]], batch_size=32)
+    eval_launches = {k: v - n0[k] for k, v in flash_counts(fa).items()}
+    profile = profile_bert_step(torch, net, [ids[:cfg["batch"]],
+                                             seg[:cfg["batch"]]],
+                                y[:cfg["batch"]])
+
+    # the same three epochs, and one step, through the plain versions
+    before = flash_counts(fa)
+    with forced(PATH_REFERENCE):
+        fresh()
+        ref_hist = [dict(h) for h in net.fit(
+            [ids, seg], y, batch_size=cfg["batch"], epochs=cfg["epochs"],
+            verbose=False)]
+        plain_grads, plain_loss = one_step_grads()
+    plain_launched = flash_counts(fa) != before
+    kernel_grads, kernel_loss = one_step_grads()
+    g_all = max(float(g.abs().max()) for g in plain_grads.values())
+    worst = max((float((kernel_grads[n] - g).abs().max())
+                 / (float(g.abs().max()) + 1e-2 * g_all), n)
+                for n, g in plain_grads.items())
+    loss = [h["loss"] for h in hist]
+    ref_loss = [h["loss"] for h in ref_hist]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss, ref_loss))
+    per_step = {k: v / total_steps for k, v in launches.items()}
+    # epochs 2 and 3: the first holds the warm-up (cuBLAS, allocator)
+    steady = float(np.mean([h["throughput"] for h in hist[1:]]))
+    out = {
+        "model": {**BERT_BASE, "attn_drop": 0.0, "hidden_drop": 0.1,
+                  "num_classes": 2, "weights": "float32",
+                  "params": sum(p.numel() for p in net.parameters())},
+        "data": {**cfg, "label": "segment split in the first half"},
+        "setup_s": setup_s,
+        "epoch_loss": loss, "plain_epoch_loss": ref_loss,
+        "loss_max_rel_diff_vs_plain": loss_rel,
+        "samples_per_s_epochs": [h["throughput"] for h in hist],
+        "samples_per_s": steady, "ms_per_step": 1e3 * cfg["batch"] / steady,
+        "host_wall_s": host_wall,
+        "resident_epoch": {"loss": resident["loss"],
+                           "samples_per_s": resident["throughput"],
+                           "wall_s": res_wall, "path": path},
+        "one_step": {"loss": kernel_loss, "plain_loss": plain_loss,
+                     "grads_compared": len(plain_grads),
+                     "max_abs_grad_all_leaves": g_all,
+                     "worst_leaf_ratio": worst[0], "worst_leaf": worst[1],
+                     "ratio": "max|dg| / (max|g_leaf| + 1e-2 max|g_all|)"},
+        "steps": total_steps, "launches": launches,
+        "launches_per_step": per_step, "selected": sel,
+        "evaluate": ev, "no_grad_forward_launches": eval_launches,
+        "profile": profile,
+    }
+    log("bert_training", json.dumps(out))
+    n_block = BERT_BASE["n_block"]
+    want = {"flash_attention_fwd": 0}
+    want.update({k: n_block * host_steps for k in (
+        "flash_attention_fwd_lse", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")})
+    if (after_host != want or path != "device_resident"
+            or per_step != {k: v / host_steps for k, v in want.items()}
+            or any(others)
+            or sel != {"flash_attention/cuda": n_block * total_steps,
+                       "flash_attention/reference": 0,
+                       "flash_attention_bwd/cuda": n_block * total_steps,
+                       "flash_attention_bwd/reference": 0}):
+        raise AssertionError(
+            f"BERT training launches {after_host} after {host_steps} host "
+            f"steps (want {want}), {launches} after {total_steps} steps, "
+            f"NCF kernels {others}, selections {sel}, data path {path}")
+    if (eval_launches["flash_attention_fwd"] == 0
+            or sum(eval_launches.values())
+            != eval_launches["flash_attention_fwd"]):
+        raise AssertionError(f"no-grad forwards launched {eval_launches}")
+    if plain_launched:
+        raise AssertionError("a kernel launched on the plain path")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"BERT loss did not fall: {loss}")
+    if loss_rel > 1e-3 or worst[0] > 1e-4 or len(plain_grads) != len(
+            kernel_grads):
+        raise AssertionError(
+            f"BERT training through the kernels disagrees with the plain "
+            f"path: losses {loss} vs {ref_loss}, worst gradient {worst}")
+    if (logits.shape != (64, 2) or not np.all(np.isfinite(logits))
+            or not all(np.isfinite(v) for v in ev.values())):
+        raise AssertionError(f"bad evaluate/predict: {ev} {logits.shape}")
+    return launches, eval_launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def headline(cases, name, route, src, tpu, launches, pick):
@@ -1070,13 +1493,14 @@ def main() -> int:
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
     fl_cases = flash_cases(torch, fa)
-    for c in fl_cases:
+    lse_cases, bwd_dq_cases, bwd_dkv_cases = flash_train_cases(torch, fa)
+    for c in fl_cases + lse_cases + bwd_dq_cases + bwd_dkv_cases:
         log("kernel_case", json.dumps(c))
-    backward_guard(torch, fa)
-    fa.LAUNCHES.reset()
+    reset_counts(eb, dq, fa)
     served = serving_phase(torch, eb, dq)
     trained = training_phase(torch, eb, dq)
     bert = bert_serving_phase(torch, eb, dq, fa)
+    bert_trained, bert_eval = bert_training_phase(torch, eb, dq, fa)
     fwd_by_path = {"serving": served["embedding_bag"],
                    "training": trained["embedding_bag_fwd"],
                    "bert_serving": bert["embedding_bag"]}
@@ -1097,16 +1521,35 @@ def main() -> int:
     kernels[2]["launches_by_path"] = {"serving": served["dequant_matmul"],
                                       "training": trained["dequant_matmul"],
                                       "bert_serving": bert["dequant_matmul"]}
-    flash = headline(fl_cases, "flash_attention_fwd", "cuda", FLASH_SRC,
-                     FLASH_TPU, bert["flash_attention"],
-                     lambda c: c["case"] == "bert_l128")
-    f32 = [c for c in fl_cases if c["dtype"] == "float32"]
-    flash["max_abs_err"] = max(c["max_abs_err"] for c in f32)
-    flash["max_rel_err"] = max(c["max_rel_err"] for c in f32)
-    flash["max_abs_err_bf16"] = max(c["max_abs_err"] for c in fl_cases
-                                    if c["dtype"] == "bfloat16")
-    flash["launches_by_path"] = {"bert_serving": bert["flash_attention"]}
-    kernels.append(flash)
+    fwd_paths = {"bert_serving": bert["flash_attention"],
+                 "bert_training_no_grad": bert_eval["flash_attention_fwd"]}
+    flash_rows = [
+        (fl_cases, "flash_attention_fwd", FLASH_SRC, FLASH_TPU, fwd_paths,
+         "bert_l128"),
+        (lse_cases, "flash_attention_fwd_lse", FLASH_SRC, FLASH_LSE_TPU,
+         {"bert_training": bert_trained["flash_attention_fwd_lse"]},
+         "bert_train_l128"),
+        (bwd_dq_cases, "flash_attention_bwd_dq", FLASH_BWD_SRC, FLASH_DQ_TPU,
+         {"bert_training": bert_trained["flash_attention_bwd_dq"]},
+         "bert_train_l128"),
+        (bwd_dkv_cases, "flash_attention_bwd_dkv", FLASH_BWD_SRC,
+         FLASH_DKV_TPU,
+         {"bert_training": bert_trained["flash_attention_bwd_dkv"]},
+         "bert_train_l128")]
+    for cases, name, src, tpu, by_path, head in flash_rows:
+        row = headline(cases, name, "cuda", src, tpu, sum(by_path.values()),
+                       lambda c, head=head: c["case"] == head)
+        f32 = [c for c in cases if c["dtype"] == "float32"]
+        row["max_abs_err"] = max(c["max_abs_err"] for c in f32)
+        row["max_rel_err"] = max(c["max_rel_err"] for c in f32)
+        row["max_abs_err_bf16"] = max(c["max_abs_err"] for c in cases
+                                      if c["dtype"] == "bfloat16")
+        row["launches_by_path"] = by_path
+        if "pair_ms" in row["cases"][0]:
+            head_case = next(c for c in cases if c["case"] == head)
+            row["pair_ms"] = head_case["pair_ms"]
+            row["plain_and_library_are_the_pair"] = True
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -285,20 +285,109 @@ def test_flash_kernel_takes_strided_heads_on_card(cuda_device):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
+def _bwd_tol(dtype):
+    """f32: atol 2e-5 + rtol 1e-4 (sums in another order); bf16 inputs
+    run in f32 in both, so the gradients differ by at most one bf16
+    rounding of an f32 result: atol 8e-3 + rtol 8e-3."""
+    return (8e-3, 8e-3) if dtype == torch.bfloat16 else (2e-5, 1e-4)
+
+
 @pytest.mark.cuda
-def test_flash_backward_guard_on_card(cuda_device):
-    """A loss through the kernel raises in backward instead of training
-    nothing; under inference_mode the output carries no graph."""
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,dtype", FLASH_CASES)
+def test_flash_lse_kernel_matches_plain_on_card(cuda_device, b, h, lq, lk, d,
+                                                causal, dtype):
+    """The lse kernel's (out, lse) against the plain version: out as the
+    forward kernel's; lse f32 atol 2e-5 + rtol 1e-5 on rows with a live
+    key, and -1e30 on rows with none."""
     from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 
+    q, k, v = _flash_inputs(cuda_device, b, h, lq, lk, d, dtype, lq + lk)
+    n0 = tfa.LSE_LAUNCHES.value
+    out, lse = tfa._launch(q, k, v, causal, d ** -0.5, with_lse=True)
+    torch.cuda.synchronize()
+    assert tfa.LSE_LAUNCHES.value == n0 + 1
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, lq)
+    want, want_lse = tfa.flash_attention_lse_reference(q, k, v, causal)
+    atol, rtol = _bwd_tol(dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    live = want_lse > -1e29
+    torch.testing.assert_close(lse[live], want_lse.float()[live], atol=2e-5,
+                               rtol=1e-5)
+    assert bool((lse[~live] <= -1e29).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,dtype", FLASH_CASES)
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, h, lq, lk, d,
+                                               causal, dtype):
+    """The dQ and dK/dV kernels against the plain backward on the same
+    (q, k, v, out, lse, dO), with q, k, v as transposed head views and dO
+    a non-contiguous view; two runs give the same bits (no atomics), and
+    query rows with no live key get a zero dQ."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    g = torch.Generator(device=cuda_device).manual_seed(lq * 3 + lk + d)
+
+    def heads(n):
+        x = torch.randn(b, n, h, d, device=cuda_device, generator=g)
+        return x.to(dtype).transpose(1, 2)          # (b, h, n, d), strided
+
+    q, k, v = heads(lq), heads(lk), heads(lk)
+    do = torch.randn(b, h, d, lq, device=cuda_device,
+                     generator=g).to(dtype).transpose(2, 3)
+    assert not q.is_contiguous() and do.stride(-1) != 1
+    out, lse = tfa._launch(q, k, v, causal, d ** -0.5, with_lse=True)
+    n0 = (tfa.BWD_DQ_LAUNCHES.value, tfa.BWD_DKV_LAUNCHES.value)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (tfa.BWD_DQ_LAUNCHES.value - n0[0],
+            tfa.BWD_DKV_LAUNCHES.value - n0[1]) == (2, 2)
+    want = tfa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    atol, rtol = _bwd_tol(dtype)
+    for x, y, z in zip(got, again, want):
+        assert x.dtype == dtype and x.is_contiguous()
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x.float(), z.float(), atol=atol,
+                                   rtol=rtol)
+    if causal and lq > lk:
+        assert not got[0][:, :, :lq - lk].any()
+
+
+@pytest.mark.cuda
+def test_flash_function_trains_through_the_kernels_on_card(cuda_device):
+    """A loss through ``flash_attention`` on the card launches the lse
+    kernel, then the dQ and dK/dV kernels (a stride-0 gradient from
+    ``sum``), and its gradient equals the same graph under
+    ``forced("reference")``; without grad the forward kernel runs and
+    the output carries no graph."""
+    from analytics_zoo_tpu_torch.ops import dispatch
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    counts = (tfa.LAUNCHES, tfa.LSE_LAUNCHES, tfa.BWD_DQ_LAUNCHES,
+              tfa.BWD_DKV_LAUNCHES)
+
+    def grads():
+        xs = [t.clone().requires_grad_(True) for t in _flash_inputs(
+            cuda_device, 2, 3, 97, 131, 64, torch.float32, 0)]
+        tfa.flash_attention(*xs, causal=True).sum().backward()
+        return [x.grad for x in xs]
+
+    n0 = [c.value for c in counts]
+    got = grads()
+    torch.cuda.synchronize()
+    assert [c.value - n for c, n in zip(counts, n0)] == [0, 1, 1, 1]
+    with dispatch.forced(dispatch.PATH_REFERENCE):
+        want = grads()
+    assert [c.value - n for c, n in zip(counts, n0)] == [0, 1, 1, 1]
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=2e-5, rtol=1e-4)
     q, k, v = (t.requires_grad_(True) for t in _flash_inputs(
-        cuda_device, 1, 2, 64, 64, 32, torch.float32, 0))
-    out = tfa.flash_attention(q, k, v)
-    assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        out.sum().backward()
+        cuda_device, 1, 2, 64, 64, 32, torch.float32, 1))
     with torch.inference_mode():
         assert tfa.flash_attention(q, k, v).grad_fn is None
+    assert [c.value - n for c, n in zip(counts, n0)] == [1, 1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -346,3 +435,59 @@ def test_bert_serving_on_card_matches_cpu(cuda_device, stacked):
     assert tfa.LAUNCHES.value - n0 == 3
     np.testing.assert_allclose(got, cpu.predict([ids, seg, mask]), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bert_fit_on_card_matches_plain_path(cuda_device):
+    """BERTClassifier (3 blocks, no attention dropout, hidden dropout 0.1
+    from the Estimator's seeded generator) trains on the card with every
+    block's attention on the lse, dQ and dK/dV kernels — 3 of each per
+    step, no forward-only kernel — and one step from the same weights and
+    batch gives the plain path's loss (rtol 1e-4) and every leaf's
+    gradient within 1e-4 of that leaf's largest plain |g| plus 1e-6 of
+    the largest over all leaves (f32 sums in another order through 3
+    blocks; the floor is for the key bias, whose gradient is 0 in exact
+    arithmetic, so both paths hold only rounding noise there)."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import dispatch
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    from analytics_zoo_tpu_torch.train.optimizers import AdamWeightDecay
+
+    cfg = dict(vocab=500, n_block=3, attn_drop=0.0, hidden_drop=0.1)
+    rs = np.random.RandomState(2)
+    ids = rs.randint(0, 500, (16, 40)).astype(np.int32)
+    seg = (np.arange(40)[None, :] >= rs.randint(1, 40, (16, 1))).astype(
+        np.int32)
+    y = (ids[:, 1] < 250).astype(np.int32)
+    reset_name_scope()
+    init = export_params(BERTClassifier(2, bert_config=cfg))
+
+    def step():
+        reset_name_scope()
+        net = BERTClassifier(2, bert_config=cfg)
+        load_jax_params(net, init)
+        grads = {}
+        for name, p in net.named_parameters():
+            p.register_hook(lambda g, name=name: grads.__setitem__(
+                name, g.detach().clone()))
+        net.compile(AdamWeightDecay(1e-3), "sparse_categorical_crossentropy"
+                    "_with_logits", device=cuda_device)
+        hist = net.fit([ids, seg], y, batch_size=16, epochs=1, verbose=False)
+        return hist[0]["loss"], grads
+
+    counts = (tfa.LAUNCHES, tfa.LSE_LAUNCHES, tfa.BWD_DQ_LAUNCHES,
+              tfa.BWD_DKV_LAUNCHES)
+    n0 = [c.value for c in counts]
+    loss, got = step()
+    assert [c.value - n for c, n in zip(counts, n0)] == [0, 3, 3, 3]
+    with dispatch.forced(dispatch.PATH_REFERENCE):
+        ref_loss, want = step()
+    assert [c.value - n for c, n in zip(counts, n0)] == [0, 3, 3, 3]
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
+    assert set(got) == set(want) and len(got) > 40
+    g_all = max(float(g.abs().max()) for g in want.values())
+    for name, g in want.items():
+        err = float((got[name] - g).abs().max())
+        assert err <= 1e-4 * float(g.abs().max()) + 1e-6 * g_all, (name, err)
