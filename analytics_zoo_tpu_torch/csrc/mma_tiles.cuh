@@ -1,0 +1,213 @@
+// Tensor-core and asynchronous-copy building blocks for Hopper (sm_90a)
+// kernels that use mma.sync: 16-byte cp.async tiles with zero fill, the
+// ldmatrix fragment loads, the m16n8k8 TF32 and m16n8k16 bf16 products
+// with f32 accumulation, and the splits that keep an f32 operand's
+// accuracy on the tensor cores:
+//
+//   split-TF32 ("3xTF32"): x_hi = tf32(x), x_lo = tf32(x - x_hi), tf32
+//   being cvt.rna.tf32.f32's rounding; a.b ~ a_hi.b_hi + a_hi.b_lo +
+//   a_lo.b_hi, each term an exact TF32 product summed in f32, so about 21
+//   of f32's 24 mantissa bits survive (plain TF32 keeps 11);
+//
+//   split-bf16: x_hi = bf16(x), x_lo = bf16(x - x_hi), 16 mantissa bits.
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8" and
+// "m16n8k16"), lane = 4 * g + t:
+//
+//   C, D (16 x 8, f32):  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
+//   A tf32 (16 x 8):     a0 (g, t)   a1 (g+8, t)   a2 (g, t+4)   a3 (g+8, t+4)
+//   B tf32 (8 x 8):      b0 (t, g)   b1 (t+4, g)
+//   A bf16 (16 x 16):    a0 (g, 2t..2t+1)   a1 (g+8, 2t..)  a2 (g, 2t+8..)
+//                        a3 (g+8, 2t+8..)
+//   B bf16 (16 x 8):     b0 (2t..2t+1, g)   b1 (2t+8..2t+9, g)
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace zoo_mma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of BYTES (4, 8 or 16) from global src to shared dst; the
+// bytes past src_bytes (0 for a row outside the tensor) are zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Copies rows [0, ROWS) of a tile, each of d elements, from global rows
+// src + r * row_stride into shared rows dst + r * S; rows at or past
+// nvalid are zero-filled, and columns d..S are not touched.  vec is the
+// copy width in bytes (16, 8 or 4 through cp.async; anything narrower,
+// a bf16 row that starts on 2 bytes, by plain loads and stores), and
+// divides d * sizeof(T), the base address and every stride.  The
+// cp.async copies land after cp_async_wait; the plain stores are
+// done when this returns.  Called by all NT threads of the block.
+template <typename T, int S, int ROWS, int NT, int DMAX>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          int64_t row_stride, int nvalid,
+                                          int d, int vec, int tid) {
+  if (vec == 16 && d == DMAX) {  // the common case: constant chunk count
+    constexpr int kCe = 16 / (int)sizeof(T);
+    constexpr int kCpr = DMAX / kCe;
+    static_assert((ROWS * kCpr) % NT == 0, "tile chunks per thread");
+#pragma unroll
+    for (int j = 0; j < ROWS * kCpr / NT; ++j) {
+      const int i = tid + j * NT;
+      const int r = i / kCpr;
+      const int c = (i % kCpr) * kCe;
+      const bool ok = r < nvalid;
+      cp_async<16>(smem_u32(dst + r * S + c),
+                   ok ? src + r * row_stride + c : src, ok ? 16 : 0);
+    }
+    return;
+  }
+  if (vec >= 4) {
+    const int ce = vec / (int)sizeof(T);
+    const int cpr = d / ce;
+    for (int i = tid; i < ROWS * cpr; i += NT) {
+      const int r = i / cpr;
+      const int c = (i - r * cpr) * ce;
+      const bool ok = r < nvalid;
+      const T* g = ok ? src + r * row_stride + c : src;
+      const uint32_t s = smem_u32(dst + r * S + c);
+      if (vec == 16)
+        cp_async<16>(s, g, ok ? 16 : 0);
+      else if (vec == 8)
+        cp_async<8>(s, g, ok ? 8 : 0);
+      else
+        cp_async<4>(s, g, ok ? 4 : 0);
+    }
+    return;
+  }
+  for (int i = tid; i < ROWS * d; i += NT) {
+    const int r = i / d;
+    const int c = i - r * d;
+    dst[r * S + c] = r < nvalid ? src[r * row_stride + c] : zero<T>();
+  }
+}
+
+// Zeroes columns [d, DMAX) of `rows` shared rows of stride S: the padding
+// up to the mma's k that cp.async never writes.
+template <typename T, int S, int DMAX, int NT>
+__device__ __forceinline__ void zero_pad_columns(T* base, int rows, int d,
+                                                 int tid) {
+  const int w = DMAX - d;
+  if (w <= 0) return;
+  for (int i = tid; i < rows * w; i += NT) {
+    const int r = i / w;
+    base[r * S + d + (i - r * w)] = zero<T>();
+  }
+}
+
+// --- fragment loads (bf16) ---------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// --- products ----------------------------------------------------------
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           uint32_t bhi0, uint32_t bhi1,
+                                           uint32_t blo0, uint32_t blo1) {
+  mma_tf32(c, alo, bhi0, bhi1);
+  mma_tf32(c, ahi, blo0, blo1);
+  mma_tf32(c, ahi, bhi0, bhi1);
+}
+
+// --- splits ------------------------------------------------------------
+
+// cvt.rna.tf32.f32 (nearest, ties away from zero, low 13 bits cleared)
+// in two full-rate integer operations: the same value for every finite x
+// and infinity, where the conversion instruction runs at a fraction of
+// the rate.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) -> hi = bf16x2(x0, x1) and lo = bf16x2 of the residuals; x0
+// in the low half (the lower column of an A fragment register).
+__device__ __forceinline__ void split_bf16x2(float x0, float x1,
+                                             uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+}  // namespace zoo_mma

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions (no PyTorch headers), so
 ``nvcc`` compiles it in seconds into ``build/torch_kernels/<name>-<hash>.so``
-at the repository root; the hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one loads what is there.
+at the repository root; the hash covers the source, the headers in
+``csrc/`` and the flags, so an edited source or header rebuilds and an
+unchanged one loads what is there.
 ``build()`` starts one ``nvcc`` per missing library, all at once.
 A build that fails raises, naming the kernel; nothing falls back.
 """
@@ -43,10 +44,15 @@ def _nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    """The shared library ``name`` builds to: keyed by source and flags."""
+    """The shared library ``name`` builds to: keyed by its source, every
+    header in ``csrc/`` (a source may include any of them) and the
+    flags."""
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

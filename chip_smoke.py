@@ -5,13 +5,21 @@
 
 1. Builds the CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
-   card (``nvidia-smi --query-gpu=name,power.limit``).
+   card (``nvidia-smi --query-gpu=name,power.limit``), each library's
+   registers and spills (``ptxas``), and the tensor-core (``HMMA``) and
+   ``cp.async`` (``LDGSTS``) instructions of every flash-forward
+   instance (``cuobjdump -sass``); an instance without either, or a
+   spill in the flash-forward library, fails.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card, at the slices' shapes and at the repo's kernel-bench shapes;
    times the kernel, the plain version and, where one exists, a single
    PyTorch call computing the same function, beside the least time the
-   card could take (``bound_ms``: bytes over 3.35 TB/s or f32
-   operations over 67 TFLOP/s, the larger).  ``*_ms`` is device time
+   card could take (``bound_ms``: bytes over 3.35 TB/s or operations
+   over the rate for their type, the larger: f32 at 67 TFLOP/s, except
+   attention, whose f32 operations are bounded at the card's
+   f32-accurate tensor rate, split-TF32's 495 / 3 = 165 TFLOP/s, with
+   the 67 TFLOP/s time kept as ``ops_bound_ms_cuda_cores``; bf16 at 989
+   TFLOP/s).  ``*_ms`` is device time
    (the calls captured in a CUDA graph and replayed, timed by CUDA
    events); ``*_call_ms`` is time per call from a host loop, launch
    cost included.
@@ -23,15 +31,25 @@
    dequantize-matmul max |err| <= 1e-4 * max |plain| (K-long f32 sums
    in another order); flash attention f32 |err| <= 2e-5 + 1e-4 * |plain|
    elementwise, bf16 |err| <= 8e-3 + 8e-3 * |plain| (one bf16 rounding
-   of an f32 result), and rows with no live key exactly 0.  Flash cases:
+   of an f32 result) with at most ``BF16_MISMATCH_LIMIT`` of the bf16
+   outputs differing from the plain version's (which tells the kernel's
+   split P from a P rounded once to bf16), and rows with no live key
+   exactly 0.  Flash cases:
    the BERT-Base shapes (B=32, L=128 and B=8, L=512; 12 heads, D=64),
    the kernel bench's L=2048 (D=64, and D=128 causal), a ragged causal
-   L=77, causal Lq < Lk and Lq > Lk, and one bf16 case; the yardstick is
-   ``F.scaled_dot_product_attention`` on the backend named in the case.
+   L=77, causal Lq < Lk and Lq > Lk, bf16 at L=512 and at BERT's L=128,
+   ragged head widths (D=24 f32, D=72 bf16), and q, k, v as
+   ``x[..., 1:65]`` of a (B, L, H, 65) buffer (rows off 16 bytes, f32
+   and bf16); the yardstick is
+   ``F.scaled_dot_product_attention`` on the backend named in the case:
+   the first that takes the inputs and answers within the case's
+   tolerance (the flash backend left out on the misaligned legs, where
+   it faults).
    The training kernels — the forward with logsumexp, dQ and dK/dV — at
    BERT training's B=32 H=12 L=128 D=64, the bench's L=2048 (D=64, and
    D=128 causal), ragged causal L=77, causal Lq < Lk and Lq > Lk, and
-   one bf16 case: out as the forward's tolerance, lse |err| <= 2e-5 +
+   the forward's bf16, ragged-D and misaligned cases: out as the
+   forward's tolerance, lse |err| <= 2e-5 +
    1e-5 * |plain| on rows with a live key and -1e30 on rows with none,
    dQ, dK, dV as the forward's tolerance, dQ rows with no live key
    exactly 0, and two runs of the backward bit-identical (no atomics).
@@ -118,6 +136,14 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12         # H100 SXM TF32 tensor cores, dense
+# f32-accurate products on the tensor cores: split-TF32, three TF32
+# products per product (the attention kernels' f32 bound)
+PEAK_F32_TENSOR_FLOPS = PEAK_TF32_FLOPS / 3
+# The share of a flash kernel's bf16 outputs that may differ from the
+# plain version's (bf16_mismatch_share).  On an H100 the kernel's split P
+# moves 0.13-0.25% of them, a P rounded once to bf16 26-39%.
+BF16_MISMATCH_LIMIT = 0.02
 BAG_SRC = "analytics_zoo_tpu_torch/csrc/embedding_bag.cu"
 DQ_SRC = "analytics_zoo_tpu_torch/csrc/dequant_matmul.cu"
 FLASH_SRC = "analytics_zoo_tpu_torch/csrc/flash_attention.cu"
@@ -372,11 +398,13 @@ def dq_case(torch, dq, label, m, k, n, bits, iters=200):
     return case
 
 
-def sdpa_call(torch, q, k, v, causal):
+def sdpa_call(torch, q, k, v, causal, ref, tol, flash=True):
     """The one-call yardstick for flash attention:
     ``F.scaled_dot_product_attention`` on the same inputs, pinned to the
-    first backend of flash, memory-efficient, cuDNN and math that takes
-    them.  Its ``is_causal`` is top-left aligned, so a causal call with
+    first backend of flash (left out when ``flash`` is false),
+    memory-efficient, cuDNN and math that takes them and answers within
+    ``tol`` = (atol, rtol) of the plain version's ``ref``.  Its
+    ``is_causal`` is top-left aligned, so a causal call with
     Lq < Lk passes the bottom-right mask explicitly; with Lq > Lk some
     rows see no key, which SDPA does not answer with 0, so there is no
     yardstick (None, None)."""
@@ -394,62 +422,108 @@ def sdpa_call(torch, q, k, v, causal):
     elif causal:
         qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
         kw["attn_mask"] = qpos >= torch.arange(lk, device=q.device)[None, :]
-    for backend in (SDPBackend.FLASH_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+    backends = ((SDPBackend.FLASH_ATTENTION,) if flash else ()) + (
+        SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+        SDPBackend.MATH)
+    for backend in backends:
         def call(backend=backend):
             with sdpa_kernel(backend):
                 return F.scaled_dot_product_attention(q, k, v, **kw)
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                call()
+                err = (call().float() - ref.float()).abs()
                 torch.cuda.synchronize()
         except RuntimeError:
+            continue
+        if not bool(torch.all(err <= tol[0] + tol[1] * ref.float().abs())):
+            log("sdpa backend disagrees with the plain version",
+                backend.name, tuple(q.shape), q.dtype, float(err.max()))
             continue
         return call, backend.name
     return None, None
 
 
+def bf16_mismatch_share(torch, out, ref):
+    """For bf16 outputs, the share of elements whose bf16 value differs
+    from the plain version's (an f32 result rounded once), else None.
+    The kernel's p enters P.V as two bf16 terms, 16 bits; p rounded once
+    to bf16 keeps 8 and moves many more outputs to a neighbouring bf16
+    value, while every output stays within the tolerance."""
+    if out.dtype != torch.bfloat16:
+        return None
+    return float((out != ref).float().mean())
+
+
+def flash_inputs(torch, g, b, h, d, dtype, lengths, offset):
+    """Seeded (B, H, L, D) tensors, one per length; with ``offset``
+    each is ``x[..., offset:]`` of a (B, L, H, D + offset) buffer seen as
+    (B, H, L, D), so rows start off 16 bytes (offset 1)."""
+    if offset:
+        return tuple(torch.randn(b, n, h, d + offset, device="cuda",
+                                 generator=g).to(dtype)[..., offset:]
+                     .transpose(1, 2) for n in lengths)
+    return tuple(torch.randn(b, h, n, d, device="cuda", generator=g)
+                 .to(dtype) for n in lengths)
+
+
+def attention_bound(torch, dtype, nbytes, flops):
+    """``bound`` for attention: f32 operations at the f32-accurate
+    tensor rate (split-TF32, 165 TFLOP/s), bf16 at 989 TFLOP/s; the f32
+    time at the CUDA cores' 67 TFLOP/s kept beside it."""
+    if dtype == torch.bfloat16:
+        return bound(nbytes, flops, PEAK_BF16_FLOPS)
+    return {**bound(nbytes, flops, PEAK_F32_TENSOR_FLOPS),
+            "ops_bound_ms_cuda_cores": flops / PEAK_F32_FLOPS * 1e3}
+
+
 def flash_case(torch, fa, label, b, h, lq, lk, d, causal,
-               dtype=None, iters=50):
+               dtype=None, iters=50, offset=0):
     """The flash kernel against its plain version.  Tolerance: f32
-    |err| <= 2e-5 + 1e-4 * |plain| elementwise (sums in another order);
-    bf16 inputs run in f32 in both, so the outputs differ by at most one
-    bf16 rounding: |err| <= 8e-3 + 8e-3 * |plain|.  Rows with no live key
-    must be exactly 0."""
+    |err| <= 2e-5 + 1e-4 * |plain| elementwise (split-TF32 products and
+    sums in another order); bf16 outputs differ by at most one bf16
+    rounding of an f32 result: |err| <= 8e-3 + 8e-3 * |plain|, and at
+    most ``BF16_MISMATCH_LIMIT`` of them differ from the plain version's
+    bf16 value (split P).  Rows with no live key must be exactly 0."""
     dtype = dtype or torch.float32
     g = torch.Generator(device="cuda").manual_seed(SEED + lq + 3 * lk + d)
-    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=g)
-               .to(dtype) for n in (lq, lk, lk))
+    q, k, v = flash_inputs(torch, g, b, h, d, dtype, (lq, lk, lk), offset)
     out = fa.flash_attention(q, k, v, causal=causal)
     ref = fa.flash_attention_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     atol, rtol = (8e-3, 8e-3) if dtype == torch.bfloat16 else (2e-5, 1e-4)
     ok = bool(torch.all(err <= atol + rtol * ref.float().abs()))
+    mismatch = bf16_mismatch_share(torch, out, ref)
+    ok = ok and (mismatch is None or mismatch <= BF16_MISMATCH_LIMIT)
     zero_rows = max(lq - lk, 0) if causal else 0
     if zero_rows:
         ok = ok and not bool(out[:, :, :zero_rows].any())
     pairs = live_pairs(torch, lq, lk, causal)
     elt = out.element_size()
-    library, backend = sdpa_call(torch, q, k, v, causal)
+    # SDPA's flash backend faults on rows off 16 bytes (misaligned
+    # address), which ends the process's CUDA context: those legs take
+    # the next backend that answers right (the memory-efficient one
+    # refuses them, cuDNN's bf16 answer is wrong there)
+    library, backend = sdpa_call(torch, q, k, v, causal, ref, (atol, rtol),
+                                 flash=not offset)
     lib_err = None
     if library is not None:
         lib_err = float((library().float() - ref.float()).abs().max())
     case = {
         "case": label, "b": b, "h": h, "lq": lq, "lk": lk, "d": d,
         "causal": causal, "dtype": str(dtype).replace("torch.", ""),
+        "row_offset": offset,
         "tolerance": {"atol": atol, "rtol": rtol}, "zero_rows": zero_rows,
         "max_abs_err": float(err.max()),
         "max_rel_err": float(err.max() / ref.float().abs().max()
                              .clamp_min(1e-30)),
+        "bf16_mismatch_share": mismatch,
         "library_call": (f"scaled_dot_product_attention[{backend}]"
                          if backend else None),
         "library_max_abs_err_vs_plain": lib_err,
-        **bound(elt * b * h * (2 * lq + 2 * lk) * d, 4 * b * h * pairs * d,
-                PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                else PEAK_F32_FLOPS),
+        **attention_bound(torch, dtype, elt * b * h * (2 * lq + 2 * lk) * d,
+                          4 * b * h * pairs * d),
         **timings(torch, {
             "kernel": lambda: fa.flash_attention(q, k, v, causal=causal),
             "plain": lambda: fa.flash_attention_reference(q, k, v,
@@ -478,6 +552,15 @@ def flash_cases(torch, fa):
                    True),
         flash_case(torch, fa, "bert_l512_bf16", 8, 12, 512, 512, 64, False,
                    dtype=bf16),
+        flash_case(torch, fa, "bert_l128_bf16", 32, 12, 128, 128, 64, False,
+                   dtype=bf16),
+        flash_case(torch, fa, "ragged_d24", 8, 12, 256, 256, 24, False),
+        flash_case(torch, fa, "ragged_d72_bf16", 8, 12, 256, 256, 72, False,
+                   dtype=bf16),
+        flash_case(torch, fa, "misaligned_l128", 32, 12, 128, 128, 64, False,
+                   offset=1),
+        flash_case(torch, fa, "misaligned_l128_bf16", 32, 12, 128, 128, 64,
+                   False, dtype=bf16, offset=1),
     ]
 
 
@@ -537,14 +620,14 @@ def efficient_attention(torch, q, k, v, do, causal):
 
 
 def flash_train_case(torch, fa, label, b, h, lq, lk, d, causal, dtype=None,
-                     iters=20):
+                     iters=20, offset=0):
     """The training kernels against their plain versions on one input:
     the lse forward (out and lse), then dQ and dK/dV from its out and
     lse.  Returns three cases, one per kernel."""
     dtype = dtype or torch.float32
     g = torch.Generator(device="cuda").manual_seed(SEED + 5 * lq + lk + d)
-    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=g)
-                   .to(dtype) for n in (lq, lk, lk, lq))
+    q, k, v, do = flash_inputs(torch, g, b, h, d, dtype, (lq, lk, lk, lq),
+                               offset)
     scale = d ** -0.5
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
     ref_out, ref_lse = fa.flash_attention_lse_reference(q, k, v,
@@ -573,7 +656,6 @@ def flash_train_case(torch, fa, label, b, h, lq, lk, d, causal, dtype=None,
     bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
     pairs = live_pairs(torch, lq, lk, causal)
     elt, bh = q.element_size(), b * h
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     lib_fwd, lib_bwd = efficient_attention(torch, q, k, v, do, causal)
     lib_err = None
     if lib_bwd is not None:
@@ -586,17 +668,21 @@ def flash_train_case(torch, fa, label, b, h, lq, lk, d, causal, dtype=None,
         "library": lib_bwd}, iters)
     common = {"case": label, "b": b, "h": h, "lq": lq, "lk": lk, "d": d,
               "causal": causal, "dtype": str(dtype).replace("torch.", ""),
-              "tolerance": {"atol": atol, "rtol": rtol},
+              "row_offset": offset, "tolerance": {"atol": atol, "rtol": rtol},
               "zero_rows": zero_rows, "live_pairs_per_head": pairs}
     o_abs, o_rel, o_ok = check(out, ref_out)
+    mismatch = bf16_mismatch_share(torch, out, ref_out)
+    o_ok = o_ok and (mismatch is None or mismatch <= BF16_MISMATCH_LIMIT)
     cases = [{
         **common, "kernel": "flash_attention_fwd_lse", "max_abs_err": o_abs,
         "max_rel_err": o_rel,
         "lse_max_abs_err": float(lse_err.max()) if live.any() else 0.0,
+        "bf16_mismatch_share": mismatch,
         "library_call": ("aten._scaled_dot_product_efficient_attention"
                          "(compute_log_sumexp=True)" if lib_fwd else None),
-        **bound(bh * (elt * (2 * lq + 2 * lk) * d + 4 * lq),
-                4 * bh * pairs * d, peak),
+        **attention_bound(torch, dtype,
+                          bh * (elt * (2 * lq + 2 * lk) * d + 4 * lq),
+                          4 * bh * pairs * d),
         **timings(torch, {
             "kernel": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
             "plain": lambda: fa.flash_attention_lse_reference(
@@ -621,7 +707,7 @@ def flash_train_case(torch, fa, label, b, h, lq, lk, d, causal, dtype=None,
                 "aten._scaled_dot_product_efficient_attention_backward "
                 "(dQ, dK, dV and delta together)" if lib_bwd else None),
             "library_dq_max_abs_err_vs_plain": lib_err,
-            **bound(nbytes, n_ops * bh * pairs * d, peak),
+            **attention_bound(torch, dtype, nbytes, n_ops * bh * pairs * d),
             **timings(torch, {"kernel": fn}, iters),
             "pair_ms": pair["ms"], "pair_call_ms": pair["call_ms"],
             "plain_ms": pair["plain_ms"],
@@ -653,6 +739,15 @@ def flash_train_cases(torch, fa):
                          64, True),
         flash_train_case(torch, fa, "bert_l512_bf16", 8, 12, 512, 512, 64,
                          False, dtype=torch.bfloat16),
+        flash_train_case(torch, fa, "bert_train_l128_bf16", 32, 12, 128, 128,
+                         64, False, dtype=torch.bfloat16),
+        flash_train_case(torch, fa, "ragged_d24", 8, 12, 256, 256, 24, False),
+        flash_train_case(torch, fa, "ragged_d72_bf16", 8, 12, 256, 256, 72,
+                         False, dtype=torch.bfloat16),
+        flash_train_case(torch, fa, "misaligned_l128", 32, 12, 128, 128, 64,
+                         False, offset=1),
+        flash_train_case(torch, fa, "misaligned_l128_bf16", 32, 12, 128, 128,
+                         64, False, dtype=torch.bfloat16, offset=1),
     ]
     return [list(c) for c in zip(*rows)]
 
@@ -1442,6 +1537,47 @@ def bert_training_phase(torch, eb, dq, fa):
 # ---------------------------------------------------------------------------
 
 
+def fwd_sass(build, path):
+    """Instruction counts of each ``flash_fwd`` instance in the built
+    library (``cuobjdump -sass``): HMMA is ``mma.sync`` on the tensor
+    cores, LDGSTS ``cp.async``, LDSM ``ldmatrix``.  Raises if an instance
+    lacks HMMA or LDGSTS."""
+    import re
+    from pathlib import Path
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"flash_fwdI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi"
+                      r"(\d+)ELi(\d+)ELb([01])E", part.split("\n", 1)[0])
+        if m:
+            dtype = "f32" if m.group(1) == "f" else "bf16"
+            counts[f"flash_fwd<{dtype},DMAX={m.group(2)},warps={m.group(3)},"
+                   f"mtiles={m.group(4)},keys={8 * int(m.group(5))},"
+                   f"lse={m.group(6)}>"] = {
+                op: len(re.findall(rf"\b{op}\b", part))
+                for op in ("HMMA", "LDGSTS", "LDSM")}
+    if not counts or any(not c["HMMA"] or not c["LDGSTS"]
+                         for c in counts.values()):
+        raise AssertionError(f"flash_fwd instances without tensor-core or "
+                             f"cp.async instructions: {counts}")
+    return counts
+
+
+def check_no_spills(name, ptxas_log):
+    """Raises if ``ptxas`` reports spill stores or loads for any function
+    of library ``name``."""
+    import re
+
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas_log)
+    if not spills or any(int(n) for n in spills):
+        raise AssertionError(f"{name}: ptxas reports spills (or no spill "
+                             f"line): {spills}")
+
+
 def headline(cases, name, route, src, tpu, launches, pick):
     head = next(c for c in cases if pick(c))
     return {"name": name, "route": route, "source": src, "replaces": tpu,
@@ -1490,6 +1626,10 @@ def main() -> int:
         log(f"ptxas[{name}]:", " | ".join(
             ln.strip() for ln in path.with_suffix(".log").read_text()
             .splitlines() if "registers" in ln or "spill" in ln))
+    check_no_spills("flash_attention",
+                    libs["flash_attention"].with_suffix(".log").read_text())
+    log("sass[flash_attention]:",
+        json.dumps(fwd_sass(_build, libs["flash_attention"])))
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
     fl_cases = flash_cases(torch, fa)

@@ -333,6 +333,29 @@ def test_build_target_is_keyed_by_source():
         _build.target("flash")
 
 
+def test_build_target_is_keyed_by_headers(monkeypatch, tmp_path):
+    """Editing a header in ``csrc/`` (a copy) changes the library path of
+    every kernel, so no stale library built from the old header loads;
+    editing one source changes only its own."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert list(csrc.glob("*.cuh"))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.target(n) for n in _build.KERNELS}
+    header = csrc / "mma_tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.target(n) for n in _build.KERNELS}
+    assert all(before[n] != after[n] for n in _build.KERNELS)
+    src = csrc / "flash_attention.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = {n: _build.target(n) for n in _build.KERNELS}
+    assert again["flash_attention"] != after["flash_attention"]
+    assert all(again[n] == after[n] for n in _build.KERNELS
+               if n != "flash_attention")
+
+
 def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
     """A compiler that exits non-zero fails the build, naming the kernel
     and carrying its output."""
