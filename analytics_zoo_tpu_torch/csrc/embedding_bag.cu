@@ -97,6 +97,11 @@ bag_fwd_f32(const float* __restrict__ table,
 // holding scale_b * g[b] in registers across the bag's slots; lanes past
 // D are masked (NCF has D = 20).  A sort-and-segment deterministic
 // version is later work.
+//
+// Tables of 2^31 elements or more (8 GiB in f32: V = 2^25 rows of 64) are
+// taken: every offset is 64-bit -- the bag's ids (bag * nnz), its g row
+// (bag * dim), each table row (row * dim) here and in bag_fwd_f32, and the
+// zero-fill's byte count in the entry point.
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 bag_bwd_f32(const int32_t* __restrict__ ids, const float* __restrict__ g,
             float* __restrict__ dtab, int64_t vocab, int dim, int64_t bags,
@@ -159,8 +164,8 @@ extern "C" int zoo_embedding_bag_fwd_f32(const void* table, const void* ids,
 }
 
 // dtab (V, D) f32 is zero-filled on `stream` (cudaMemsetAsync), then the
-// scatter runs on the same stream.  Returns, without touching dtab,
-// cudaErrorInvalidValue when V * D >= 2^31 and
+// scatter runs on the same stream; V * D may pass 2^31.  Returns, without
+// touching dtab, cudaErrorInvalidValue when V or D is not positive and
 // cudaErrorInvalidConfiguration when B needs more blocks than the grid's
 // x limit; else cudaGetLastError() after the launch (0 = launched).  The
 // caller does not call with bags == 0.
@@ -169,8 +174,7 @@ extern "C" int zoo_embedding_bag_bwd_f32(const void* ids, const void* g,
                                          int64_t bags, int nnz, int has_pad,
                                          int pad_id, int combiner,
                                          void* stream) {
-  if (vocab <= 0 || dim <= 0 || vocab * (int64_t)dim >= (int64_t(1) << 31))
-    return (int)cudaErrorInvalidValue;
+  if (vocab <= 0 || dim <= 0) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (bags + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   const cudaError_t fill = cudaMemsetAsync(

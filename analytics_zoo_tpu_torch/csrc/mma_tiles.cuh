@@ -1,8 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks for Hopper (sm_90a)
 // kernels that use mma.sync: 16-byte cp.async tiles with zero fill, the
 // ldmatrix fragment loads, the m16n8k8 TF32 and m16n8k16 bf16 products
-// with f32 accumulation, and the splits that keep an f32 operand's
-// accuracy on the tensor cores:
+// with f32 accumulation, a warp's tile products built from them, and the
+// splits that keep an f32 operand's accuracy on the tensor cores:
 //
 //   split-TF32 ("3xTF32"): x_hi = tf32(x), x_lo = tf32(x - x_hi), tf32
 //   being cvt.rna.tf32.f32's rounding; a.b ~ a_hi.b_hi + a_hi.b_lo +
@@ -208,6 +208,153 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1,
   const float2 hf = __bfloat1622float2(h);
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// --- warp tile products ------------------------------------------------
+//
+// A warp's products over tiles in shared memory, rows of stride S with
+// DMAX columns (zero past the real width).  "nt": acc (16 MT x 8 KN) +=
+// A . B^T, A the warp's MT m-tiles of 16 rows, B a tile of 8 KN rows, the
+// sum over DMAX.  "pn": acc (16 MT x DMAX) += P . B, P an accumulator of
+// the nt shape and B a tile of 8 KN rows, the sum over those rows.  The
+// loops have compile-time bounds only, so each product is straight-line
+// code the compiler can schedule whole.  (The flash forward keeps its own
+// copies of these shapes, with the softmax's scaling folded in.)
+
+// nt, split-TF32: f32 A (at `a`) and B (at `b`) are scaled by a_scale and
+// b_scale in f32 and split as they are read; each B fragment is split once
+// for all MT m-tiles.
+template <int DMAX, int S, int MT, int KN>
+__device__ __forceinline__ void mma_nt_3xtf32(float (&acc)[MT][KN][4],
+                                              const float* a, float a_scale,
+                                              const float* b, float b_scale,
+                                              int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 8; ++kk) {
+    const int c = kk * 8 + t4;
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* ar = a + (16 * mt + g) * S + c;
+      split_tf32(ar[0] * a_scale, ah[mt][0], al[mt][0]);
+      split_tf32(ar[8 * S] * a_scale, ah[mt][1], al[mt][1]);
+      split_tf32(ar[4] * a_scale, ah[mt][2], al[mt][2]);
+      split_tf32(ar[8 * S + 4] * a_scale, ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < KN; ++n) {
+      const float* br = b + (n * 8 + g) * S + c;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(br[0] * b_scale, bh0, bl0);
+      split_tf32(br[4] * b_scale, bh1, bl1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        mma_3xtf32(acc[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// pn, split-TF32.  P's accumulator is its A fragment once the 8 rows of B
+// in each k-step are permuted: A column t is B row 2t (c0, c2), column
+// t + 4 row 2t + 1 (c1, c3), and B's fragment is read from those rows
+// (conflict-free at S = DMAX + 4), split once for all m-tiles.
+template <int DMAX, int S, int MT, int KN>
+__device__ __forceinline__ void mma_pn_3xtf32(float (&acc)[MT][DMAX / 8][4],
+                                              const float (&p)[MT][KN][4],
+                                              const float* b, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      split_tf32(p[mt][j][0], ah[mt][0], al[mt][0]);
+      split_tf32(p[mt][j][2], ah[mt][1], al[mt][1]);
+      split_tf32(p[mt][j][1], ah[mt][2], al[mt][2]);
+      split_tf32(p[mt][j][3], ah[mt][3], al[mt][3]);
+    }
+    const float* br = b + (j * 8 + 2 * t4) * S + g;
+#pragma unroll
+    for (int n = 0; n < DMAX / 8; ++n) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(br[n * 8], bh0, bl0);      // b[8j + 2t][8n + g]
+      split_tf32(br[S + n * 8], bh1, bl1);  // b[8j + 2t + 1][8n + g]
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        mma_3xtf32(acc[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// The bf16 A fragments of the warp's MT m-tiles of 16 rows at `a`.
+template <int DMAX, int S, int MT>
+__device__ __forceinline__ void load_a_bf16(uint32_t (&af)[MT][DMAX / 16][4],
+                                            const __nv_bfloat16* a,
+                                            int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      ldmatrix_x4(af[mt][kk], a + (16 * mt + (lane & 15)) * S + kk * 16 +
+                                  (lane >> 4) * 8);
+}
+
+// nt in bf16, exact products: A fragments from load_a_bf16, B by ldmatrix
+// (one load for every m-tile).  KN even.
+template <int DMAX, int S, int MT, int KN>
+__device__ __forceinline__ void mma_nt_bf16(
+    float (&acc)[MT][KN][4], const uint32_t (&af)[MT][DMAX / 16][4],
+    const __nv_bfloat16* b, int lane) {
+  const __nv_bfloat16* bl =
+      b + ((lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < KN / 2; ++np) {
+      uint32_t r[4];
+      ldmatrix_x4(r, bl + np * 16 * S + kk * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * np], af[mt][kk], r[0], r[1]);
+        mma_bf16(acc[mt][2 * np + 1], af[mt][kk], r[2], r[3]);
+      }
+    }
+}
+
+// pn in bf16: two adjacent accumulator tiles of P are an m16n8k16 A
+// fragment as they stand; P enters as p_hi + p_lo (split_bf16x2) against
+// the exact bf16 B (ldmatrix.trans, one load for every m-tile).  KN even.
+template <int DMAX, int S, int MT, int KN>
+__device__ __forceinline__ void mma_pn_bf16(float (&acc)[MT][DMAX / 8][4],
+                                            const float (&p)[MT][KN][4],
+                                            const __nv_bfloat16* b,
+                                            int lane) {
+  const __nv_bfloat16* bl =
+      b + ((lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
+#pragma unroll
+  for (int j = 0; j < KN / 2; ++j) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      split_bf16x2(p[mt][2 * j][0], p[mt][2 * j][1], ah[mt][0], al[mt][0]);
+      split_bf16x2(p[mt][2 * j][2], p[mt][2 * j][3], ah[mt][1], al[mt][1]);
+      split_bf16x2(p[mt][2 * j + 1][0], p[mt][2 * j + 1][1], ah[mt][2],
+                   al[mt][2]);
+      split_bf16x2(p[mt][2 * j + 1][2], p[mt][2 * j + 1][3], ah[mt][3],
+                   al[mt][3]);
+    }
+#pragma unroll
+    for (int np = 0; np < DMAX / 16; ++np) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, bl + j * 16 * S + np * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * np], al[mt], r[0], r[1]);
+        mma_bf16(acc[mt][2 * np], ah[mt], r[0], r[1]);
+        mma_bf16(acc[mt][2 * np + 1], al[mt], r[2], r[3]);
+        mma_bf16(acc[mt][2 * np + 1], ah[mt], r[2], r[3]);
+      }
+    }
+  }
 }
 
 }  // namespace zoo_mma

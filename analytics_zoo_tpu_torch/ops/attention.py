@@ -23,7 +23,8 @@ from typing import Optional
 import torch
 
 from analytics_zoo_tpu_torch.ops import dispatch
-from analytics_zoo_tpu_torch.ops.flash_attention import flash_attention
+from analytics_zoo_tpu_torch.ops.flash_attention import (_kernel_shapes_ok,
+                                                         flash_attention)
 
 NEG_INF = -1e30
 
@@ -32,13 +33,20 @@ def _scale(q, sm_scale):
     return sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
 
 
+def _neg_like(logits):
+    """-1e30 in the logits' dtype, as the JAX package's weakly typed
+    NEG_INF becomes in a ``where``: -inf in float16, whose range ends at
+    65504 (a Python -1e30 cannot fill a float16 tensor)."""
+    return torch.tensor(NEG_INF, device=logits.device).to(logits.dtype)
+
+
 def reference_attention(q, k, v, mask=None, causal: bool = False,
                         sm_scale: Optional[float] = None):
     """Naive O(L²) attention — the numerics oracle for tests.  Fully masked
     query rows are zeroed, so every path agrees there."""
     lq, lk = q.shape[2], k.shape[2]
     logits = torch.matmul(q, k.transpose(-1, -2)) * _scale(q, sm_scale)
-    neg = torch.full_like(logits, NEG_INF)
+    neg = _neg_like(logits)
     if causal:
         cm = torch.ones((lq, lk), dtype=torch.bool,
                         device=q.device).tril(lk - lq)
@@ -116,7 +124,7 @@ def blockwise_attention(q, k, v, mask=None, causal: bool = False,
         sl = slice(blk * bs, (blk + 1) * bs)
         vb = v[:, :, sl]
         logits = torch.matmul(q_scaled, k[:, :, sl].transpose(-1, -2))
-        neg = torch.full_like(logits, NEG_INF)
+        neg = _neg_like(logits)
         kpos = blk * bs + torch.arange(bs, device=q.device)
         if pad:
             logits = torch.where(kpos < lk, logits, neg)
@@ -136,6 +144,14 @@ def blockwise_attention(q, k, v, mask=None, causal: bool = False,
     return (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
 
 
+def takes_flash(q, k, mask=None, dropping: bool = False) -> bool:
+    """The router's predicate: True where ``flash_attention`` can answer
+    the call — no mask, no probability dropout, and q, k of a dtype and
+    head width the kernel takes (float32 or bfloat16, D <= 128), as the
+    JAX router passes its kernel limits as ``shapes_ok``."""
+    return mask is None and not dropping and _kernel_shapes_ok(q, k)
+
+
 def dot_product_attention(q, k, v, mask=None, causal: bool = False,
                           sm_scale: Optional[float] = None,
                           block_size: int = 512,
@@ -144,18 +160,20 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
                           dropout_generator: Optional[torch.Generator] = None):
     """Entry point of the attention layers, with the JAX package's routes.
 
-    A call with no mask and no dropout takes ``flash_attention`` — on a
-    CUDA tensor the kernel, on the CPU its plain version.  A mask or
-    probability dropout takes the JAX package's other route, counted as
+    A call that ``takes_flash`` — no mask, no dropout, and a shape the
+    kernel takes — goes to ``flash_attention``: on a CUDA tensor the
+    kernel, on the CPU its plain version.  Any other call takes the JAX
+    package's other route, counted as
     ``ops_kernel_selected_total{kernel="flash_attention",path="reference"}``:
     ``reference_attention`` when ``Lq · Lk <= 256²`` without dropout, else
-    ``blockwise_attention``.  ``use_flash`` forces the choice: True takes
-    the flash route (and raises for a mask or dropout, which it cannot
-    take), False the other one.  The JAX package's TPU gates (D % 128,
-    L % 128, L >= 2048) are not carried over.
+    ``blockwise_attention``.  The choice is made from the shapes before any
+    launch, on every device.  ``use_flash`` forces it: True takes the flash
+    route (and raises for a mask or dropout, and on the card for a shape
+    the kernel cannot take), False the other one.  The JAX package's TPU
+    gates (D % 128, L % 128, L >= 2048) are not carried over.
     """
     dropping = dropout_rate > 0.0 and dropout_generator is not None
-    if use_flash or (use_flash is None and mask is None and not dropping):
+    if use_flash or (use_flash is None and takes_flash(q, k, mask, dropping)):
         if mask is not None:
             raise ValueError("flash kernel does not take a mask; pass "
                              "use_flash=False (or None for auto dispatch)")

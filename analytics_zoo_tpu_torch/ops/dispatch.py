@@ -7,7 +7,8 @@ choice:
 - ``"cuda"``       — the kernel compiled from ``csrc/`` for ``sm_90a``;
   taken for every CUDA tensor unless the bag's knob ``fused_embedding``
   says ``off`` (the dequantize-matmul and flash attention have no knob;
-  a masked or dropout attention takes the JAX package's other route,
+  a masked or dropout attention, or one whose dtype or head width the
+  kernel cannot take, takes the JAX package's other route in
   ``ops.attention.dot_product_attention``, counted as ``reference``).
 - ``"reference"``  — the plain PyTorch version: the oracle the tests and
   ``chip_smoke.py`` compare against, and the path for CPU tensors.

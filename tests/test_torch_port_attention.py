@@ -285,6 +285,69 @@ def test_dot_product_attention_routes(monkeypatch):
         tops.dot_product_attention(q, k, v, mask=mask, use_flash=True)
 
 
+@pytest.mark.parametrize("d,dtype,flash", [
+    (128, torch.float32, True), (64, torch.bfloat16, True),
+    (160, torch.float32, False), (256, torch.float32, False),
+    (64, torch.float16, False), (64, torch.float64, False)])
+def test_router_predicate_follows_the_kernel_limits(d, dtype, flash):
+    """``takes_flash``, the router's own predicate, says "the kernel" only
+    for float32 / bfloat16 and D <= 128 with no mask and no dropout, on
+    any device."""
+    q = torch.zeros(1, 2, 8, d, dtype=dtype)
+    assert tops.takes_flash(q, q) is flash
+    assert not tops.takes_flash(q, q, mask=torch.ones(1, 1, 8, 8))
+    assert not tops.takes_flash(q, q, dropping=True)
+
+
+@pytest.mark.parametrize("lq,lk", [(12, 20), (300, 280)])
+def test_router_takes_the_other_route_where_the_kernel_cannot(monkeypatch,
+                                                              lq, lk):
+    """D = 160 on the CPU: the router never calls ``flash_attention``,
+    counts one flash_attention/reference selection and answers as the
+    JAX router, whose kernel limits send the call the same way
+    (reference_attention when tiny, blockwise_attention past 256²):
+    atol 2e-5."""
+    q, k, v = _qkv(1, 2, lq, lk, 160, seed=lq)
+    taken = []
+    monkeypatch.setattr(tops, "flash_attention",
+                        lambda *a, **kw: taken.append(1))
+    window = METRICS.snapshot()
+    got = tops.dot_product_attention(*_t(q, k, v), causal=True)
+    assert taken == []
+    assert _selected(window) == {
+        'ops_kernel_selected_total{kernel="flash_attention",'
+        'path="reference"}': 1}
+    want = jops.dot_product_attention(*map(jnp.asarray, (q, k, v)),
+                                      causal=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("lq,lk,masked", [(12, 20, False), (300, 280, False),
+                                          (12, 20, True)])
+def test_router_float16_matches_jax(lq, lk, masked):
+    """float16, which the kernel cannot take, answers by the other route
+    as in the JAX package: the masked logits' -1e30 becomes -inf in
+    float16 there, where a Python -1e30 cannot fill a float16 tensor.
+    Causal, tiny (reference_attention) and past 256² (blockwise), with and
+    without a mask: within two float16 roundings (atol 2e-3 + rtol
+    2e-3)."""
+    rs = np.random.RandomState(lq + lk)
+    q, k, v = (rs.randn(1, 2, n, 64).astype(np.float16) for n in (lq, lk, lk))
+    m = (rs.rand(1, 1, lq, lk) > 0.3) if masked else None
+    want = jops.dot_product_attention(*map(jnp.asarray, (q, k, v)), mask=m,
+                                      causal=True)
+    window = METRICS.snapshot()
+    got = tops.dot_product_attention(
+        *_t(q, k, v), mask=None if m is None else torch.from_numpy(m),
+        causal=True)
+    assert got.dtype == torch.float16
+    assert _selected(window) == {
+        'ops_kernel_selected_total{kernel="flash_attention",'
+        'path="reference"}': 1}
+    np.testing.assert_allclose(_np(got.float()), np.asarray(want, np.float32),
+                               rtol=2e-3, atol=2e-3)
+
+
 def test_prob_dropout_unbiased():
     """Blockwise probability dropout: rate 0 is exactly the undropped
     path, and the mean over 64 generators is the undropped output

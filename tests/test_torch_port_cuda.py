@@ -350,7 +350,9 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, h, lq, lk, d,
                                                causal, dtype, offset):
     """The dQ and dK/dV kernels against the plain backward on the same
     (q, k, v, out, lse, dO), with q, k, v as transposed head views and dO
-    a non-contiguous view; two runs give the same bits (no atomics), and
+    a non-contiguous view, at the forward's tolerances (bf16: at most
+    ``BF16_MISMATCH_LIMIT`` of each gradient off the plain version's bf16
+    value, split P and dS); two runs give the same bits (no atomics), and
     query rows with no live key get a zero dQ."""
     from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 
@@ -378,6 +380,7 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, h, lq, lk, d,
         assert torch.equal(x, y)
         torch.testing.assert_close(x.float(), z.float(), atol=atol,
                                    rtol=rtol)
+        _check_bf16_split_p(x, z)
     if causal and lq > lk:
         assert not got[0][:, :, :lq - lk].any()
 
@@ -427,6 +430,107 @@ def test_flash_rejects_what_the_kernel_cannot_take(cuda_device):
         with pytest.raises(ValueError, match="flash_attention CUDA kernel"):
             tfa.flash_attention(q, q, q)
     assert tfa.LAUNCHES.value == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(160, torch.float32),
+                                     (256, torch.float32),
+                                     (64, torch.float16)])
+def test_router_answers_what_the_kernel_cannot_take_on_card(cuda_device, d,
+                                                            dtype):
+    """``dot_product_attention`` on a head width or dtype the flash kernel
+    cannot take answers on the card by the JAX package's other route, as
+    the JAX router does: it equals ``reference_attention`` on the same
+    tensors (atol 2e-5 + rtol 1e-4), counts one flash_attention/reference
+    selection and launches no flash kernel, while ``flash_attention``
+    itself still raises there."""
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.ops import attention as tops
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(2, 3, n, d, device=cuda_device, generator=g)
+               .to(dtype) for n in (40, 56, 56))
+    counts = (tfa.LAUNCHES, tfa.LSE_LAUNCHES, tfa.BWD_DQ_LAUNCHES,
+              tfa.BWD_DKV_LAUNCHES)
+    n0 = [c.value for c in counts]
+    window = METRICS.snapshot()
+    got = tops.dot_product_attention(q, k, v, causal=True)
+    selected = {key: n for key, n in METRICS.delta(window)["counters"].items()
+                if key.startswith("ops_kernel_selected_total{")}
+    assert selected == {'ops_kernel_selected_total{kernel="flash_attention",'
+                        'path="reference"}': 1}
+    want = tops.reference_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.device == q.device
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-5,
+                               rtol=1e-4)
+    with pytest.raises(ValueError, match="flash_attention CUDA kernel"):
+        tfa.flash_attention(q, k, v)
+    assert [c.value for c in counts] == n0
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_multihead_attention_wider_than_the_kernel_on_card(cuda_device):
+    """MultiHeadAttention(nhead=2, hidden_size=512), head width 256, runs a
+    forward on the card (the reference route) and answers as the same
+    weights on the CPU (atol 1e-4)."""
+    from analytics_zoo_tpu_torch.nn.layers.attention import MultiHeadAttention
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+
+    mha = MultiHeadAttention(2, 512, name="mha_wide")
+    mha.build(torch.Generator().manual_seed(0), (2, 24, 512))
+    mha.eval()
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 24, 512)
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = mha(x)
+        n0 = tfa.LAUNCHES.value
+        got = mha.to(cuda_device)(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert got.shape == (2, 24, 512) and tfa.LAUNCHES.value == n0
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-4)
+    del mha, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_bag_backward_takes_a_table_past_2_31_elements_on_card(cuda_device):
+    """The scatter kernel on a (2^25 + 3, 64) table, V * D just past 2^31
+    (an 8 GiB gradient): one launch, and the plain version's gradient on
+    every touched row -- row 0, row V - 1 and the first rows past 2^31
+    elements among them -- and in the sum of the whole gradient; every
+    other row stays 0."""
+    vocab, dim = (1 << 25) + 3, 64
+    rs = np.random.RandomState(5)
+    ids = rs.randint(0, vocab, (256, 8)).astype(np.int32)
+    past = -(-(1 << 31) // dim)                    # first row at 2^31
+    ids[0, :4] = (0, vocab - 1, past, past + 1)
+    ids[1, :2] = (vocab - 1, past)                 # duplicates across bags
+    i = torch.from_numpy(ids).to(cuda_device)
+    g = torch.from_numpy(rs.randn(256, dim).astype(np.float32)).to(
+        cuda_device)
+    n0 = teb.BWD_LAUNCHES.value
+    got = teb.embedding_bag_backward(vocab, i, g, "mean", None)
+    torch.cuda.synchronize()
+    assert teb.BWD_LAUNCHES.value == n0 + 1
+    assert got.shape == (vocab, dim)
+    rows = torch.unique(i.long()).to(cuda_device)
+    total = float(got.sum(dtype=torch.float64))
+    touched = got[rows].clone()
+    got[rows] = 0
+    untouched_zero = not bool(got.any())
+    del got
+    torch.cuda.empty_cache()
+    want = teb.embedding_bag_backward_reference(vocab, i, g, "mean", None)
+    assert untouched_zero
+    torch.testing.assert_close(touched, want[rows], rtol=RTOL, atol=1e-6)
+    assert abs(total - float(want.sum(dtype=torch.float64))) <= 1e-4
+    del want
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

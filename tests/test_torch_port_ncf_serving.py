@@ -402,7 +402,7 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax():
     files = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "flash_bwd_shapes.py"]
     assert len(files) > 10
     for f in files:
         text = f.read_text()
