@@ -9,7 +9,14 @@
 //   a_lo.b_hi, each term an exact TF32 product summed in f32, so about 21
 //   of f32's 24 mantissa bits survive (plain TF32 keeps 11);
 //
-//   split-bf16: x_hi = bf16(x), x_lo = bf16(x - x_hi), 16 mantissa bits.
+//   split-bf16: x_hi = bf16(x), x_lo = bf16(x - x_hi), 16 mantissa bits;
+//   the three-way split_bf16x2_3 adds x_2 = bf16(x - x_hi - x_lo) and
+//   keeps all 24 (each piece times an exactly converted weight is an
+//   exact product).
+//
+// It also holds the exact widenings of quantized weights (int8 bytes,
+// int4 nibbles) into bf16 or f16 pairs for an m16n8k16 B fragment, and
+// the m16n8k16 f16 product.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8" and
 // "m16n8k16"), lane = 4 * g + t:
@@ -24,6 +31,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace zoo_mma {
@@ -169,6 +177,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, small terms first.
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
                                            const uint32_t (&ahi)[4],
@@ -208,6 +224,213 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1,
   const float2 hf = __bfloat1622float2(h);
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// (x0, x1) -> three bf16x2 pieces p0 + p1 + p2 = (x0, x1) to f32's 24
+// bits: p0 = bf16(x), p1 = bf16(x - p0), p2 = bf16(x - p0 - p1); each
+// difference is exact in f32.  x0 in the low halves.
+__device__ __forceinline__ void split_bf16x2_3(float x0, float x1,
+                                               uint32_t& p0, uint32_t& p1,
+                                               uint32_t& p2) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  p0 = bf16x2_bits(h);
+  p1 = bf16x2_bits(m);
+  p2 = bf16x2_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
+
+// --- exact widening of quantized weights -------------------------------
+//
+// Every int8 weight (|v| <= 127) and int4 nibble (-8..7) is exact in bf16
+// and f16, so a converted weight times a 16-bit x is an exact product.
+// The conversions are integer bit tricks on four packed values at once,
+// no I2F: a value biased to unsigned (u = v + 128 or n + 8, by one XOR
+// of the whole register) is written into the mantissa of a power of two,
+// and one subtraction of that power plus the bias leaves v exactly.
+
+// u: four int8 bytes XORed with 0x80808080 (u = v + 128).  Bytes SEL and
+// SEL + 2 -> bf16x2, byte SEL in the low half: through f32 2^23 + u.
+template <int SEL>
+__device__ __forceinline__ uint32_t u8x2_to_bf16x2(uint32_t u) {
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + SEL));
+  const float hi =
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442 + SEL));
+  return bf16x2_bits(
+      __floats2bfloat162_rn(lo - 8388736.f, hi - 8388736.f));
+}
+
+// The same into f16x2: f16 1024 + u (0x6400 | u) minus 1152 (0x6480).
+template <int SEL>
+__device__ __forceinline__ uint32_t u8x2_to_f16x2(uint32_t u) {
+  const uint32_t h = __byte_perm(u, 0x64646464u, 0x4240 + SEL * 0x101);
+  uint32_t out;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(out) : "r"(h), "r"(0x64806480u));
+  return out;
+}
+
+// u: eight int4 nibbles XORed with 0x88888888 (u = n + 8).  The nibbles
+// at bits SH and SH + 16 -> bf16x2 (SH's in the low half): bf16 128 + u
+// (0x4300 | u) minus 136 (0x4308), as one fma.
+template <int SH>
+__device__ __forceinline__ uint32_t u4x2_to_bf16x2(uint32_t u) {
+  const uint32_t h = ((u >> SH) & 0x000F000Fu) | 0x43004300u;
+  uint32_t out;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(out)
+      : "r"(h), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return out;
+}
+
+// The same into f16x2: f16 1024 + u (0x6400 | u) minus 1032 (0x6408).
+template <int SH>
+__device__ __forceinline__ uint32_t u4x2_to_f16x2(uint32_t u) {
+  const uint32_t h = ((u >> SH) & 0x000F000Fu) | 0x64006400u;
+  uint32_t out;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(out) : "r"(h), "r"(0x64086408u));
+  return out;
+}
+
+// int4 nibble pairs for a k-major fragment: u holds four bytes of eight
+// nibbles XORed with 0x88888888; byte B's low and high nibbles (rows 2k
+// and 2k+1 of one column) -> bf16x2 (f16x2), the low nibble in the low
+// half, as u4x2_to_bf16x2 does.
+template <int B>
+__device__ __forceinline__ uint32_t u4pair_to_bf16x2(uint32_t u) {
+  const uint32_t x = __byte_perm(u, 0u, 0x4040 | B | (B << 8));  // b, 0, b, 0
+  const uint32_t h =
+      (x & 0x0000000Fu) | ((x >> 4) & 0x000F0000u) | 0x43004300u;
+  uint32_t out;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(out)
+      : "r"(h), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return out;
+}
+
+template <int B>
+__device__ __forceinline__ uint32_t u4pair_to_f16x2(uint32_t u) {
+  const uint32_t x = __byte_perm(u, 0u, 0x4040 | B | (B << 8));
+  const uint32_t h =
+      (x & 0x0000000Fu) | ((x >> 4) & 0x000F0000u) | 0x64006400u;
+  uint32_t out;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(out) : "r"(h), "r"(0x64086408u));
+  return out;
+}
+
+// --- wgmma (sm_90a) ----------------------------------------------------
+//
+// A warpgroup's (4 warps') asynchronous product: D (64 x N, f32 in
+// registers) += A (64 x 16, 16-bit, in registers: each warp's 16 rows in
+// the m16n8k16 A layout) . B (16 x N, 16-bit, K-major in shared memory
+// behind a descriptor).  D's layout: warp w, lane 4g + t holds rows
+// 16w + g and 16w + g + 8, columns 8j + 2t and 8j + 2t + 1, as
+// d[4j + 0..3] = (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory (plain
+// stores, cp.async) before async-proxy reads of it (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving a register's reads or writes across
+// this point (around wgmma's asynchronous use of it).
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// Descriptor of a K-major operand in shared memory with the 128-byte
+// swizzle: rows of 64 16-bit elements (128 bytes), 16-byte chunk c of row
+// r stored at chunk c ^ (r % 8), atoms of 8 rows (1024 bytes, 1024-byte
+// aligned) one after another.  saddr: the tile's shared address plus 32
+// bytes per k16 step.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D (64 x 128) += A . B, A from registers; F16 picks f16 over bf16.
+template <bool F16>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  if constexpr (F16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 // --- warp tile products ------------------------------------------------

@@ -11,6 +11,10 @@ int4 packing is two's-complement nibbles along the K axis: packed byte
 (``rows`` carries the true K).  Packing and quantization are bit-identical
 to the JAX package's, so quantized trees interchange.
 
+x in f32, bf16 or f16 runs in its own type on the tensor cores and the
+result comes back in it; f64 x is taken as f32 and returned as f64, as
+the JAX kernel widens x to f32 in its body.
+
 Routing (``ops.dispatch.select_path``): a CUDA tensor launches the kernel
 or raises; a CPU tensor takes the plain version.  Like the JAX package's
 ``dequant_matmul`` it has no config knob.  Differentiable with respect to
@@ -34,11 +38,15 @@ BITS = (8, 4)
 # one per launch of the CUDA kernel, nowhere else
 LAUNCHES = dispatch.LaunchCount()
 
+# x types the kernel takes, with their code in the C interface; float64
+# is taken as float32, as the JAX kernel widens x to f32 in its body
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 _SIGNATURES = {
-    "zoo_dequant_matmul_f32": (ctypes.c_int, [
+    "zoo_dequant_matmul": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "zoo_dequant_matmul_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -106,16 +114,20 @@ def _lib():
 
 
 def _launch(x, q, scale, bits):
-    """Run the CUDA kernel on (M, K) ``x``."""
+    """Run the CUDA kernel on (M, K) ``x``; returns (M, N) in
+    ``x.dtype``."""
     dev = x.device
     if dev.type != "cuda" or q.device != dev or scale.device != dev:
         raise ValueError(f"dequant_matmul kernel needs x, q and scale on "
                          f"one CUDA device, got {x.device}, {q.device} and "
                          f"{scale.device}")
-    if x.dtype != torch.float32 or q.dtype != torch.int8 \
-            or scale.dtype != torch.float32:
-        raise TypeError(f"dequant_matmul kernel takes f32 x, int8 q and f32 "
-                        f"scale, got {x.dtype}, {q.dtype} and {scale.dtype}")
+    if (x.dtype not in KERNEL_DTYPES and x.dtype != torch.float64) \
+            or q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"dequant_matmul kernel takes f32, bf16, f16 or f64 "
+                        f"x, int8 q and f32 scale, got {x.dtype}, {q.dtype} "
+                        f"and {scale.dtype}")
+    if x.dtype == torch.float64:
+        return _launch(x.to(torch.float32), q, scale, bits).to(x.dtype)
     m, k = x.shape
     n = q.shape[1]
     k_store = 2 * q.shape[0] if bits == 4 else q.shape[0]
@@ -130,16 +142,21 @@ def _launch(x, q, scale, bits):
         return y
     if k == 0:
         return y.zero_()
+    # rows off 16 bytes are padded with zero columns, as the JAX kernel
+    # pads x, so the kernel copies them 16 bytes at a time
+    row = 16 // x.element_size()
+    if k % row:
+        x = torch.nn.functional.pad(x, (0, row - k % row))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().zoo_dequant_matmul_f32(
+        rc = _lib().zoo_dequant_matmul(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            m, k, n, bits, stream)
+            m, k, n, x.shape[1], bits, KERNEL_DTYPES[x.dtype], stream)
     if rc != 0:
         msg = _lib().zoo_dequant_matmul_error_string(rc).decode()
         raise RuntimeError(
-            f"dequant_matmul CUDA kernel launch failed ({msg}) for x "
-            f"{tuple(x.shape)}, int{bits} q {tuple(q.shape)}")
+            f"dequant_matmul CUDA kernel launch failed ({msg}) for "
+            f"{x.dtype} x {tuple(x.shape)}, int{bits} q {tuple(q.shape)}")
     LAUNCHES.add()
     return y
 

@@ -6,10 +6,13 @@
 1. Builds the CUDA kernels from ``analytics_zoo_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
    card (``nvidia-smi --query-gpu=name,power.limit``), each library's
-   registers and spills (``ptxas``), and the tensor-core (``HMMA``) and
-   ``cp.async`` (``LDGSTS``) instructions of every instance of the
-   flash forward, dQ and dK/dV kernels (``cuobjdump -sass``); an
-   instance without either, or a spill in either flash library, fails.
+   registers and spills (``ptxas``), and the tensor-core (``HMMA`` for
+   ``mma.sync``, ``HGMMA`` for ``wgmma``) and ``cp.async`` (``LDGSTS``)
+   instructions of every instance of the flash forward, dQ and dK/dV
+   kernels and of the dequantize-matmul's ``dq_mma`` and ``dq_wgmma``
+   (``cuobjdump -sass``); an instance without its tensor-core
+   instruction or LDGSTS, or a spill in the flash or dequantize-matmul
+   libraries, fails.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card, at the slices' shapes and at the repo's kernel-bench shapes;
    times the kernel, the plain version and, where one exists, a single
@@ -17,9 +20,16 @@
    card could take (``bound_ms``: bytes over 3.35 TB/s or operations
    over the rate for their type, the larger: f32 at 67 TFLOP/s, except
    attention, whose f32 operations are bounded at the card's
-   f32-accurate tensor rate, split-TF32's 495 / 3 = 165 TFLOP/s, with
-   the 67 TFLOP/s time kept as ``ops_bound_ms_cuda_cores``; bf16 at 989
-   TFLOP/s).  ``*_ms`` is device time
+   f32-accurate tensor rate, split-TF32's 495 / 3 = 165 TFLOP/s, and the
+   dequantize-matmul, whose f32 x takes three bf16 products per product
+   (989 / 3 = 330 TFLOP/s), each with the 67 TFLOP/s time kept as
+   ``ops_bound_ms_cuda_cores``; bf16 and f16 at 989 TFLOP/s).
+   Dequantize-matmul legs: the NCF slice (M = 1, 8, 64, 256, K = N = 40,
+   int8 and int4), the kernel bench's M = 1024, K = N = 4096 (int8, int4,
+   odd-K int4, and bf16 and f16 x with int8), BERT-Base's Dense layers
+   at M = 4096 ((768, 768), (768, 3072), (3072, 768) int8, (768, 3072)
+   int4) and M = 4,194,305 at K = N = 40 (past the former grid limit).
+   ``*_ms`` is device time
    (the calls captured in a CUDA graph and replayed, timed by CUDA
    events); ``*_call_ms`` is time per call from a host loop, launch
    cost included.
@@ -30,9 +40,11 @@
    so a hot row's cancelling sum cannot be held to 1e-5 of itself),
    also on a table of 2^31 + 192 elements (V = 2^25 + 3, D = 64, ids
    at both ends and past 2^31 elements);
-   dequantize-matmul max |err| <= 1e-4 * max |plain| (K-long f32 sums
-   in another order); flash attention f32 |err| <= 2e-5 + 1e-4 * |plain|
-   elementwise, bf16 |err| <= 8e-3 + 8e-3 * |plain| (one bf16 rounding
+   dequantize-matmul f32 (and f64) x max |err| <= 1e-4 * max |plain|
+   (K-long f32 sums in another order), bf16 and f16 x |err| <= 2^-7 or
+   2^-10 * |plain| + 1e-5 * max |plain| (both f32 results rounded once
+   to x's type, which may land one unit apart); flash attention f32
+   |err| <= 2e-5 + 1e-4 * |plain| elementwise, bf16 |err| <= 8e-3 + 8e-3 * |plain| (one bf16 rounding
    of an f32 result) with at most ``BF16_MISMATCH_LIMIT`` of the bf16
    outputs differing from the plain version's (which tells the kernel's
    split P from a P rounded once to bf16), and rows with no live key
@@ -382,32 +394,64 @@ def bag_bwd_case(torch, eb, label, vocab, dim, bags, nnz, combiner,
     return case
 
 
-def dq_case(torch, dq, label, m, k, n, bits, iters=200):
+def dq_bound(torch, dtype, nbytes, flops):
+    """``bound`` for the dequantize-matmul: f32 x at the card's
+    f32-accurate tensor rate, three bf16 products per product (989 / 3 =
+    330 TFLOP/s), bf16 and f16 x at 989 TFLOP/s; the time at the CUDA
+    cores' 67 TFLOP/s kept beside it."""
+    peak = PEAK_BF16_FLOPS / 3 if dtype == torch.float32 else PEAK_BF16_FLOPS
+    return {**bound(nbytes, flops, peak),
+            "ops_bound_ms_cuda_cores": flops / PEAK_F32_FLOPS * 1e3}
+
+
+def dq_case(torch, dq, label, m, k, n, bits, iters=200, dtype=None):
+    """The dequantize-matmul kernel against its plain version.  Tolerance:
+    f32 x max |err| <= 1e-4 * max |plain| (K-long f32 sums in another
+    order); bf16 and f16 x |err| <= 2^-7 (bf16) or 2^-10 (f16) * |plain|
+    + 1e-5 * max |plain| elementwise: both sides are f32 results rounded
+    once to x's type, and two f32 values a few ulps apart may round to
+    neighbouring values of it.  The yardstick (``library``) is one
+    ``torch.matmul`` of x and the dequantized weight, cast to x's type
+    for bf16 and f16 x (``library_call``)."""
+    dtype = dtype or torch.float32
     rs = np.random.RandomState(SEED + m + k + bits)
     w = torch.from_numpy(rs.randn(k, n).astype(np.float32))
     q, scale = dq.quantize_weights(w, bits=bits)
     q, scale = q.cuda(), scale.cuda()
     g = torch.Generator(device="cuda").manual_seed(SEED + m + k)
-    x = torch.randn(m, k, device="cuda", generator=g)
+    x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
     out = dq.dequant_matmul(x, q, scale, bits=bits, rows=k)
     ref = dq.dequant_matmul_reference(x, q, scale, bits=bits, rows=k)
     torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
+    diff = (out.double() - ref.double()).abs()
+    err = float(diff.max())
     top = float(ref.abs().max())
-    w_f32 = (dq.unpack_int4(q, k) if bits == 4 else q).float() \
-        * scale.reshape(1, -1)
+    if dtype == torch.float32:
+        ok = err <= 1e-4 * top
+    else:
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+        ok = bool(torch.all(diff <= rtol * ref.double().abs() + 1e-5 * top))
+    w_lib = ((dq.unpack_int4(q, k) if bits == 4 else q).float()
+             * scale.reshape(1, -1)).to(dtype)
+    esize = x.element_size()
     case = {
         "case": label, "m": m, "k": k, "n": n, "bits": bits,
+        "dtype": str(dtype).replace("torch.", ""), "out_dtype":
+        str(out.dtype).replace("torch.", ""),
         "max_abs_err": err, "max_rel_err": err / max(top, 1e-30),
-        **bound(4 * m * k + q.numel() + 4 * n + 4 * m * n, 2 * m * n * k),
+        **dq_bound(torch, dtype, esize * m * k + q.numel() + 4 * n
+                   + esize * m * n, 2 * m * n * k),
+        "library_call": "torch.matmul(x, dequant(q)"
+                        + ("" if dtype == torch.float32 else
+                           f".to({str(dtype).replace('torch.', '')})") + ")",
         **timings(torch, {
             "kernel": lambda: dq.dequant_matmul(x, q, scale, bits=bits,
                                                 rows=k),
             "plain": lambda: dq.dequant_matmul_reference(
                 x, q, scale, bits=bits, rows=k),
-            "library": lambda: torch.matmul(x, w_f32)}, iters),
+            "library": lambda: torch.matmul(x, w_lib)}, iters),
     }
-    if not err <= 1e-4 * top:
+    if not ok or out.dtype != x.dtype:
         raise AssertionError(f"dequant_matmul kernel disagrees with its "
                              f"plain version: {case}")
     return case
@@ -808,6 +852,17 @@ def kernel_phase(torch, eb, dq):
                                 iters=10))
     dq_cases.append(dq_case(torch, dq, "large_odd_k", 1024, 4095, 4096, 4,
                             iters=10))
+    for dtype in (torch.bfloat16, torch.float16):
+        dq_cases.append(dq_case(torch, dq, "large", 1024, 4096, 4096, 8,
+                                iters=10, dtype=dtype))
+    # BERT-Base's Dense layers at B L = 32 x 128
+    for k, n, bits in ((768, 768, 8), (768, 3072, 8), (3072, 768, 8),
+                       (768, 3072, 4)):
+        dq_cases.append(dq_case(torch, dq, "bert", 4096, k, n, bits,
+                                iters=10))
+    # M past 65,535 tiles of 64 rows (the former grid y limit)
+    dq_cases.append(dq_case(torch, dq, "rows_past_grid_y", 4194305, 40, 40,
+                            8, iters=3))
     for c in bag_cases + bwd_cases + dq_cases:
         log("kernel_case", json.dumps(c))
     return bag_cases, bwd_cases, dq_cases
@@ -1567,39 +1622,85 @@ FLASH_INSTANCES = {"flash_fwd": ("keys", "lse"),
                    "flash_bwd_dkv": ("queries", "hold")}
 
 
-def flash_sass(build, path, kernels):
-    """Instruction counts of each instance of the flash ``kernels`` in
-    the built library (``cuobjdump -sass``): HMMA is ``mma.sync`` on the
-    tensor cores, LDGSTS ``cp.async``, LDSM ``ldmatrix``.  Raises if a
-    kernel has no instance, or an instance lacks HMMA or LDGSTS."""
-    import re
+def sass_functions(build, path):
+    """(name line, SASS) of every function in the built library
+    (``cuobjdump -sass``)."""
     from pathlib import Path
 
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
+    return [(part.split("\n", 1)[0], part)
+            for part in sass.split("Function : ")[1:]]
+
+
+def op_counts(part):
+    """Tensor-core (HMMA: ``mma.sync``, HGMMA: ``wgmma``), ``cp.async``
+    (LDGSTS) and ``ldmatrix`` (LDSM) instructions in one function."""
+    import re
+
+    return {op: len(re.findall(rf"\b{op}\b", part))
+            for op in ("HMMA", "HGMMA", "LDGSTS", "LDSM")}
+
+
+def check_instances(what, counts, missing, tensor_op):
+    """Raises if an instance is missing, or one lacks its tensor-core
+    instruction (``tensor_op(name)``) or LDGSTS."""
+    if missing or any(not c[tensor_op(n)] or not c["LDGSTS"]
+                      for n, c in counts.items()):
+        raise AssertionError(f"{what} instances missing ({missing}) or "
+                             f"without tensor-core or cp.async "
+                             f"instructions: {counts}")
+    return counts
+
+
+def flash_sass(build, path, kernels):
+    """Instruction counts (``op_counts``) of each instance of the flash
+    ``kernels`` in the built library.  Raises if a kernel has no
+    instance, or an instance lacks HMMA or LDGSTS."""
+    import re
+
     counts = {}
-    for part in sass.split("Function : ")[1:]:
+    for name, part in sass_functions(build, path):
         m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv)I"
                       r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
-                      r"Lb([01])E", part.split("\n", 1)[0])
+                      r"Lb([01])E", name)
         if m and m.group(1) in kernels:
             rows, flag = FLASH_INSTANCES[m.group(1)]
             dtype = "f32" if m.group(2) == "f" else "bf16"
             counts[f"{m.group(1)}<{dtype},DMAX={m.group(3)},"
                    f"warps={m.group(4)},mtiles={m.group(5)},"
-                   f"{rows}={8 * int(m.group(6))},{flag}={m.group(7)}>"] = {
-                op: len(re.findall(rf"\b{op}\b", part))
-                for op in ("HMMA", "LDGSTS", "LDSM")}
+                   f"{rows}={8 * int(m.group(6))},{flag}={m.group(7)}>"] = \
+                op_counts(part)
     missing = [k for k in kernels
                if not any(n.startswith(k + "<") for n in counts)]
-    if missing or any(not c["HMMA"] or not c["LDGSTS"]
-                      for c in counts.values()):
-        raise AssertionError(f"flash instances missing ({missing}) or "
-                             f"without tensor-core or cp.async "
-                             f"instructions: {counts}")
-    return counts
+    return check_instances("flash", counts, missing, lambda n: "HMMA")
+
+
+def dq_sass(build, path):
+    """Instruction counts (``op_counts``) of each instance of the
+    dequantize-matmul's kernels in the built library.  Raises unless every
+    x type and weight width has an instance of both kernels (``dq_mma``,
+    ``dq_wgmma``) and every instance has cp.async and its tensor-core
+    instructions (HMMA in ``dq_mma``, HGMMA in ``dq_wgmma``)."""
+    import re
+
+    names = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    counts = {}
+    for name, part in sass_functions(build, path):
+        m = re.search(r"(dq_mma|dq_wgmma)I(f|13__nv_bfloat16|6__half)"
+                      r"Li(\d+)E((?:Li\d+E)+)", name)
+        if m:
+            shape = ",".join(re.findall(r"\d+", m.group(4)))
+            counts[f"{m.group(1)}<{names[m.group(2)]},int{m.group(3)},"
+                   f"{shape}>"] = op_counts(part)
+    missing = [f"{k}<{t},int{b}" for k in ("dq_mma", "dq_wgmma")
+               for t in names.values() for b in (8, 4)
+               if not any(n.startswith(f"{k}<{t},int{b},") for n in counts)]
+    return check_instances(
+        "dequant_matmul", counts, missing,
+        lambda n: "HGMMA" if n.startswith("dq_wgmma") else "HMMA")
 
 
 def check_no_spills(name, ptxas_log):
@@ -1667,6 +1768,10 @@ def main() -> int:
         check_no_spills(name, libs[name].with_suffix(".log").read_text())
         log(f"sass[{name}]:",
             json.dumps(flash_sass(_build, libs[name], kernels)))
+    check_no_spills("dequant_matmul",
+                    libs["dequant_matmul"].with_suffix(".log").read_text())
+    log("sass[dequant_matmul]:",
+        json.dumps(dq_sass(_build, libs["dequant_matmul"])))
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
     fl_cases = flash_cases(torch, fa)
@@ -1695,6 +1800,11 @@ def main() -> int:
     kernels[0]["launches_by_path"] = fwd_by_path
     kernels[1]["launches_by_path"] = {"training": trained[
         "embedding_bag_bwd"]}
+    dq_f32 = [c for c in dq_cases if c["dtype"] == "float32"]
+    kernels[2]["max_abs_err"] = max(c["max_abs_err"] for c in dq_f32)
+    kernels[2]["max_rel_err"] = max(c["max_rel_err"] for c in dq_f32)
+    kernels[2]["max_abs_err_half"] = max(c["max_abs_err"] for c in dq_cases
+                                         if c["dtype"] != "float32")
     kernels[2]["launches_by_path"] = {"serving": served["dequant_matmul"],
                                       "training": trained["dequant_matmul"],
                                       "bert_serving": bert["dequant_matmul"]}

@@ -71,6 +71,71 @@ def test_dq_kernel_matches_plain_on_card(cuda_device, bits, m, k, n):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-4)
 
 
+def _dq_inputs(device, m, k, n, bits, dtype, seed):
+    rs = np.random.RandomState(seed)
+    q, s = tdq.quantize_weights(torch.from_numpy(
+        rs.randn(k, n).astype(np.float32)), bits=bits)
+    x = torch.from_numpy(rs.randn(m, k).astype(np.float32)).to(device)
+    return x.to(dtype), q.to(device), s.to(device)
+
+
+def _check_dq(got, want):
+    """Half precision: one rounding of an f32 result to x's type (2^-7 of
+    |y| in bf16, 2^-10 in f16) on top of f32 sums in another order; f32
+    and f64: the chip's max |err| <= 1e-4 * max |plain|."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.double(), want.double()
+    top = float(w.abs().max())
+    if got.dtype in (torch.bfloat16, torch.float16):
+        rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -10
+        assert bool(torch.all((g - w).abs() <= rtol * w.abs() + 1e-5 * top))
+    else:
+        assert float((g - w).abs().max()) <= 1e-4 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64])
+@pytest.mark.parametrize("m,k,n", [(65, 41, 70), (300, 256, 200)])
+def test_dq_kernel_takes_every_float_type_on_card(cuda_device, bits, dtype,
+                                                  m, k, n):
+    """bf16, f16 and f64 x launch the kernel once and answer in x's type
+    (f64 through f32, as the JAX kernel widens x to f32)."""
+    x, q, s = _dq_inputs(cuda_device, m, k, n, bits, dtype, seed=m + bits)
+    n0 = tdq.LAUNCHES.value
+    got = tdq.dequant_matmul(x, q, s, bits=bits, rows=k)
+    torch.cuda.synchronize()
+    assert tdq.LAUNCHES.value == n0 + 1
+    _check_dq(got, tdq.dequant_matmul_reference(x, q, s, bits=bits, rows=k))
+
+
+@pytest.mark.cuda
+def test_dq_kernel_takes_rows_past_the_old_grid_limit_on_card(cuda_device):
+    """M = 4,194,305 needs 65,537 tiles of 64 rows: more than a grid's y
+    dimension holds."""
+    x, q, s = _dq_inputs(cuda_device, 4194305, 40, 40, 8, torch.float32, 3)
+    n0 = tdq.LAUNCHES.value
+    got = tdq.dequant_matmul(x, q, s, bits=8, rows=40)
+    torch.cuda.synchronize()
+    assert tdq.LAUNCHES.value == n0 + 1
+    _check_dq(got, tdq.dequant_matmul_reference(x, q, s, bits=8, rows=40))
+    del x, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dq_kernel_at_a_bert_base_dense_on_card(cuda_device, bits):
+    """BERT-Base's intermediate Dense, 768 -> 3072, at M = B L = 4096."""
+    x, q, s = _dq_inputs(cuda_device, 4096, 768, 3072, bits, torch.float32,
+                         seed=bits)
+    got = tdq.dequant_matmul(x, q, s, bits=bits, rows=768)
+    torch.cuda.synchronize()
+    _check_dq(got, tdq.dequant_matmul_reference(x, q, s, bits=bits,
+                                                 rows=768))
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_for_shapes_the_kernels_cannot_take(cuda_device):
     """A CUDA tensor the kernel cannot take raises; it is never answered

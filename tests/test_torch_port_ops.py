@@ -161,6 +161,31 @@ def test_dequant_matmul_matches_jax(bits, k, lead):
     np.testing.assert_allclose(plain.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_dequant_matmul_half_precision_matches_jax(bits, dtype):
+    """bf16 and f16 x answer in x's type, as the JAX kernel does (it widens
+    x to f32 in its body); the values within one rounding to that type
+    (2^-7 or 2^-10 of |y|) of each other, the f32 sums differing in
+    order."""
+    rs = np.random.RandomState(bits + len(dtype))
+    k = 13
+    w = rs.randn(k, 9).astype(np.float32)
+    x = rs.randn(2, 5, k).astype(np.float32)
+    q, s = jdq.quantize_weights(w, bits=bits)
+    want = jdq.dequant_matmul(jnp.asarray(x).astype(getattr(jnp, dtype)), q,
+                              s, bits=bits, rows=k, interpret=True)
+    assert str(want.dtype) == dtype
+    want = np.asarray(want.astype(jnp.float32))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tdq.dequant_matmul(xt, torch.from_numpy(np.array(q)),
+                             torch.from_numpy(np.array(s)), bits=bits, rows=k)
+    assert got.dtype == xt.dtype and tuple(got.shape) == (2, 5, 9)
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -10
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("k", [6, 7])
 def test_pack_int4_bit_identical(k):
     rs = np.random.RandomState(k)
