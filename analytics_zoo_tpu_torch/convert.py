@@ -20,7 +20,10 @@ from analytics_zoo_tpu_torch.nn.module import is_qleaf
 def _as_tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.detach()
-    return torch.from_numpy(np.array(a))
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":   # a JAX bf16 leaf, as numpy holds it
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _is_subtree(x) -> bool:

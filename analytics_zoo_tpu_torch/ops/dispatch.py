@@ -22,7 +22,9 @@ decision in ``ops_kernel_selected_total{kernel,path}``, so a serving run
 can show from metrics alone that its hot loop went through the kernels.
 The JAX package's TPU minimum-work gates (a 4096-row table, a 256x256
 weight, the flash kernel's D % 128 and L >= 2048) are not carried over:
-they come back once measured on the card.
+they come back once measured on the card.  The 4096-row gate was
+(``bag_shapes.py``): the bag kernel leads ``F.embedding_bag`` at every
+table size from 1024 rows up, so it stays out.
 """
 
 from __future__ import annotations

@@ -6,7 +6,11 @@ scatter the (B, N, D) contributions, through device memory; the CUDA
 kernels (``csrc/embedding_bag.cu``, the ports of the JAX package's Pallas
 ``_fwd_kernel`` and ``_bwd_kernel``) read each row once and write only
 the (B, D) result, and scatter ``scale_b * g[b]`` straight into the
-(V, D) table gradient.
+(V, D) table gradient.  Tables of float32, bfloat16 and float16 sum in
+f32 and answer in the table's type, rounded once (the JAX kernel's rule);
+float64 tables sum in f64.  The backward takes ``g`` in f32, as the JAX
+rule does (``g.astype(jnp.float32)``), and ``_Bag`` casts the f32
+gradient to the table's type.
 
 Routing (``ops.dispatch.select_path``, knob ``ZooConfig.fused_embedding``):
 a CUDA tensor launches the kernel unless the knob says ``off``; a CPU
@@ -27,6 +31,7 @@ kernel, with ``pad_id=None``, skips negative ids.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,14 +45,59 @@ _INT32 = (-(1 << 31), (1 << 31) - 1)
 LAUNCHES = dispatch.LaunchCount()           # forward
 BWD_LAUNCHES = dispatch.LaunchCount()       # backward
 
+# the forward kernel's table types, by their code in the C entry
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                 torch.float64: 3}
+
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
          ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+         ctypes.c_int, ctypes.c_int]
+_STREAM = [ctypes.c_void_p]
 _SIGNATURES = {
-    "zoo_embedding_bag_fwd_f32": (ctypes.c_int, _ARGS),
-    "zoo_embedding_bag_bwd_f32": (ctypes.c_int, _ARGS),
+    # ..., dtype, piece, then the five fields of BagLayout
+    "zoo_embedding_bag_fwd": (ctypes.c_int,
+                              _ARGS + [ctypes.c_int] * 7 + _STREAM),
+    "zoo_embedding_bag_bwd_f32": (ctypes.c_int, _ARGS + _STREAM),
     "zoo_embedding_bag_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+class BagLayout(NamedTuple):
+    """How the forward kernel's warp reads a row (``csrc/embedding_bag.cu``):
+    ``pieces`` loads of ``piece_bytes`` per row; slot groups of ``width``
+    lanes (one piece each), ``groups`` of them in a warp; ``per_bag``
+    groups share a bag's slots, and a warp takes ``bags_per_round`` bags
+    at once (more than one only where a bag has fewer slots than there
+    are groups)."""
+
+    pieces: int
+    width: int
+    groups: int
+    per_bag: int
+    bags_per_round: int
+
+
+def piece_bytes(elem: int, dim: int, address: int) -> int:
+    """Bytes per lane load of a (V, dim) table of ``elem``-byte elements
+    at ``address``: 16, or where the row's byte width or the address is
+    off 16 bytes the largest of 8, 4, 2 that divides both (never less
+    than one element)."""
+    for piece in (16, 8, 4, 2):
+        if piece >= elem and (dim * elem) % piece == 0 \
+                and address % piece == 0:
+            return piece
+    raise ValueError(f"a table of {elem}-byte elements at address "
+                     f"{address:#x} is not aligned to its element")
+
+
+def bag_layout(dim: int, elem: int, piece: int, nnz: int) -> BagLayout:
+    """The forward kernel's lane layout for rows of ``dim`` elements of
+    ``elem`` bytes read in ``piece``-byte loads, bags of ``nnz`` slots."""
+    pieces = dim * elem // piece
+    width = min(pieces, 32)
+    groups = 32 // width
+    per_bag = max(1, min(groups, nnz))
+    return BagLayout(pieces, width, groups, per_bag, groups // per_bag)
 
 
 def _check_args(table, ids, combiner):
@@ -140,42 +190,47 @@ def _launch(table, ids, combiner, pad_id):
     if table.device.type != "cuda" or ids.device != table.device:
         raise ValueError(f"embedding_bag kernel needs table and ids on one "
                          f"CUDA device, got {table.device} and {ids.device}")
-    if table.dtype != torch.float32:
-        raise TypeError(f"embedding_bag kernel takes a float32 table, "
-                        f"got {table.dtype}")
+    if table.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"embedding_bag kernel takes a float32, bfloat16, "
+                        f"float16 or float64 table, got {table.dtype}")
     _check_pad(pad_id)
     vocab, dim = table.shape
     ids32 = ids.to(torch.int32).contiguous()
     table = table.contiguous()
     bags, nnz = ids32.shape
     out = torch.empty((bags, dim), dtype=table.dtype, device=table.device)
-    if bags == 0:
+    if bags == 0 or dim == 0:
         return out
+    elem = table.element_size()
+    piece = piece_bytes(elem, dim, table.data_ptr())
+    layout = bag_layout(dim, elem, piece, nnz)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().zoo_embedding_bag_fwd_f32(
+        rc = _lib().zoo_embedding_bag_fwd(
             table.data_ptr(), ids32.data_ptr(), out.data_ptr(), vocab, dim,
             bags, nnz, int(pad_id is not None),
             0 if pad_id is None else int(pad_id), _COMBINER_CODE[combiner],
-            stream)
+            KERNEL_DTYPES[table.dtype], piece, *layout, stream)
     _raise_on(rc, "forward",
-              f"table {tuple(table.shape)} and ids {tuple(ids32.shape)}")
+              f"table {tuple(table.shape)} {table.dtype} and ids "
+              f"{tuple(ids32.shape)}")
     LAUNCHES.add()
     return out
 
 
 def _launch_bwd(vocab, ids, g, combiner, pad_id):
-    """Run the backward kernel: (B, N) ``ids`` and (B, D) ``g`` into a
-    fresh (vocab, D) f32 gradient, zero-filled by the kernel's entry."""
+    """Run the backward kernel: (B, N) ``ids`` and (B, D) ``g``, widened
+    (or narrowed) to f32, into a fresh (vocab, D) f32 gradient,
+    zero-filled by the kernel's entry."""
     if g.device.type != "cuda" or ids.device != g.device:
         raise ValueError(f"embedding_bag backward kernel needs ids and g on "
                          f"one CUDA device, got {ids.device} and {g.device}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"embedding_bag backward kernel takes a float32 "
+    if not g.is_floating_point():
+        raise TypeError(f"embedding_bag backward kernel takes a float "
                         f"gradient, got {g.dtype}")
     _check_pad(pad_id)
     ids32 = ids.to(torch.int32).contiguous()
-    g = g.contiguous()
+    g = g.to(torch.float32).contiguous()        # the JAX rule: g in f32
     bags, nnz = ids32.shape
     dim = g.shape[1]
     if bags == 0:

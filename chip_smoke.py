@@ -10,9 +10,12 @@
    ``mma.sync``, ``HGMMA`` for ``wgmma``) and ``cp.async`` (``LDGSTS``)
    instructions of every instance of the flash forward, dQ and dK/dV
    kernels and of the dequantize-matmul's ``dq_mma`` and ``dq_wgmma``
-   (``cuobjdump -sass``); an instance without its tensor-core
-   instruction or LDGSTS, or a spill in the flash or dequantize-matmul
-   libraries, fails.
+   (``cuobjdump -sass``), and the global loads by width of every
+   instance of the bag forward (``bag_fwd<T, P>``); an instance without
+   its tensor-core instruction or LDGSTS, a bag forward instance without
+   the load of its piece's width (``LDG.E.128`` for 16-byte pieces), or
+   a spill in the flash, dequantize-matmul or embedding-bag libraries,
+   fails.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card, at the slices' shapes and at the repo's kernel-bench shapes;
    times the kernel, the plain version and, where one exists, a single
@@ -33,7 +36,14 @@
    (the calls captured in a CUDA graph and replayed, timed by CUDA
    events); ``*_call_ms`` is time per call from a host loop, launch
    cost included.
-   Tolerances: embedding-bag forward rtol 1e-5 / atol 1e-5 elementwise;
+   Bag forward legs: the NCF slice (V = 6041 and 3707, B = 1, 8, 64,
+   256, N = 1, D = 20), the kernel bench's V = 2^20, B = 4096, N = 32,
+   D = 64 (every combiner, pad 0 and None; clipped ids; bf16 and f16
+   tables; Zipf s = 1.0 ids; the table one element into its buffer, rows
+   on 4 bytes), the bound counting the distinct rows the ids read.
+   Tolerances: embedding-bag forward rtol 1e-5 / atol 1e-5 elementwise
+   (bf16 and f16 tables 2^-7 or 2^-10 of |plain| plus 1e-5 of the summed
+   magnitude of the terms: one rounding of an f32 sum);
    embedding-bag backward atol 1e-6 plus rtol 1e-5 of the summed
    magnitude of each element's contributions (|dT| itself where a row
    gets one add; duplicate ids meet in f32 atomics whose order is free,
@@ -161,6 +171,10 @@ PEAK_F32_TENSOR_FLOPS = PEAK_TF32_FLOPS / 3
 # plain version's (bf16_mismatch_share).  On an H100 the kernel's split P
 # moves 0.13-0.25% of them, a P rounded once to bf16 26-39%.
 BF16_MISMATCH_LIMIT = 0.02
+# H100's L2; a bag leg whose table is larger is also timed cold
+# (``cold_ms``: each launch on one of COLD_COPIES copies of the table)
+L2_BYTES = 50 << 20
+COLD_COPIES = 8
 BAG_SRC = "analytics_zoo_tpu_torch/csrc/embedding_bag.cu"
 DQ_SRC = "analytics_zoo_tpu_torch/csrc/dequant_matmul.cu"
 FLASH_SRC = "analytics_zoo_tpu_torch/csrc/flash_attention.cu"
@@ -242,6 +256,21 @@ def timings(torch, fns, iters):
     return out
 
 
+def cold_cycle(make, copies=None):
+    """A function that calls ``make(i)()`` for i = 0, 1, ... in turn over
+    ``copies`` inputs (default ``COLD_COPIES``): where each copy's bytes
+    are tens of MB, a copy's data has left the 50 MB L2 by the time it
+    comes round again, so each call reads it from device memory."""
+    copies = copies or COLD_COPIES
+    fns = [make(i) for i in range(copies)]
+    turn = [0]
+
+    def call():
+        fns[turn[0] % copies]()
+        turn[0] += 1
+    return call
+
+
 def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time the card could take: the larger of bytes over the
     memory rate and operations over the rate for their type (f32 unless
@@ -273,24 +302,48 @@ def kernel_events(torch, prof):
 
 
 def bag_case(torch, eb, label, vocab, dim, bags, nnz, combiner, pad_id,
-             clip=False, iters=200):
+             clip=False, iters=200, dtype=None, zipf=False, offset=0):
+    """The bag forward kernel against its plain version.  ``dtype`` is
+    the table's (f32 by default); ``zipf`` draws the ids from
+    ``zipf_ids``; ``offset`` places the table that many elements into its
+    buffer (rows off 16 bytes: narrower pieces).  Tolerance: f32 rtol
+    1e-5 / atol 1e-5 elementwise; bf16 and f16 2^-7 or 2^-10 of |plain|
+    (both sides round an f32 sum once into the table's type, and may land
+    one unit apart) plus 1e-5 of the summed magnitude of the terms.  The
+    bound counts the distinct live rows this run's ids read, in the
+    table's element size."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.float32
     g = torch.Generator(device="cuda").manual_seed(SEED + vocab + bags + nnz)
-    table = torch.randn(vocab, dim, device="cuda", generator=g) * 0.5
-    lo, hi = (-vocab // 8, vocab + vocab // 8) if clip else (0, vocab)
-    ids = torch.randint(lo, hi, (bags, nnz), device="cuda", generator=g,
-                        dtype=torch.int32)
+    buf = torch.randn(vocab * dim + offset, device="cuda", generator=g) * 0.5
+
+    def make_table():
+        return buf.to(dtype).clone()[offset:].view(vocab, dim)
+    table = make_table()
+    if zipf:
+        ids = zipf_ids(torch, g, vocab, (bags, nnz))
+    else:
+        lo, hi = (-vocab // 8, vocab + vocab // 8) if clip else (0, vocab)
+        ids = torch.randint(lo, hi, (bags, nnz), device="cuda", generator=g,
+                            dtype=torch.int32)
     if pad_id is not None:
         ids[torch.rand(bags, nnz, device="cuda", generator=g) < 0.25] = pad_id
     out = eb.embedding_bag(table, ids, combiner, pad_id)
     ref = eb.embedding_bag_reference(table, ids, combiner, pad_id)
     torch.cuda.synchronize()
-    err = (out - ref).abs()
-    ok = bool(torch.all(err <= 1e-5 + 1e-5 * ref.abs()))
+    err = (out.double() - ref.double()).abs()
+    if dtype == torch.float32:
+        ok = bool(torch.all(err <= 1e-5 + 1e-5 * ref.abs()))
+    else:
+        terms = eb.embedding_bag_reference(table.double().abs(), ids,
+                                           combiner, pad_id)
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+        ok = bool(torch.all(err <= rtol * ref.double().abs() + 1e-5 * terms))
     live = ids if pad_id is None else ids[ids != pad_id]
     rows = int(torch.unique(live.clamp(0, vocab - 1)).numel())
-    nbytes = 4 * (rows * dim + bags * nnz + bags * dim)
+    elem = table.element_size()
+    nbytes = elem * (rows * dim + bags * dim) + 4 * bags * nnz
     flops = int(live.numel()) * dim + bags * dim
     library = None
     if combiner != "sqrtn" and not clip:
@@ -302,6 +355,9 @@ def bag_case(torch, eb, label, vocab, dim, bags, nnz, combiner, pad_id,
     case = {
         "case": label, "vocab": vocab, "dim": dim, "bags": bags,
         "nnz": nnz, "combiner": combiner, "pad_id": pad_id, "clip": clip,
+        "zipf": zipf, "dtype": str(dtype).replace("torch.", ""),
+        "piece_bytes": eb.piece_bytes(elem, dim, table.data_ptr()),
+        "distinct_rows": rows,
         "max_abs_err": float(err.max()),
         "max_rel_err": float(err.max() / ref.abs().max().clamp_min(1e-30)),
         **bound(nbytes, flops),
@@ -311,6 +367,17 @@ def bag_case(torch, eb, label, vocab, dim, bags, nnz, combiner, pad_id,
                                                         combiner, pad_id),
             "library": library}, iters),
     }
+    if vocab * dim * elem > L2_BYTES:
+        # the same launches on rows that are not in L2
+        copies = [make_table() for _ in range(COLD_COPIES)]
+        case["cold_ms"] = device_ms(torch, cold_cycle(
+            lambda i: lambda: eb.embedding_bag(copies[i], ids, combiner,
+                                               pad_id)), 3 * COLD_COPIES)
+        case["library_cold_ms"] = library and device_ms(torch, cold_cycle(
+            lambda i: lambda: F.embedding_bag(lids, copies[i], mode=combiner,
+                                              padding_idx=pad_id)),
+            3 * COLD_COPIES)
+        del copies
     if not ok:
         raise AssertionError(f"embedding_bag kernel disagrees with its "
                              f"plain version: {case}")
@@ -829,6 +896,14 @@ def kernel_phase(torch, eb, dq):
                 pad_id, iters=20))
     bag_cases.append(bag_case(torch, eb, "large_clip", 1 << 20, 64, 4096,
                               32, "sum", None, clip=True, iters=20))
+    for dtype in (torch.bfloat16, torch.float16):
+        bag_cases.append(bag_case(torch, eb, "large", 1 << 20, 64, 4096, 32,
+                                  "sum", None, iters=20, dtype=dtype))
+    bag_cases.append(bag_case(torch, eb, "large_zipf", 1 << 20, 64, 4096,
+                              32, "sum", None, iters=20, zipf=True))
+    # the table one element into its buffer: rows on 4 bytes, 4-byte pieces
+    bag_cases.append(bag_case(torch, eb, "large_off16", 1 << 20, 64, 4096,
+                              32, "sum", None, iters=20, offset=1))
     bwd_cases = [bag_bwd_case(torch, eb, "slice", USERS + 1, 20,
                               TRAIN_BATCH, 1, "sum", None),
                  bag_bwd_case(torch, eb, "slice", ITEMS + 1, 20,
@@ -1703,6 +1778,41 @@ def dq_sass(build, path):
         lambda n: "HGMMA" if n.startswith("dq_wgmma") else "HMMA")
 
 
+def bag_sass(build, path):
+    """Global loads of each instance of the bag forward (``bag_fwd<T,
+    P>``: f32 with 16-, 8- and 4-byte pieces, bf16 and f16 with 16, 8, 4
+    and 2, f64 with 16 and 8), by width in bytes.  Raises unless all 13
+    instances are there and each shows a load of its piece's width
+    (``LDG.E.128`` for 16 bytes)."""
+    import re
+
+    names = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
+             "d": "f64"}
+    counts = {}
+    for name, part in sass_functions(build, path):
+        m = re.search(r"bag_fwdI(f|d|13__nv_bfloat16|6__half)Li(\d+)E", name)
+        if not m:
+            continue
+        loads = {16: 0, 8: 0, 4: 0, 2: 0, 1: 0}
+        for suffix in re.findall(r"\bLDG\.E((?:\.\w+)*)\s", part):
+            parts = suffix.split(".")
+            width = (16 if "128" in parts else 8 if "64" in parts
+                     else 2 if {"U16", "S16"} & set(parts)
+                     else 1 if {"U8", "S8"} & set(parts) else 4)
+            loads[width] += 1
+        counts[f"bag_fwd<{names[m.group(1)]},{m.group(2)}>"] = {
+            "piece": int(m.group(2)), "ldg_by_bytes": loads}
+    want = {f"bag_fwd<{t},{p}>" for t, ps in (
+        ("f32", (16, 8, 4)), ("bf16", (16, 8, 4, 2)), ("f16", (16, 8, 4, 2)),
+        ("f64", (16, 8))) for p in ps}
+    bad = [n for n, c in counts.items() if not c["ldg_by_bytes"][c["piece"]]]
+    if set(counts) != want or bad:
+        raise AssertionError(f"bag_fwd instances missing "
+                             f"({sorted(want - set(counts))}) or without "
+                             f"their piece's load ({bad}): {counts}")
+    return counts
+
+
 def check_no_spills(name, ptxas_log):
     """Raises if ``ptxas`` reports spill stores or loads for any function
     of library ``name``."""
@@ -1772,6 +1882,10 @@ def main() -> int:
                     libs["dequant_matmul"].with_suffix(".log").read_text())
     log("sass[dequant_matmul]:",
         json.dumps(dq_sass(_build, libs["dequant_matmul"])))
+    check_no_spills("embedding_bag",
+                    libs["embedding_bag"].with_suffix(".log").read_text())
+    log("sass[embedding_bag]:",
+        json.dumps(bag_sass(_build, libs["embedding_bag"])))
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
     fl_cases = flash_cases(torch, fa)

@@ -289,6 +289,157 @@ def test_ncf_fit_on_card_matches_plain_path(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the bag forward's table types, piece widths and grid
+
+
+HALF_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def _check_bag(table, ids, combiner, pad_id):
+    """One launch of the bag forward kernel, held to its plain version:
+    f32 rtol 1e-5 / atol 1e-5; bf16 and f16 one rounding of an f32 sum
+    into the table's type (2^-7 or 2^-10 of |plain|) plus 1e-5 of the
+    summed magnitude of the terms; f64 1e-12 of that magnitude."""
+    n0 = teb.LAUNCHES.value
+    got = teb.embedding_bag(table, ids, combiner, pad_id)
+    torch.cuda.synchronize()
+    assert teb.LAUNCHES.value == n0 + 1
+    want = teb.embedding_bag_reference(table, ids, combiner, pad_id)
+    assert got.dtype == want.dtype == table.dtype
+    if table.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-5)
+        return got
+    terms = teb.embedding_bag_reference(table.double().abs(), ids, combiner,
+                                        pad_id)
+    err = (got.double() - want.double()).abs()
+    if table.dtype == torch.float64:
+        assert bool((err <= 1e-12 * terms).all())
+    else:
+        assert bool((err <= HALF_RTOL[table.dtype] * want.double().abs()
+                     + 1e-5 * terms).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64])
+@pytest.mark.parametrize("combiner,pad_id,dim,nnz", [
+    ("sum", None, 64, 32), ("mean", 0, 20, 1), ("sqrtn", 0, 72, 33)])
+def test_bag_kernel_takes_every_float_table_on_card(cuda_device, dtype,
+                                                    combiner, pad_id, dim,
+                                                    nnz):
+    """bf16, f16 and f64 tables launch the kernel once and answer in the
+    table's type; out-of-range ids clip."""
+    table, ids = _bag_inputs(6041, dim, 300, nnz, pad_id, seed=dim + nnz)
+    ids[1, 0], ids[2, -1] = -7, 10 ** 6
+    _check_bag(torch.from_numpy(table).to(cuda_device, dtype),
+               torch.from_numpy(ids).to(cuda_device), combiner, pad_id)
+
+
+@pytest.mark.cuda
+def test_half_precision_tables_no_longer_raise_on_card(cuda_device):
+    """The fault repaired: ``Embedding(dtype=bf16 / f16)`` and a bf16
+    ``EmbeddingBag`` on the card raised TypeError in the bag wrapper; they
+    now launch the kernel and answer in the table's type."""
+    from analytics_zoo_tpu_torch.nn.layers import Embedding, EmbeddingBag
+
+    ids = torch.randint(0, 100, (16, 4), device=cuda_device)
+    for dtype in (torch.bfloat16, torch.float16):
+        emb = Embedding(100, 24, dtype=dtype)
+        emb.build(torch.Generator().manual_seed(0), (16, 4))
+        emb.to(cuda_device)
+        n0 = teb.LAUNCHES.value
+        out = emb(ids)
+        torch.cuda.synchronize()
+        assert teb.LAUNCHES.value == n0 + 1
+        assert out.dtype == dtype and tuple(out.shape) == (16, 4, 24)
+        torch.testing.assert_close(
+            out, emb.leaf("table").detach()[ids.long()], rtol=0, atol=0)
+    bag = EmbeddingBag(100, 24, combiner="mean", pad_id=0)
+    bag.build(torch.Generator().manual_seed(0), (16, 4))
+    bag.set_leaf("table", bag.leaf("table").detach().to(torch.bfloat16))
+    bag.to(cuda_device)
+    n0 = teb.LAUNCHES.value
+    out = bag(ids)
+    torch.cuda.synchronize()
+    assert teb.LAUNCHES.value == n0 + 1 and out.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_precision_table_gradient_on_card(cuda_device, dtype):
+    """A bf16 (f16) table's gradient through ``_Bag``: the bf16 output's
+    gradient widened to f32 for the backward kernel, its f32 result cast
+    to the table's type; against the same graph under
+    ``forced("reference")`` (both round the same f32 sums once, up to
+    the atomics' order: one unit of the table's type)."""
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    table, ids = _bag_inputs(3707, 20, 300, 3, 0, seed=6)
+    t = torch.from_numpy(table).to(cuda_device, dtype)
+    i = torch.from_numpy(ids).to(cuda_device)
+    cot = torch.randn(300, 20, device=cuda_device)
+
+    def grad():
+        leaf = t.clone().requires_grad_(True)
+        (teb.embedding_bag(leaf, i, "mean", 0).float() * cot).sum().backward()
+        return leaf.grad
+
+    f0, b0 = teb.LAUNCHES.value, teb.BWD_LAUNCHES.value
+    got = grad()
+    torch.cuda.synchronize()
+    assert (teb.LAUNCHES.value - f0, teb.BWD_LAUNCHES.value - b0) == (1, 1)
+    with dispatch.forced(dispatch.PATH_REFERENCE):
+        want = grad()
+    assert got.dtype == want.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=HALF_RTOL[dtype], atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dim,offset", [
+    (torch.float32, 5, 0),        # 20-byte rows: 4-byte pieces
+    (torch.bfloat16, 3, 0),       # 6-byte rows: 2-byte pieces
+    (torch.float32, 64, 1),       # rows on 4 bytes: a storage offset
+    (torch.bfloat16, 64, 3),      # rows on 2 bytes
+    (torch.float32, 130, 2),      # 65 pieces of 8 bytes: 3 column chunks
+])
+def test_bag_kernel_takes_rows_off_16_bytes_on_card(cuda_device, dtype,
+                                                    dim, offset):
+    """Rows whose byte width or address is off 16 bytes take narrower
+    pieces (``piece_bytes``) and still match the plain version."""
+    vocab = 2000
+    buf = torch.randn(vocab * dim + offset, device=cuda_device).to(dtype)
+    table = buf[offset:].view(vocab, dim)
+    piece = teb.piece_bytes(table.element_size(), dim, table.data_ptr())
+    assert piece < 16
+    _, ids = _bag_inputs(vocab, dim, 129, 7, 0, seed=dim)
+    for combiner in teb.COMBINERS:
+        _check_bag(table, torch.from_numpy(ids).to(cuda_device), combiner, 0)
+
+
+@pytest.mark.cuda
+def test_bag_kernel_takes_257_slot_bags_on_card(cuda_device):
+    """Bags of N = 257 slots: nine id windows, the last of one slot."""
+    table, ids = _bag_inputs(6041, 64, 130, 257, 0, seed=9)
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_bag(torch.from_numpy(table).to(cuda_device, dtype),
+                   torch.from_numpy(ids).to(cuda_device), "mean", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nnz,dim", [(1, 20), (32, 64)])
+def test_bag_kernel_takes_bags_past_one_wave_on_card(cuda_device, nnz, dim):
+    """2^17 + 5 bags: more warps than the card holds at once, and a last
+    block and round that are part full."""
+    g = torch.Generator(device=cuda_device).manual_seed(nnz)
+    table = torch.randn(1 << 16, dim, device=cuda_device, generator=g)
+    ids = torch.randint(0, 1 << 16, ((1 << 17) + 5, nnz), device=cuda_device,
+                        generator=g, dtype=torch.int32)
+    _check_bag(table, ids, "sum", None)
+
+
+# ---------------------------------------------------------------------------
 # flash attention
 
 

@@ -13,6 +13,7 @@ card by ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``.
 import importlib
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,6 +137,127 @@ def test_bad_bag_arguments_raise():
         teb.embedding_bag(table, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="table must be"):
         teb.embedding_gather(torch.zeros(4), torch.zeros(2, dtype=torch.int32))
+
+
+HALF_RTOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+def _close_half(got, want, dtype, terms):
+    """One rounding into the table's type apart (2^-7 of |want| in bf16,
+    2^-10 in f16; both sides round an f32 result once), on top of f32
+    sums in another order (1e-6 of the summed magnitude ``terms``)."""
+    assert str(got.dtype).replace("torch.", "") == dtype
+    got = got.double().numpy()
+    want = np.asarray(want).astype(np.float64)
+    assert np.all(np.abs(got - want)
+                  <= HALF_RTOL[dtype] * np.abs(want) + 1e-6 * terms)
+
+
+def _half_table(rs, v, d, dtype):
+    """A (v, d) table in ``dtype`` for both packages: the JAX array and
+    the torch tensor holding the same values."""
+    jt = jnp.asarray(rs.randn(v, d).astype(np.float32)).astype(
+        getattr(jnp, dtype))
+    tt = torch.from_numpy(np.array(jt.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    return jt, tt
+
+
+@pytest.mark.parametrize("dtype,combiner,pad_id", [
+    ("bfloat16", "mean", 0), ("bfloat16", "sqrtn", None),
+    ("float16", "sum", 0), ("float16", "sqrtn", None)])
+def test_embedding_bag_half_precision_matches_jax(dtype, combiner, pad_id):
+    """bf16 and f16 tables: the output in the table's type (an f32 sum
+    rounded once) and the table's gradient (f32 scatter, then the
+    table's type) as the JAX kernel's ``custom_vjp`` gives them, in
+    interpret mode."""
+    rs = np.random.RandomState(len(dtype) + len(combiner))
+    jt, tt = _half_table(rs, 37, 7, dtype)
+    _, ids = _bag_inputs(37, 7, 9, 2, pad_id, seed=5)
+    cot = rs.randn(9, 7).astype(np.float32)
+
+    def jloss(t):
+        out = jeb.embedding_bag(t, jnp.asarray(ids), combiner,
+                                pad_id=pad_id, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * cot)
+
+    want = jeb.embedding_bag(jt, jnp.asarray(ids), combiner, pad_id=pad_id,
+                             interpret=True)
+    want_grad = jax.grad(jloss)(jt)
+    assert str(want.dtype) == str(want_grad.dtype) == dtype
+    leaf = tt.clone().requires_grad_(True)
+    got = teb.embedding_bag(leaf, torch.from_numpy(ids), combiner, pad_id)
+    (got.float() * torch.from_numpy(cot)).sum().backward()
+    terms = teb.embedding_bag_reference(tt.double().abs(),
+                                        torch.from_numpy(ids), combiner,
+                                        pad_id).numpy()
+    _close_half(got.detach(), want.astype(jnp.float32), dtype, terms)
+    grad_terms = teb.embedding_bag_backward_reference(
+        37, torch.from_numpy(ids), torch.from_numpy(np.abs(cot)).double(),
+        combiner, pad_id).numpy()
+    _close_half(leaf.grad, want_grad.astype(jnp.float32), dtype, grad_terms)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_embedding_gather_half_precision_matches_jax(dtype):
+    """A gather from a bf16 or f16 table and its table gradient, against
+    the JAX package's gather through its Pallas kernel (interpret mode):
+    each output is one row, so the forward is exact; duplicate ids sum
+    their cotangents in f32 before the one rounding."""
+    rs = np.random.RandomState(len(dtype))
+    jt, tt = _half_table(rs, 29, 5, dtype)
+    ids = rs.randint(0, 29, size=(4, 3)).astype(np.int32)
+    cot = rs.randn(4, 3, 5).astype(np.float32)
+    want = jeb.embedding_gather(jt, jnp.asarray(ids), interpret=True)
+    want_grad = jax.grad(lambda t: jnp.sum(jeb.embedding_gather(
+        t, jnp.asarray(ids), interpret=True).astype(jnp.float32) * cot))(jt)
+    leaf = tt.clone().requires_grad_(True)
+    got = teb.embedding_gather(leaf, torch.from_numpy(ids))
+    (got.float() * torch.from_numpy(cot)).sum().backward()
+    assert got.dtype == tt.dtype and tuple(got.shape) == (4, 3, 5)
+    np.testing.assert_array_equal(got.detach().float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    terms = teb.embedding_bag_backward_reference(
+        29, torch.from_numpy(ids.reshape(-1, 1)),
+        torch.from_numpy(np.abs(cot).reshape(-1, 5)).double(), "sum",
+        None).numpy()
+    _close_half(leaf.grad, want_grad.astype(jnp.float32), dtype, terms)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_embedding_layer_half_precision_matches_jax(dtype):
+    """``Embedding(dtype=bf16/f16)`` with the JAX layer's weights carried
+    across by ``load_jax_params`` (the JAX tree's bf16 array as it is):
+    the lookup and the table's gradient match the JAX layer's.  Ids are
+    distinct, so each gradient row is one cotangent rounded once on both
+    sides."""
+    from analytics_zoo_tpu.nn.layers.embedding import Embedding as JEmb
+
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.nn.layers import Embedding
+
+    rs = np.random.RandomState(7)
+    jt, _ = _half_table(rs, 40, 6, dtype)
+    ids = rs.permutation(40)[:12].reshape(3, 4).astype(np.int32)
+    cot = rs.randn(3, 4, 6).astype(np.float32)
+    jemb = JEmb(40, 6, dtype=getattr(jnp, dtype))
+    params = {"table": jt}
+    want, _ = jemb.call(params, {}, jnp.asarray(ids))
+    want_grad = jax.grad(lambda p: jnp.sum(jemb.call(
+        p, {}, jnp.asarray(ids))[0].astype(jnp.float32) * cot))(params)
+    emb = Embedding(40, 6, dtype=getattr(torch, dtype))
+    emb.build(torch.Generator().manual_seed(0), (3, 4))
+    load_jax_params(emb, {"table": np.asarray(jt)})
+    got = emb(torch.from_numpy(ids))
+    (got.float() * torch.from_numpy(cot)).sum().backward()
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.detach().float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    grad = emb.leaf("table").grad
+    assert grad.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(
+        grad.float().numpy(),
+        np.asarray(want_grad["table"].astype(jnp.float32)))
 
 
 # ---------------------------------------------------------------------------
