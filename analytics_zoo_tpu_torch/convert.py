@@ -123,3 +123,26 @@ def export_params(model) -> dict:
         return t.detach().cpu().numpy().copy()
 
     return host(model.params())
+
+
+def _has_leaves(tree) -> bool:
+    return not _is_subtree(tree) or any(_has_leaves(v)
+                                        for v in tree.values())
+
+
+def load_archive_params(model, params) -> None:
+    """``load_jax_params`` for a tree read from an archive
+    (``train.checkpoint.load_pytree``), which holds no entry for a sub-tree
+    without leaves (a weightless layer): those are taken from the model."""
+    def fill(have, given):
+        if not (_is_subtree(have) and _is_subtree(given)):
+            return given
+        out = dict(given)
+        for key, sub in have.items():
+            if key in out:
+                out[key] = fill(sub, out[key])
+            elif not _has_leaves(sub):
+                out[key] = sub
+        return out
+
+    load_jax_params(model, fill(model.params(), params))

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 _ENV_PREFIX = "ZOO_"
 
@@ -48,9 +48,8 @@ class ZooConfig:
     #   "raise"    — raise FloatingPointError at the epoch boundary.
     #   "rollback" — like skip, plus: >= max_bad_steps consecutive bad
     #                steps roll back to the last checkpoint and scale the
-    #                learning rate by nan_backoff_factor.  Checkpoints are
-    #                not ported yet, so this raises as the JAX package
-    #                does without a checkpoint.
+    #                learning rate by nan_backoff_factor; without a
+    #                checkpoint it raises, as the JAX package does.
     nan_policy: str = "skip"
     max_bad_steps: int = 5
     nan_backoff_factor: float = 0.5
@@ -59,6 +58,37 @@ class ZooConfig:
     # on the device when it fits data_device_budget_bytes (else HOST).
     data_cache_level: str = "HOST"
     data_device_budget_bytes: int = 4 << 30
+    # Batches the host path prepares ahead of the step on a producer
+    # thread (train/prefetch.py); 0 prepares them in line.
+    data_prefetch: int = 2
+    # Compute dtype of the training forward and backward: "bfloat16"
+    # casts parameters and float inputs for them while the f32 masters
+    # and optimizer state stay f32 (train/estimator.py).
+    compute_dtype: str = "float32"
+
+    # -- checkpoints and failure retry (train/checkpoint.py, the JAX
+    # package's defaults) ------------------------------------------------
+    # A directory fit(resume=True) resumes from when set_checkpoint was
+    # not called.
+    checkpoint_dir: Optional[str] = None
+    # Snapshots copied off the live tensors, then written on a thread.
+    async_checkpoint: bool = True
+    # Verify per-leaf CRC32 manifests on restore; torn or corrupt
+    # snapshots are quarantined and restore falls back to the newest
+    # intact one.
+    ckpt_verify: bool = True
+    # Failure retry of fit from the last checkpoint: at most this many
+    # failures within a sliding window of this many seconds.
+    failure_retry_times: int = 5
+    failure_retry_interval_s: float = 120.0
+    # RetryPolicy defaults (robust/retry.py): exponential backoff with
+    # jitter, bounded by attempts and an optional deadline.
+    retry_max_attempts: int = 5
+    retry_base_delay_s: float = 0.1
+    retry_max_delay_s: float = 30.0
+    retry_multiplier: float = 2.0
+    retry_jitter: float = 0.1
+    retry_deadline_s: Optional[float] = None
 
     @classmethod
     def from_env(cls, **overrides: Any) -> "ZooConfig":
@@ -81,4 +111,6 @@ def _coerce(raw: str, typ: Any) -> Any:
         return int(raw)
     if "float" in t:
         return float(raw)
+    if "bool" in t:
+        return raw.lower() in ("1", "true", "yes", "on")
     return raw

@@ -1,12 +1,20 @@
 """ZooModel base: a built-in model owns a ``KerasNet`` (its ``model``),
 its hyper-parameters and the device its weights live on; ``compile`` /
 ``fit`` / ``evaluate`` / ``predict`` delegate to the net (and so to
-``train.Estimator``) on that device.  Persistence belongs to a later
-slice."""
+``train.Estimator``) on that device.
+
+Persistence is the JAX package's: ``save_model`` writes ``config.json``
+(``{"class", "config"}``: the registered class and its constructor
+arguments) and ``weights.npz`` (``{"params", "state"}`` in the archive
+format of ``train/checkpoint.py``), so a directory saved by either
+package loads into either.  The port's net holds its weights from
+construction, so ``load_model`` applies them at once."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import os
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -39,16 +47,22 @@ class ZooModel:
     def build(self):
         raise NotImplementedError
 
+    def config(self) -> Dict[str, Any]:
+        """JSON-serializable constructor arguments."""
+        raise NotImplementedError
+
     def _finish(self, net) -> None:
         """Allocate ``net``'s weights and place them on the device."""
         net.build(self.generator)
         self.model = net.to(self.device)
 
     # -- training facade --------------------------------------------------
-    def compile(self, optimizer, loss, metrics=None, device=None):
-        """``KerasNet.compile`` on this model's device by default."""
+    def compile(self, optimizer, loss, metrics=None, device=None, **kw):
+        """``KerasNet.compile`` on this model's device by default
+        (``compute_dtype``, ``grad_accum_steps`` pass through)."""
         self.model.compile(optimizer, loss, metrics=metrics,
-                           device=self.device if device is None else device)
+                           device=self.device if device is None else device,
+                           **kw)
         return self
 
     def fit(self, *a, **kw):
@@ -60,6 +74,42 @@ class ZooModel:
     def predict(self, *a, **kw):
         return self.model.predict(*a, **kw)
 
+    def set_checkpoint(self, path: str, over_write: bool = True):
+        self.model.set_checkpoint(path, over_write=over_write)
+        return self
+
     @property
     def estimator(self):
         return self.model.estimator
+
+    # -- persistence ------------------------------------------------------
+    def save_model(self, path: str) -> None:
+        """Save config and weights (reference ZooModel.saveModel)."""
+        from analytics_zoo_tpu_torch.train.checkpoint import (_atomic_text,
+                                                              save_pytree)
+
+        os.makedirs(path, exist_ok=True)
+        _atomic_text(os.path.join(path, "config.json"), json.dumps(
+            {"class": type(self).__name__, "config": self.config()},
+            indent=2))
+        save_pytree(os.path.join(path, "weights.npz"),
+                    {"params": self.model.params(), "state": {}})
+
+    @classmethod
+    def load_model(cls, path: str, device=None) -> "ZooModel":
+        """The model a ``save_model`` directory holds, on ``device``
+        (default ``cuda``), with its weights."""
+        from analytics_zoo_tpu_torch.convert import load_archive_params
+        from analytics_zoo_tpu_torch.train.checkpoint import load_pytree
+
+        with open(os.path.join(path, "config.json")) as f:
+            blob = json.load(f)
+        model_cls = _MODEL_REGISTRY.get(blob["class"])
+        if model_cls is None:
+            raise ValueError(f"unknown model class {blob['class']}; "
+                             f"registered: {sorted(_MODEL_REGISTRY)}")
+        inst = model_cls(**blob["config"], device=device)
+        wpath = os.path.join(path, "weights.npz")
+        if os.path.exists(wpath):
+            load_archive_params(inst.model, load_pytree(wpath)["params"])
+        return inst

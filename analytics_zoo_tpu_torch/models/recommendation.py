@@ -115,6 +115,15 @@ class NeuralCF(Recommender):
         self.table_placement = table_placement
         self.build()
 
+    def config(self):
+        return dict(user_count=self.user_count, item_count=self.item_count,
+                    class_num=self.class_num, user_embed=self.user_embed,
+                    item_embed=self.item_embed,
+                    hidden_layers=list(self.hidden_layers),
+                    include_mf=self.include_mf, mf_embed=self.mf_embed,
+                    dropout=self.dropout,
+                    table_placement=self.table_placement)
+
     def build(self):
         user = Input(shape=(1,), dtype=torch.int32, name="user")
         item = Input(shape=(1,), dtype=torch.int32, name="item")

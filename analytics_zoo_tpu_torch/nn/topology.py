@@ -26,6 +26,7 @@ class KerasNet(Layer):
         super().__init__(**kw)
         self._estimator = None          # created by compile()
         self._pending_init = None       # set_initial_weights before it
+        self._ckpt_dir = None           # set_checkpoint before it
 
     def __getstate__(self):
         """A copy (``copy.deepcopy``, pickle) carries the net's weights,
@@ -65,15 +66,18 @@ class KerasNet(Layer):
 
     # -- training facade (delegates to train.Estimator) -------------------
     def compile(self, optimizer, loss, metrics=None, device=None,
-                sharding: str = "dp"):
+                sharding: str = "dp", compute_dtype: Optional[str] = None,
+                grad_accum_steps: int = 1):
         """Configure training: ``optimizer`` / ``loss`` / ``metrics`` take
         Keras names or objects; ``device`` defaults to the context's,
-        else ``cuda``.  Re-compiling keeps the live weights (they live in
-        this net); weights staged by ``set_initial_weights`` — before this
-        call, or on the previous estimator and not yet applied — carry
-        over.  ``sharding`` is "dp" (one device here); the JAX package's
-        other regimes (tp / ep / sp / pp) raise until the multi-GPU
-        slice."""
+        else ``cuda``; ``compute_dtype`` ("bfloat16") and
+        ``grad_accum_steps`` go to the ``Estimator``.  Re-compiling keeps
+        the live weights (they live in this net); weights staged by
+        ``set_initial_weights`` — before this call, or on the previous
+        estimator and not yet applied — carry over, and so does a
+        ``set_checkpoint`` made before it.  ``sharding`` is "dp" (one
+        device here); the JAX package's other regimes (tp / ep / sp / pp)
+        raise until the multi-GPU slice."""
         from analytics_zoo_tpu_torch.train.estimator import Estimator
 
         if sharding != "dp":
@@ -84,12 +88,16 @@ class KerasNet(Layer):
 
         prev = self._estimator
         self._estimator = Estimator(self, optimizer=optimizer, loss=loss,
-                                    metrics=metrics, device=device)
+                                    metrics=metrics, device=device,
+                                    compute_dtype=compute_dtype,
+                                    grad_accum_steps=grad_accum_steps)
         carried = prev._initial_weights if prev is not None else None
         if self._pending_init is not None:
             carried, self._pending_init = self._pending_init, None
         if carried is not None:
             self._estimator.set_initial_weights(carried)
+        if self._ckpt_dir is not None:
+            self._estimator.set_checkpoint(self._ckpt_dir)
         return self
 
     def set_initial_weights(self, params, state=None):
@@ -108,10 +116,45 @@ class KerasNet(Layer):
                                "fit/evaluate")
         return self._estimator
 
+    def set_checkpoint(self, path: str, over_write: bool = True):
+        """Snapshot every epoch under ``path`` (before or after
+        ``compile``); ``fit(resume=True)`` continues from there."""
+        self._ckpt_dir = path
+        if self._estimator is not None:
+            self._estimator.set_checkpoint(path, over_write=over_write)
+        return self
+
+    # -- persistence ------------------------------------------------------
+    def save_weights(self, path: str, params=None, state=None) -> None:
+        """``{"params", "state"}`` in the JAX package's archive format
+        (``train/checkpoint.py``); ``params`` defaults to this net's
+        weights."""
+        from analytics_zoo_tpu_torch.train.checkpoint import save_pytree
+
+        save_pytree(path, {"params": self.params() if params is None
+                           else params, "state": state or {}})
+
+    def load_weights(self, path: str):
+        """Load an archive written by ``save_weights`` (of either package)
+        into this net, by key path, building it first from its declared
+        input shapes if need be; returns its ``(params, state)``."""
+        from analytics_zoo_tpu_torch.convert import load_archive_params
+        from analytics_zoo_tpu_torch.core.context import get_zoo_context
+        from analytics_zoo_tpu_torch.train.checkpoint import load_pytree
+
+        tree = load_pytree(path)
+        if getattr(self, "_output_shape", None) is None:
+            self.build(torch.Generator().manual_seed(
+                get_zoo_context().config.seed))
+        load_archive_params(self, tree["params"])
+        return tree["params"], tree.get("state", {})
+
     def fit(self, x, y=None, batch_size: int = 32,
             nb_epoch: Optional[int] = None, validation_data=None,
             epochs: Optional[int] = None, **kw):
-        """``nb_epoch`` and ``epochs`` are aliases; pass one of them."""
+        """``nb_epoch`` and ``epochs`` are aliases; pass one of them.
+        Other keywords (``resume=True``, triggers) go to
+        ``Estimator.fit``."""
         if nb_epoch is not None and epochs is not None:
             raise ValueError(
                 "pass either nb_epoch= or epochs= (aliases), not both")

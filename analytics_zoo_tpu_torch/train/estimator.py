@@ -11,31 +11,63 @@ card (``ops.embedding_bag``).
 What carries over from the JAX design:
 
 - **Shuffle.** Host arrays are permuted each epoch by
-  ``np.random.RandomState(ZooConfig.seed)``, reset at every ``fit``, so
-  the port replays the JAX package's batches exactly.  The last partial
-  batch is dropped, with a warning.
+  ``np.random.RandomState(ZooConfig.seed)``, reset at every ``fit``
+  without ``resume``, so the port replays the JAX package's batches
+  exactly.  The last partial batch is dropped, with a warning.
 - **Data paths** (``last_data_path``): host numpy arrays are gathered per
-  batch on the host and copied to the device (``host_prefetch``); tensors
-  are moved to the device once and every epoch's permutation and gathers
-  run there (``device_resident``); a ``FeatureSet`` takes one of the two
-  by its cache level and ``ZooConfig.data_device_budget_bytes``.
+  batch on a prefetch thread into pinned buffers and copied on a side
+  stream (``host_prefetch``, ``train/prefetch.py``, ``data_prefetch``
+  batches ahead); tensors are moved to the device once and every epoch's
+  permutation and gathers run there (``device_resident``); a
+  ``FeatureSet`` takes one of the two by its cache level and
+  ``ZooConfig.data_device_budget_bytes``.
+- **Mixed precision.** ``compute_dtype="bfloat16"`` runs the forward and
+  backward on bf16 copies of every float parameter and float input
+  (``torch.func.functional_call``), LayerNorm, GELU and softmax included,
+  as the JAX package casts its tree; the f32 master vector and the
+  optimizer state stay f32, the predictions come back to f32 for the
+  loss, and the regularizers read the f32 masters.  Not ``autocast``,
+  which would keep LayerNorm and softmax in f32.
+- **Gradient accumulation** (``grad_accum_steps``) wraps the optimizer in
+  ``optimizers.multi_steps`` (optax.MultiSteps); clipping sits inside it.
+- **Freezing** (``nn.net.GraphNet.freeze``): a frozen top-level layer's
+  update is zero while its optimizer moments go on updating, as in the
+  JAX step; the frozen set is read at every ``fit``.
 - **NaN/Inf guard.** A step whose loss is not finite leaves the
   parameters and the optimizer state as they were (``torch.where`` on
   the device) and is counted; ``ZooConfig.nan_policy`` is applied at the
-  epoch boundary.  The epoch loss is the mean over the finite steps.
+  epoch boundary, and ``rollback`` restores the last checkpoint and
+  scales every later update by a device scalar, ``lr_scale``.
 - **No per-step host reads.** The guard's counters and the loss sums
   stay on the device and are read back once per epoch.
+- **Checkpoints and resume** (``set_checkpoint``, ``fit(resume=True)``,
+  ``train/checkpoint.py``): a snapshot holds the parameters (the JAX
+  tree), the flat optimizer state, and ``meta`` — the step and epoch
+  counters, ``lr_scale``, the pickled host ``RandomState`` at the
+  snapshot and at its epoch's start, the dropout generator's state
+  (``torch_rng``) and the epoch's loss and guard accumulators.  A
+  SIGTERM during ``fit`` flushes one synchronous checkpoint at the next
+  step boundary and raises ``TrainingPreempted``; a resumed host-array
+  run redraws the interrupted epoch's permutation and skips the steps
+  already trained, landing on the uninterrupted run's trajectory (the
+  other paths resume at epoch boundaries).  A failing epoch is retried
+  from the last checkpoint (``failure_retry_times`` within
+  ``failure_retry_interval_s``).
 
-Checkpoints, resume, TensorBoard, the stream tier, gradient accumulation,
-mixed precision and multi-GPU are not ported yet.
+TensorBoard, the stream tier, the distributed checkpoint and multi-GPU
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
+import pickle
+import signal
+import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,10 +75,15 @@ import torch
 from analytics_zoo_tpu_torch.core.context import (ZooContext, get_zoo_context,
                                                   resolve_device)
 from analytics_zoo_tpu_torch.core.profiling import TIMERS
-from analytics_zoo_tpu_torch.core.triggers import Trigger, TriggerState
+from analytics_zoo_tpu_torch.core.triggers import (EveryEpoch, Trigger,
+                                                   TriggerState)
 from analytics_zoo_tpu_torch.nn import metrics as metrics_lib
 from analytics_zoo_tpu_torch.nn import objectives
+from analytics_zoo_tpu_torch.robust import (RetryPolicy, TrainingPreempted,
+                                            faults)
+from analytics_zoo_tpu_torch.train import checkpoint as ckpt_lib
 from analytics_zoo_tpu_torch.train import optimizers as optim_lib
+from analytics_zoo_tpu_torch.train import prefetch as prefetch_lib
 
 logger = logging.getLogger("analytics_zoo_tpu_torch.train")
 
@@ -74,11 +111,45 @@ def _pair_perm(pairs, n):
     return np.concatenate([idx, np.full(n % 2, n - 1, idx.dtype)])
 
 
+def _compute_dtype(name) -> Optional[torch.dtype]:
+    """``None`` for f32 compute, else the torch float dtype named."""
+    if name in (None, "float32"):
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype must name a float dtype, got "
+                         f"{name!r}")
+    return dtype
+
+
+def _to_f32(preds):
+    if isinstance(preds, (list, tuple)):
+        return type(preds)(_to_f32(p) for p in preds)
+    return preds.float() if preds.is_floating_point() else preds
+
+
+def _has_float(arrays) -> bool:
+    return any(np.issubdtype(a.dtype, np.floating) for a in arrays)
+
+
+def _pickled(state) -> np.ndarray:
+    return np.frombuffer(pickle.dumps(state), np.uint8)
+
+
+def _unpickled(meta, key):
+    a = meta.get(key)
+    if a is None or not np.asarray(a).size:
+        return None
+    return pickle.loads(np.asarray(a).tobytes())
+
+
 class Estimator:
     """fit / evaluate / predict over a ``KerasNet`` on one device.
 
     ``device`` defaults to the context's, else ``cuda`` (raising when
     there is none); pass ``device="cpu"`` to train on the CPU.
+    ``compute_dtype`` defaults to ``ZooConfig.compute_dtype``;
+    ``grad_accum_steps`` > 1 applies one update per that many batches.
     """
 
     def __init__(self, model, optimizer="adam", loss="mse",
@@ -86,19 +157,27 @@ class Estimator:
                  ctx: Optional[ZooContext] = None,
                  grad_clip_norm: Optional[float] = None,
                  grad_clip_value: Optional[float] = None,
-                 device=None):
+                 device=None, compute_dtype: Optional[str] = None,
+                 grad_accum_steps: int = 1):
         self.model = model
         tx = optim_lib.get(optimizer)
+        # clip wraps the base optimizer inside the accumulation, so it
+        # sees the accumulated mean gradient
         if grad_clip_norm is not None:
             tx = optim_lib.chain(optim_lib.clip_by_global_norm(grad_clip_norm),
                                  tx)
         elif grad_clip_value is not None:
             tx = optim_lib.chain(optim_lib.clip(grad_clip_value), tx)
+        if grad_accum_steps > 1:
+            tx = optim_lib.multi_steps(tx, grad_accum_steps)
         self.tx = tx
+        self.grad_accum_steps = grad_accum_steps
         self.loss_fn = objectives.get(loss)
         self.metrics = [metrics_lib.get(m) for m in (metrics or [])]
         self.ctx = ctx or get_zoo_context()
         self.device = resolve_device(device)
+        self.compute_dtype = _compute_dtype(
+            compute_dtype or self.ctx.config.compute_dtype)
 
         self.opt_state: Optional[List[torch.Tensor]] = None
         self.global_step = 0
@@ -122,6 +201,43 @@ class Estimator:
         # guard's [bad steps, consecutive bad, max consecutive bad]
         self._loss_acc: Optional[torch.Tensor] = None
         self._guard: Optional[torch.Tensor] = None
+        # checkpoints and resilience: the NaN-rollback learning-rate
+        # scale (host value, and its device copy the step reads), a
+        # restore waiting for the model to be built, the resume manifest
+        # (epoch, in-epoch step, epoch-start host rng state, the epoch's
+        # accumulators) and the preemption request
+        self._ckpt_mgr: Optional[ckpt_lib.CheckpointManager] = None
+        self._ckpt_trigger: Trigger = EveryEpoch()
+        self._lr_scale = 1.0
+        self._lr_scale_t: Optional[torch.Tensor] = None
+        self._restore_pending = False
+        self._pending_resume = None
+        self._preempt = threading.Event()
+        self._sigterm_handled = False
+
+    # ------------------------------------------------------------------
+    # configuration
+    # ------------------------------------------------------------------
+    def set_checkpoint(self, path: str, over_write: bool = True,
+                       trigger: Optional[Trigger] = None, keep: int = 3):
+        """Snapshots under ``path`` when ``trigger`` fires (default: every
+        epoch), the newest ``keep`` kept.  ``over_write`` is accepted for
+        the reference's signature: step-numbered snapshots never collide
+        with older ones."""
+        self._ckpt_mgr = ckpt_lib.CheckpointManager(
+            path, keep=keep, verify=self.ctx.config.ckpt_verify)
+        if trigger is not None:
+            self._ckpt_trigger = trigger
+        return self
+
+    def load_checkpoint(self, directory: str):
+        """Restore the newest intact snapshot in ``directory`` (at once
+        when the model is built, else at its build)."""
+        self.set_checkpoint(directory)
+        self._restore_pending = True
+        if self._built:
+            self._ensure_built([])
+        return self
 
     # ------------------------------------------------------------------
     # weights
@@ -169,6 +285,9 @@ class Estimator:
         numel = sum(p.numel() for p in self._trainable())
         if self.opt_state is None or self._state_numel != numel:
             self._init_opt_state()
+        if self._restore_pending:
+            self._restore_pending = False
+            self._restore_checkpoint()
 
     def _init_opt_state(self):
         flat = self._flat(self._trainable())
@@ -183,29 +302,69 @@ class Estimator:
         return torch.cat([t.detach().reshape(-1).to(torch.float32)
                           for t in tensors])
 
+    def _update_mask(self, params) -> Optional[torch.Tensor]:
+        """True where the flat vector's element may move: False over the
+        parameters of the model's frozen top-level layers; None when
+        nothing is frozen."""
+        frozen = getattr(self.model, "_frozen", None)
+        if not frozen:
+            return None
+        held = {id(p) for name in frozen
+                for p in self.model.subtree(name).parameters()}
+        return torch.cat([torch.full((p.numel(),), id(p) not in held,
+                                     dtype=torch.bool, device=self.device)
+                          for p in params])
+
     # ------------------------------------------------------------------
-    # the train step
+    # the forward and the train step
     # ------------------------------------------------------------------
+    def _forward_fn(self) -> Callable:
+        """The model's forward at ``compute_dtype``: over cast copies of
+        every float parameter and float input, answering in f32; the
+        model itself at f32.  The copies are taken now: call it again
+        after the parameters change."""
+        cd = self.compute_dtype
+        if cd is None:
+            return self.model
+        cast = {n: p.to(cd) if p.is_floating_point() else p
+                for n, p in self.model.named_parameters()}
+
+        def run(*xs):
+            xs = tuple(x.to(cd) if x.is_floating_point() else x for x in xs)
+            return _to_f32(torch.func.functional_call(self.model, cast, xs))
+
+        return run
+
     def _objective(self, xs, y):
-        preds = self.model(*xs)
+        preds = self._forward_fn()(*xs)
         loss = self.loss_fn(y, preds)
         reg = getattr(self.model, "regularization_loss", None)
         if reg is not None:
+            # the f32 masters, whatever the compute dtype
             penalty = reg()
             if isinstance(penalty, torch.Tensor) or penalty != 0.0:
                 loss = loss + penalty
         return loss
 
-    def _train_step(self, params, xs, y) -> None:
+    def _train_step(self, params, xs, y, mask=None,
+                    nan_loss: bool = False) -> None:
         """One step: forward, backward, update — all queued on the device,
-        no host read.  A non-finite loss keeps every parameter and every
-        optimizer-state tensor as it was."""
+        no host read.  The update is scaled by ``lr_scale`` and zero where
+        ``mask`` is False.  A non-finite loss keeps every parameter and
+        every optimizer-state tensor as it was (``nan_loss``: the
+        ``estimator.step`` fault on a batch without float arrays makes it
+        so)."""
         loss = self._objective(xs, y)
+        if nan_loss:
+            loss = loss * float("nan")
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         g = self._flat([gr if gr is not None else torch.zeros_like(p)
                         for gr, p in zip(grads, params)])
         p = self._flat(params)
         updates, new_state = self.tx.update(g, self.opt_state, p)
+        updates = updates * self._lr_scale_t
+        if mask is not None:
+            updates = torch.where(mask, updates, 0.0)
         loss = loss.detach()
         ok = torch.isfinite(loss)
         p_new = torch.where(ok, p + updates, p)
@@ -224,10 +383,17 @@ class Estimator:
             [torch.where(ok, loss, torch.zeros_like(loss)),
              ok.to(torch.float32)])
 
-    def _fresh_accumulators(self):
-        self._loss_acc = torch.zeros(2, dtype=torch.float32,
-                                     device=self.device)
-        self._guard = torch.zeros(3, dtype=torch.int32, device=self.device)
+    def _fresh_accumulators(self, saved=None):
+        """Zeroed epoch accumulators, or ``saved`` ones (a resume in the
+        middle of an epoch), and the device copy of ``lr_scale``."""
+        loss_acc, guard = saved if saved is not None else (
+            np.zeros(2, np.float32), np.zeros(3, np.int32))
+        self._loss_acc = torch.as_tensor(loss_acc, dtype=torch.float32,
+                                         device=self.device)
+        self._guard = torch.as_tensor(guard, dtype=torch.int32,
+                                      device=self.device)
+        self._lr_scale_t = torch.tensor(self._lr_scale, dtype=torch.float32,
+                                        device=self.device)
 
     def _read_epoch(self):
         """The one host read of an epoch: (mean finite loss, bad steps,
@@ -238,12 +404,14 @@ class Estimator:
         return mean, int(bad), int(max_consec)
 
     def _check_nan_guard(self, bad: int, max_consec: int,
-                         steps: int) -> None:
-        """Epoch-boundary NaN policy, the JAX package's rules."""
+                         steps: int) -> bool:
+        """Epoch-boundary NaN policy, the JAX package's rules.  True when
+        it rolled training back to the last checkpoint (the caller re-runs
+        from ``finished_epochs``)."""
         cfg = self.ctx.config
         TIMERS.incr("robust/guard_check")
         if bad == 0:
-            return
+            return False
         TIMERS.incr("robust/nan_steps", bad)
         logger.warning("%d/%d steps had a non-finite loss (max %d "
                        "consecutive); nan_policy=%s", bad, steps,
@@ -256,13 +424,27 @@ class Estimator:
                 f"device, params remain finite")
         TIMERS.incr("robust/nan_skipped", bad)
         if max_consec < cfg.max_bad_steps:
-            return
+            return False
         if cfg.nan_policy == "rollback":
-            raise FloatingPointError(
-                f"{max_consec} consecutive non-finite steps >= "
-                f"max_bad_steps={cfg.max_bad_steps} but no checkpoint to "
-                f"roll back to (checkpoints are not ported; the learning "
-                f"rate would back off by {cfg.nan_backoff_factor})")
+            if self._ckpt_mgr is not None:
+                self._ckpt_mgr.wait(raise_errors=False)
+            if (self._ckpt_mgr is None
+                    or self._ckpt_mgr.latest_step() is None):
+                raise FloatingPointError(
+                    f"{max_consec} consecutive non-finite steps >= "
+                    f"max_bad_steps={cfg.max_bad_steps} but no checkpoint "
+                    "to roll back to (set_checkpoint first)")
+            # back off from the live scale: the restore resets it to the
+            # checkpoint's, and repeated rollbacks must compound
+            backed_off = self._lr_scale * cfg.nan_backoff_factor
+            TIMERS.incr("robust/nan_rollbacks")
+            logger.warning(
+                "rolling back to the last checkpoint after %d consecutive "
+                "non-finite steps; learning-rate scale backed off to %.4g",
+                max_consec, backed_off)
+            self._restore_checkpoint()
+            self._lr_scale = backed_off
+            return True
         raise FloatingPointError(
             f"{max_consec} consecutive non-finite steps >= "
             f"max_bad_steps={cfg.max_bad_steps} under nan_policy=skip — "
@@ -275,14 +457,19 @@ class Estimator:
             validation_data=None, end_trigger: Optional[Trigger] = None,
             shuffle: bool = True, verbose: bool = True,
             validation_trigger: Optional[Trigger] = None,
-            validation_batch_size: Optional[int] = None):
+            validation_batch_size: Optional[int] = None,
+            resume: bool = False):
         """Train until ``epochs`` epochs are finished in all (a second
         ``fit`` continues from ``finished_epochs``, as in the JAX package).
 
         ``x`` — an array or a list of arrays (numpy: host batches;
         tensors: device-resident), or a ``FeatureSet`` of ``(inputs...,
         label)``.  ``validation_data=(x, y)`` is evaluated at each epoch's
-        end, or when ``validation_trigger`` fires.
+        end, or when ``validation_trigger`` fires.  ``resume`` continues
+        from the newest intact checkpoint (``set_checkpoint``, else
+        ``ZooConfig.checkpoint_dir``), and starts fresh when there is
+        none.  A SIGTERM flushes a checkpoint and raises
+        ``TrainingPreempted``.
         """
         from analytics_zoo_tpu_torch.data.featureset import FeatureSet
         from analytics_zoo_tpu_torch.nn.layers.core import Dropout
@@ -293,9 +480,13 @@ class Estimator:
                              f"got {cfg.nan_policy!r}")
         self._val_trigger = validation_trigger
         self._val_batch = validation_batch_size
-        # a fit replays the configured shuffle stream from its seed
-        self._host_rng = np.random.RandomState(cfg.seed)
+        if not (resume and self._try_resume()):
+            # a fit replays the configured shuffle stream from its seed
+            self._host_rng = np.random.RandomState(cfg.seed)
+            self._pending_resume = None
+        self._preempt.clear()
         dropouts = [m for m in self.model.modules() if isinstance(m, Dropout)]
+        restore_sig = self._install_preempt_handler()
         try:
             if isinstance(x, FeatureSet):
                 return self._fit_featureset(x, batch_size, epochs,
@@ -305,6 +496,7 @@ class Estimator:
                                     validation_data, end_trigger, shuffle,
                                     verbose, dropouts)
         finally:
+            restore_sig()
             for m in dropouts:
                 m.generator = None
             self.model.train(False)
@@ -328,42 +520,78 @@ class Estimator:
                 shuffle, verbose, dropouts)
         self.last_data_path = "host_prefetch"
         self.last_data_path_reason = "host array inputs"
-        xs = [np.asarray(a) for a in xs]
-        y = np.asarray(y)
+        arrays = [np.asarray(a) for a in xs] + [np.asarray(y)]
         pair = getattr(self.loss_fn, "batch_structured", False)
+        depth = int(self.ctx.config.data_prefetch)
+        stager = prefetch_lib.HostStager(self.device, slots=depth + 2)
+        # K > 1: K batches gathered and copied as one chunk, run as K
+        # steps (the same step sequence as K = 1)
         k = max(1, int(self.ctx.config.steps_per_execution))
         n_chunks = steps // k if k > 1 else 0
+        spans = ([(c * k, (c + 1) * k) for c in range(n_chunks)]
+                 + [(s, s + 1) for s in range(n_chunks * k, steps)])
 
-        def batches(epoch):
+        def prep(item):
+            s0, s1, rows = item
+            nan = self._step_fault(arrays)
+            tensors, event = stager.stage(arrays, rows, nan=nan)
+            return s0, s1, tensors, event, nan and not _has_float(arrays)
+
+        def batches(epoch, start):
+            """The epoch's batches from in-epoch step ``start`` on; its
+            permutation is drawn from the host rng on the first one."""
             if not shuffle:
                 perm = np.arange(n)
             elif pair:
                 perm = _pair_perm(self._host_rng.permutation(n // 2), n)
             else:
                 perm = self._host_rng.permutation(n)
-            for c in range(n_chunks):
-                rows = perm[c * k * batch_size:(c + 1) * k * batch_size]
-                chunk = [self._to_device(a[rows]) for a in xs + [y]]
-                for s in range(k):
-                    yield [t[s * batch_size:(s + 1) * batch_size]
-                           for t in chunk]
-            for s in range(n_chunks * k, steps):
-                rows = perm[s * batch_size:(s + 1) * batch_size]
-                yield [self._to_device(a[rows]) for a in xs + [y]]
+            items = ((s0, s1, perm[s0 * batch_size:s1 * batch_size])
+                     for s0, s1 in spans if s1 > start)
+            it = prefetch_lib.prefetch(items, prep, depth=depth)
+            try:
+                for s0, s1, tensors, event, nan_loss in it:
+                    stager.ready(event)
+                    for s in range(max(s0, start), s1):
+                        off = (s - s0) * batch_size
+                        yield [t[off:off + batch_size]
+                               for t in tensors], nan_loss
+            finally:
+                if hasattr(it, "close"):
+                    it.close()
 
         return self._epochs(batches, steps, batch_size, epochs,
-                            validation_data, end_trigger, verbose, dropouts)
+                            validation_data, end_trigger, verbose, dropouts,
+                            mid_epoch=True)
 
     def _fit_resident(self, xs, y, batch_size, steps, epochs,
                       validation_data, end_trigger, shuffle, verbose,
                       dropouts):
         """Every epoch's permutation and every batch's gather on the
-        device: no host-to-device bytes per batch."""
+        device: no host-to-device bytes per batch.  Resume and preemption
+        act at epoch boundaries, as on the JAX package's one-dispatch
+        resident epochs."""
         n = int(xs[0].shape[0])
         pair = getattr(self.loss_fn, "batch_structured", False)
         seed = self.ctx.config.seed
 
-        def batches(epoch):
+        def poisoned(arrays):
+            """The epoch's arrays, float values NaN at the rows an
+            ``estimator.resident_nan_rows`` fault names."""
+            plan = faults.fire("estimator.resident_nan_rows")
+            if plan is None or plan.action != "nan":
+                return arrays
+            rows = torch.as_tensor(plan.payload, device=self.device)
+            out = []
+            for a in arrays:
+                if a.is_floating_point():
+                    a = a.clone()
+                    a[rows] = float("nan")
+                out.append(a)
+            return out
+
+        def batches(epoch, start):
+            arrays = poisoned(xs + [y])
             perm = None
             if shuffle:
                 gen = torch.Generator(device=self.device).manual_seed(
@@ -375,13 +603,14 @@ class Estimator:
             for s in range(steps):
                 if perm is None:
                     yield [a[s * batch_size:(s + 1) * batch_size]
-                           for a in xs + [y]]
+                           for a in arrays], False
                 else:
                     idx = perm[s * batch_size:(s + 1) * batch_size]
-                    yield [a.index_select(0, idx) for a in xs + [y]]
+                    yield [a.index_select(0, idx) for a in arrays], False
 
         return self._epochs(batches, steps, batch_size, epochs,
-                            validation_data, end_trigger, verbose, dropouts)
+                            validation_data, end_trigger, verbose, dropouts,
+                            mid_epoch=False)
 
     def _fit_featureset(self, fs, batch_size, epochs, validation_data,
                         end_trigger, shuffle, verbose, dropouts):
@@ -413,14 +642,33 @@ class Estimator:
         steps = self._steps_per_epoch(len(fs), batch_size)
         peek = next(iter(fs.batches(batch_size)))
         self._ensure_built(list(peek[:-1]))
+        depth = int(cfg.data_prefetch)
+        stager = prefetch_lib.HostStager(self.device, slots=depth + 2)
 
-        def batches(epoch):
-            for b in fs.batches(batch_size, shuffle=shuffle,
-                                drop_remainder=True):
-                yield [self._to_device(a) for a in b]
+        def prep(batch):
+            arrays = [np.asarray(a) for a in batch]
+            nan = self._step_fault(arrays)
+            tensors, event = stager.stage(arrays, np.arange(len(arrays[0])),
+                                          nan=nan)
+            return tensors, event, nan and not _has_float(arrays)
 
+        def batches(epoch, start):
+            it = prefetch_lib.prefetch(
+                fs.batches(batch_size, shuffle=shuffle, drop_remainder=True),
+                prep, depth=depth)
+            try:
+                for tensors, event, nan_loss in it:
+                    stager.ready(event)
+                    yield tensors, nan_loss
+            finally:
+                if hasattr(it, "close"):
+                    it.close()
+
+        # the FeatureSet owns its shuffle stream, so resume acts at epoch
+        # boundaries
         return self._epochs(batches, steps, batch_size, epochs,
-                            validation_data, end_trigger, verbose, dropouts)
+                            validation_data, end_trigger, verbose, dropouts,
+                            mid_epoch=False)
 
     def _steps_per_epoch(self, n: int, batch_size: int) -> int:
         steps = n // batch_size
@@ -435,6 +683,19 @@ class Estimator:
                 "dropped", dropped, n, batch_size)
         return steps
 
+    @staticmethod
+    def _step_fault(arrays) -> bool:
+        """The ``estimator.step`` chaos hook, once per prepared batch: a
+        planned exception raises (a pipeline failure); ``nan`` returns
+        True (a numerical blow-up: NaN float arrays, or a NaN loss for a
+        batch without float arrays)."""
+        plan = faults.fire("estimator.step")
+        if plan is None:
+            return False
+        if plan.exc is not None:
+            raise plan.exc
+        return plan.action == "nan"
+
     def _to_device(self, a) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cuda":
@@ -442,50 +703,124 @@ class Estimator:
         return t.to(self.device, non_blocking=True)
 
     def _epochs(self, batches, steps, batch_size, epochs, validation_data,
-                end_trigger, verbose, dropouts):
-        """The epoch loop shared by every data path: ``batches(epoch)``
-        yields one list ``[inputs..., label]`` of device tensors per
-        step."""
+                end_trigger, verbose, dropouts, mid_epoch):
+        """The epoch loop shared by every data path: ``batches(epoch,
+        start)`` yields, per step, a list ``[inputs..., label]`` of device
+        tensors and whether the step's loss is to be made NaN (a fault),
+        from in-epoch step ``start`` on (always 0 unless ``mid_epoch``:
+        the path can resume inside an epoch).  Preemption,
+        the NaN policy's rollback, checkpoints and the failure retry
+        from the last checkpoint live here."""
+        cfg = self.ctx.config
+        retry = RetryPolicy.from_config(
+            cfg, max_attempts=cfg.failure_retry_times,
+            window_s=cfg.failure_retry_interval_s,
+            name="estimator_fit").state()
+        if not mid_epoch and self._pending_resume is not None:
+            if self._pending_resume[1] > 0:
+                logger.warning("the %s path resumes at epoch boundaries; "
+                               "dropping the mid-epoch resume marker",
+                               self.last_data_path)
+            self._pending_resume = None
         epoch = self.finished_epochs
         while epoch < epochs:
-            t0 = time.time()
-            self._fresh_accumulators()
-            self.model.train(True)
-            for m in dropouts:
-                m.generator = self._dropout_gen
-            params = self._trainable()
-            done = 0
-            for batch in batches(epoch):
-                self._train_step(params, batch[:-1], batch[-1])
-                done += 1
-                self.global_step += 1
-                self._maybe_midepoch_validation(validation_data, epoch + 1,
-                                                batch_size)
-            mean_loss, bad, max_consec = self._read_epoch()
-            self._check_nan_guard(bad, max_consec, done)
-            epoch += 1
-            self.finished_epochs = epoch
-            dt = time.time() - t0
-            rec = {"epoch": epoch, "loss": mean_loss,
-                   "throughput": steps * batch_size / dt}
-            tstate = TriggerState(epoch=epoch, iteration=self.global_step,
-                                  epoch_finished=True, loss=mean_loss)
-            if validation_data is not None and (
-                    self._val_trigger is None or self._val_trigger(tstate)):
-                val = (self._last_val_result
-                       if self._last_val_iter == self.global_step else
-                       self.evaluate(validation_data[0], validation_data[1],
-                                     batch_size=self._val_batch or batch_size))
-                rec.update({f"val_{k}": v for k, v in val.items()})
-                tstate.score = val.get(
-                    self.metrics[0].name if self.metrics else "loss")
-            self.history.append(rec)
-            if verbose:
-                logger.info("epoch %d: %s", epoch,
-                            {k: v for k, v in rec.items() if k != "epoch"})
-            if end_trigger is not None and end_trigger(tstate):
-                break
+            it = None
+            try:
+                t0 = time.time()
+                start, saved = 0, None
+                pending, self._pending_resume = self._pending_resume, None
+                if pending is not None and pending[0] == epoch:
+                    # rewind the host rng to the interrupted epoch's start
+                    # so its permutation is redrawn, then skip the steps
+                    # already trained
+                    _, start, rng_state, saved = pending
+                    if rng_state is not None:
+                        self._host_rng.set_state(rng_state)
+                    if start:
+                        logger.info("resuming epoch %d at in-epoch step %d",
+                                    epoch + 1, start)
+                epoch_rng_state = self._host_rng.get_state()
+                self._fresh_accumulators(saved if start else None)
+                if not mid_epoch:
+                    self._maybe_preempt(epoch, 0, epoch_rng_state)
+                self.model.train(True)
+                for m in dropouts:
+                    m.generator = self._dropout_gen
+                params = self._trainable()
+                mask = self._update_mask(params)
+                done = start
+                it = batches(epoch, start)
+                for batch, nan_loss in it:
+                    if mid_epoch:
+                        # before the step: a flush never marks a finished
+                        # epoch as interrupted
+                        self._maybe_preempt(epoch, done, epoch_rng_state)
+                    self._train_step(params, batch[:-1], batch[-1], mask,
+                                     nan_loss)
+                    done += 1
+                    self.global_step += 1
+                    self._maybe_midepoch_validation(validation_data,
+                                                    epoch + 1, batch_size)
+                mean_loss, bad, max_consec = self._read_epoch()
+                if self._check_nan_guard(bad, max_consec, done - start):
+                    epoch = self.finished_epochs        # rolled back
+                    continue
+                epoch += 1
+                self.finished_epochs = epoch
+                if self._epoch_end(epoch, mean_loss, time.time() - t0,
+                                   (done - start) * batch_size,
+                                   validation_data,
+                                   batch_size, verbose, end_trigger):
+                    break
+            except (KeyboardInterrupt, TrainingPreempted,
+                    FloatingPointError):
+                # preemption and the NaN policy's raise surface, never
+                # retried
+                if it is not None:
+                    it.close()
+                raise
+            except Exception as e:
+                if it is not None:
+                    it.close()
+                if self._ckpt_mgr is not None:
+                    # land an in-flight write so the retry sees it
+                    self._ckpt_mgr.wait(raise_errors=False)
+                if (self._ckpt_mgr is None
+                        or self._ckpt_mgr.latest_step() is None
+                        or not retry.record_failure()):
+                    raise
+                logger.warning("step failed (%s); retry %s from checkpoint",
+                               e, retry.describe())
+                retry.backoff()
+                self._restore_checkpoint()
+                epoch = self.finished_epochs
+        if self._ckpt_mgr is not None:
+            self._ckpt_mgr.wait()
         return self.history
+
+    def _epoch_end(self, epoch, mean_loss, dt, rows, validation_data,
+                   batch_size, verbose, end_trigger) -> bool:
+        """History row, validation, checkpoint trigger; True when
+        ``end_trigger`` fired."""
+        rec = {"epoch": epoch, "loss": mean_loss, "throughput": rows / dt}
+        tstate = TriggerState(epoch=epoch, iteration=self.global_step,
+                              epoch_finished=True, loss=mean_loss)
+        if validation_data is not None and (
+                self._val_trigger is None or self._val_trigger(tstate)):
+            val = (self._last_val_result
+                   if self._last_val_iter == self.global_step else
+                   self.evaluate(validation_data[0], validation_data[1],
+                                 batch_size=self._val_batch or batch_size))
+            rec.update({f"val_{k}": v for k, v in val.items()})
+            tstate.score = val.get(
+                self.metrics[0].name if self.metrics else "loss")
+        self.history.append(rec)
+        if verbose:
+            logger.info("epoch %d: %s", epoch,
+                        {k: v for k, v in rec.items() if k != "epoch"})
+        if self._ckpt_mgr is not None and self._ckpt_trigger(tstate):
+            self._save_checkpoint()
+        return end_trigger is not None and end_trigger(tstate)
 
     def _maybe_midepoch_validation(self, validation_data, epoch: int,
                                    batch_size: int) -> None:
@@ -507,6 +842,162 @@ class Estimator:
         self.history.append(rec)
 
     # ------------------------------------------------------------------
+    # preemption and resume
+    # ------------------------------------------------------------------
+    def _try_resume(self) -> bool:
+        """``fit(resume=True)``: arm a restore of the newest intact
+        checkpoint (made once the model is built); with none, a fresh
+        start, never an error, so one command line serves the first
+        attempt and every restart."""
+        cfg = self.ctx.config
+        if self._ckpt_mgr is None and cfg.checkpoint_dir:
+            self.set_checkpoint(cfg.checkpoint_dir)
+        if self._ckpt_mgr is None or self._ckpt_mgr.latest_step() is None:
+            logger.info("fit(resume=True): no checkpoint found; "
+                        "starting fresh")
+            return False
+        self._restore_pending = True
+        TIMERS.incr("robust/auto_resume")
+        return True
+
+    def _install_preempt_handler(self) -> Callable[[], None]:
+        """SIGTERM → a final synchronous checkpoint at the next step
+        boundary.  Returns a callable restoring the previous handler.  A
+        no-op off the main thread, where ``signal.signal`` would raise."""
+        if threading.current_thread() is not threading.main_thread():
+            return lambda: None
+
+        def _on_sigterm(signum, frame):
+            logger.warning("SIGTERM received: flushing a final checkpoint "
+                           "at the next step boundary")
+            self._preempt.set()
+
+        try:
+            prev = signal.signal(signal.SIGTERM, _on_sigterm)
+        except (ValueError, OSError):
+            return lambda: None
+        self._sigterm_handled = True
+
+        def restore():
+            self._sigterm_handled = False
+            try:
+                signal.signal(signal.SIGTERM, prev)
+            except (ValueError, OSError, TypeError):
+                pass
+
+        return restore
+
+    def _maybe_preempt(self, epoch: int, in_epoch_step: int,
+                       epoch_rng_state) -> None:
+        """The per-step preemption check.  An ``estimator.preempt`` fault
+        requests one; its ``sigterm`` action sends the real signal to this
+        process, through the handler ``fit`` installed."""
+        plan = faults.fire("estimator.preempt")
+        if plan is not None:
+            if plan.action == "sigterm" and self._sigterm_handled:
+                os.kill(os.getpid(), signal.SIGTERM)
+            else:
+                self._preempt.set()
+        if not self._preempt.is_set():
+            return
+        step = self.global_step
+        if self._ckpt_mgr is not None:
+            self._ckpt_mgr.save(step, self._snapshot(
+                resume_epoch=epoch, in_epoch_step=in_epoch_step,
+                epoch_rng_state=epoch_rng_state))
+            TIMERS.incr("robust/preempt_flush")
+            logger.warning(
+                "preempted at global step %d (epoch %d, in-epoch step %d): "
+                "final synchronous checkpoint flushed; fit(resume=True) "
+                "continues here", step, epoch + 1, in_epoch_step)
+        else:
+            logger.warning("preempted at global step %d with no checkpoint "
+                           "manager set; training state is lost", step)
+        raise TrainingPreempted(
+            f"training preempted at global step {step}", step=step)
+
+    # ------------------------------------------------------------------
+    # checkpoint plumbing
+    # ------------------------------------------------------------------
+    def _snapshot(self, resume_epoch: Optional[int] = None,
+                  in_epoch_step: int = 0, epoch_rng_state=None):
+        """The full training state over the live tensors (the manager
+        copies them off): the JAX tree of parameters, the flat optimizer
+        state, and the resume manifest.  ``epoch_rng`` is the host rng at
+        the start of the (possibly interrupted) epoch, so a mid-epoch
+        resume redraws its permutation; ``torch_rng`` the dropout
+        generator's state at the same step boundary."""
+        if epoch_rng_state is None:
+            epoch_rng_state = self._host_rng.get_state()
+        meta = {"global_step": np.asarray(self.global_step),
+                "finished_epochs": np.asarray(self.finished_epochs),
+                "lr_scale": np.asarray(self._lr_scale, np.float32),
+                "resume_epoch": np.asarray(
+                    self.finished_epochs if resume_epoch is None
+                    else resume_epoch),
+                "in_epoch_step": np.asarray(in_epoch_step),
+                "data_path": np.asarray(self.last_data_path or "unset"),
+                "host_rng": _pickled(self._host_rng.get_state()),
+                "epoch_rng": _pickled(epoch_rng_state),
+                "torch_rng": self._dropout_gen.get_state()}
+        if in_epoch_step:
+            meta["loss_acc"] = self._loss_acc
+            meta["guard"] = self._guard
+        return {"params": self.model.params(), "state": {},
+                "opt_state": list(self.opt_state), "meta": meta}
+
+    def _save_checkpoint(self):
+        if self.ctx.config.async_checkpoint:
+            path = self._ckpt_mgr.save_async(self.global_step,
+                                             self._snapshot())
+        else:
+            path = self._ckpt_mgr.save(self.global_step, self._snapshot())
+        logger.info("checkpoint saved: %s", path)
+
+    def _restore_checkpoint(self):
+        """The newest intact snapshot into the live model, optimizer
+        state, counters and generators (the model must be built)."""
+        from analytics_zoo_tpu_torch.convert import load_archive_params
+
+        step, tree = self._ckpt_mgr.restore()
+        load_archive_params(self.model, tree["params"])
+        self.model.to(self.device)
+        opt = [torch.from_numpy(np.asarray(a)).to(self.device)
+               for a in tree["opt_state"]]
+        numel = sum(p.numel() for p in self._trainable())
+        if len(opt) != len(self.opt_state) or any(
+                a.shape != b.shape for a, b in zip(opt, self.opt_state)):
+            raise ValueError(
+                f"checkpoint step {step} holds an optimizer state of "
+                f"{[tuple(a.shape) for a in opt]}, not this estimator's "
+                f"({numel} trainable parameters)")
+        self.opt_state = opt
+        self._state_numel = numel
+        meta = tree["meta"]
+        self.global_step = int(meta["global_step"])
+        self.finished_epochs = int(meta["finished_epochs"])
+        self._lr_scale = float(meta.get("lr_scale", 1.0))
+        host = _unpickled(meta, "host_rng")
+        if host is not None:
+            self._host_rng = np.random.RandomState()
+            self._host_rng.set_state(host)
+        if "torch_rng" in meta:
+            self._dropout_gen.set_state(torch.from_numpy(
+                np.asarray(meta["torch_rng"], np.uint8)))
+        # the resume manifest, armed whenever an epoch-start rng state was
+        # recorded: a flush on an epoch's first step comes after its
+        # permutation was drawn, so the restart must rewind even at step 0
+        r_step = int(meta.get("in_epoch_step", 0))
+        rng_state = _unpickled(meta, "epoch_rng")
+        saved = ((meta["loss_acc"], meta["guard"])
+                 if "loss_acc" in meta else None)
+        self._pending_resume = None
+        if r_step > 0 or rng_state is not None:
+            r_epoch = int(meta.get("resume_epoch", self.finished_epochs))
+            self._pending_resume = (r_epoch, r_step, rng_state, saved)
+        logger.info("restored checkpoint step %d", step)
+
+    # ------------------------------------------------------------------
     # evaluate / predict
     # ------------------------------------------------------------------
     def _rows(self, a, sl) -> torch.Tensor:
@@ -523,9 +1014,10 @@ class Estimator:
         self.model.train(False)
         agg = None
         with torch.inference_mode():
+            forward = self._forward_fn()
             for s in range(int(math.ceil(n / batch_size))):
                 sl = slice(s * batch_size, min((s + 1) * batch_size, n))
-                preds = self.model(*[self._rows(a, sl) for a in xs])
+                preds = forward(*[self._rows(a, sl) for a in xs])
                 by = self._rows(y, sl)
                 rows = sl.stop - sl.start
                 stats = {"loss": {"sum": self.loss_fn(by, preds) * rows,
@@ -567,9 +1059,10 @@ class Estimator:
         self.model.train(False)
         outs: Optional[List[List[np.ndarray]]] = None
         with torch.inference_mode():
+            forward = self._forward_fn()
             for s in range(int(math.ceil(n / batch_size))):
                 sl = slice(s * batch_size, min((s + 1) * batch_size, n))
-                preds = self.model(*[self._rows(a, sl) for a in xs])
+                preds = forward(*[self._rows(a, sl) for a in xs])
                 if not isinstance(preds, (list, tuple)):
                     preds = [preds]
                 if outs is None:

@@ -197,6 +197,37 @@ def clip(max_delta: float) -> Optimizer:
                                       s), "clip")
 
 
+def multi_steps(inner: Optimizer, every_k: int) -> Optimizer:
+    """``optax.MultiSteps(inner, every_k)`` (gradient accumulation), as
+    the JAX Estimator wraps its optimizer for ``grad_accum_steps``.
+
+    The state is ``[mini_step, gradient_step, acc, *inner state]``.  Each
+    step folds its gradient into the f32 running mean ``acc`` (``acc +
+    (g - acc) / (mini_step + 1)``) and computes the inner update from it;
+    every ``every_k``-th step emits that update, advances the inner state
+    and clears ``acc``, the other steps return zeros and keep the inner
+    state.  The choice is a ``torch.where`` on the device counter, so no
+    step reads the host.  Clipping chained into ``inner`` sees the
+    accumulated mean, not each micro-batch's gradient."""
+    def init(p):
+        return [_count(p), _count(p), torch.zeros_like(p)] + inner.init(p)
+
+    def update(g, state, p):
+        mini, gstep, acc = state[:3]
+        inner_state = state[3:]
+        acc = acc + (g - acc) / (mini + 1)
+        upd, new_inner = inner.update(acc, inner_state, p)
+        emit = mini == every_k - 1
+        new_state = [(mini + 1) % every_k,
+                     torch.where(emit, gstep + 1, gstep),
+                     torch.where(emit, torch.zeros_like(acc), acc)]
+        new_state += [torch.where(emit, n, o)
+                      for n, o in zip(new_inner, inner_state)]
+        return torch.where(emit, upd, torch.zeros_like(upd)), new_state
+
+    return Optimizer(init, update, f"multi_steps({inner.name}, {every_k})")
+
+
 # ---------------------------------------------------------------------------
 # schedules (optax/_src/schedule.py), functions of the int32 count tensor
 

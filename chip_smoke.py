@@ -86,6 +86,10 @@
    both backward rows as the pair's time beside ``pair_ms`` (delta and
    both kernels); the plain time on those rows is the plain backward's,
    the pair's too.
+   On the bf16 legs the lse row also times
+   ``F.scaled_dot_product_attention`` on the first backend (flash first)
+   that answers within the leg's tolerance (``sdpa_ms``): the same out
+   without the lse.
    TF32 is off for every matmul and cuDNN call (set and printed).
 3. Serving phase (the first main path): NeuralCF at the MovieLens-1M
    width (6040 users, 3706 items, embeds 20, MLP 40/20/10, 5 classes)
@@ -145,7 +149,50 @@
    a row's logits — so both paths hold only rounding noise there); the
    loss must fall from epoch 1 to epoch 3.  One more step runs under
    ``torch.profiler``.
-7. Prints the kernels JSON line and, last, the ok line.
+7. Fault-tolerant bf16 fine-tuning phase (the fifth main path), in a
+   temporary directory removed at the end; it first checks the disk has
+   two BERT-Base snapshots (params, m and v in f32, 1.31 GB each) and
+   1 GiB free, and fails naming the bytes if not.  BERTClassifier at the
+   BERT-Base width with phase 6's data and optimizer (24 steps in all),
+   ``compute_dtype="bfloat16"``, a checkpoint every epoch
+   (``async_checkpoint``, the newest kept).  Run U: three epochs; counts
+   are zeroed just before and read just after, and every step must launch
+   exactly 12 lse forwards, 12 dQ and 12 dK/dV kernels on bf16 q, k, v
+   (the launchers are wrapped to record q's dtype), no forward-only
+   kernel and no reference attention; the loss must fall from epoch 1 to
+   3.  The checkpoint costs: snapshot bytes, one synchronous save, one
+   asynchronous save (the time to return, and the whole write), the ms
+   per step of an epoch with no write in flight and of one while the
+   asynchronous write runs, and a verified restore.  Run P: the same run
+   from the same weights and seeds gets a real SIGTERM from the
+   ``estimator.preempt`` fault site's ``sigterm`` action at epoch 2's
+   fourth step; it must flush one synchronous checkpoint and raise
+   ``TrainingPreempted`` there, and every restored value must equal the
+   live state at the flush bit for bit (every parameter leaf, the flat
+   optimizer state, the dropout generator's state, the step and epoch
+   counters, the host RandomState).  A fresh Estimator then resumes
+   with ``fit(resume=True)`` to epoch 3: its per-epoch losses within
+   ``P_LOSS_RTOL`` of U's and its weights within ``P_WEIGHTS_REL`` of
+   U's movement (L2), with the largest difference and whether the runs
+   are bit-equal printed.  The fine-tuned net's ``save_weights`` →
+   ``load_weights`` into another net gives bit-equal ``predict`` (the
+   forward-only kernel, bf16, 12 launches a batch).  Run R: U's epochs
+   under ``forced("reference")``, per-epoch losses within
+   ``BF16_PLAIN_LOSS_RTOL``.  Then NeuralCF at the ML-1M width on phase
+   4's data, on kernels 1–2: ``nan_policy="rollback"`` with
+   ``max_bad_steps`` = 3 consecutive NaN batches in epoch 2 injected
+   through ``estimator.step`` must roll back once to epoch 1's
+   checkpoint, halve ``lr_scale`` and train on to epoch 3 with a finite,
+   falling loss; ``grad_accum_steps=2`` at batch 1024 against batch 2048
+   on the same shuffle (SGD at ``ACCUM_LR``, one epoch) within
+   ``ACCUM_ATOL``, the weights having moved at least ten times that; and
+   ``save_model`` → ``ZooModel.load_model`` → ``InferenceModel`` answers
+   bit-equal to the saved model's; every training step launches 4 bag
+   backwards.  bf16 ms per step and samples per second (an epoch with
+   no write in flight, and one step under ``torch.profiler`` for the
+   device's share) print beside phase 6's f32, with the card's name and
+   power limit.
+8. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -196,6 +243,33 @@ BERT_BASE = dict(vocab=30522, hidden_size=768, n_block=12, nhead=12,
 # Devlin et al.'s grid, warmup 0.1; hidden dropout 0.1, attention dropout
 # 0 (the flash kernels take none)
 BERT_TRAIN = dict(rows=256, length=128, batch=32, epochs=3, lr=5e-5)
+# The fault-tolerant phase's tolerances.  In bf16 a logit near the
+# final margin of about 5.5 (epoch 3's loss of about 0.004 in f32) moves
+# in steps of 2^-5, and the loss, about exp(-margin), by the same share.
+# The resumed run P against the uninterrupted U: the two differ only
+# where PyTorch's indexing backward on the embedding tables adds
+# duplicate ids in another order (f32 last bits, which the bf16 casts of
+# the masters mostly round away), so per-epoch losses within 2^-9, one
+# such step on 1 in 16 of the 256 sequences; weights within 5% of U's
+# movement from the initial weights in L2 (the key biases' gradient is 0
+# in exact arithmetic, so Adam steps them by rounding noise, up to the
+# learning rate, differently in any two runs: at most 2 x 6e-4 per
+# element over the run, under 2% of the movement).  U against the plain
+# versions, which round attention's output to bf16 apart on up to 2% of
+# elements, and whose AdamW updates then part on every gradient element
+# near 0: per-epoch losses within one step of the final margin, 2^-5.
+P_LOSS_RTOL = 2.0 ** -9
+P_WEIGHTS_REL = 5e-2
+BF16_PLAIN_LOSS_RTOL = 2.0 ** -5
+# grad_accum_steps=2 at batch 1024 against batch 2048 (SGD, lr 0.05): f32
+# sums of the two half-batch means against one mean, duplicate ids added
+# by atomics in a free order, over 58 steps.  At lr 0.5 the two runs part
+# on the card after 8 to 16 steps by up to 6e-3 (and stay within 1e-7 on
+# the CPU): a step that large carries one run across a kink the other
+# does not cross (a ReLU's, or the loss's clip at 1e-7), while at 0.05 and
+# 0.005 they agree within 1.5e-8 and 1.2e-7 over the whole epoch.
+ACCUM_LR = 0.05
+ACCUM_ATOL = 1e-5
 
 
 def log(*a):
@@ -799,8 +873,17 @@ def flash_train_case(torch, fa, label, b, h, lq, lk, d, causal, dtype=None,
     o_abs, o_rel, o_ok = check(out, ref_out)
     mismatch = bf16_mismatch_share(torch, out, ref_out)
     o_ok = o_ok and (mismatch is None or mismatch <= BF16_MISMATCH_LIMIT)
+    # bf16: F.scaled_dot_product_attention (flash backend first) beside
+    # aten's lse forward, for the same out without the lse
+    sdpa, sdpa_backend = (sdpa_call(torch, q, k, v, causal, ref_out,
+                                    (atol, rtol), flash=not offset)
+                          if bf16 else (None, None))
+    sdpa_ms = timings(torch, {"library": sdpa}, iters) if sdpa else {}
     cases = [{
         **common, "kernel": "flash_attention_fwd_lse", "max_abs_err": o_abs,
+        "sdpa_backend": sdpa_backend,
+        "sdpa_ms": sdpa_ms.get("library_ms"),
+        "sdpa_call_ms": sdpa_ms.get("library_call_ms"),
         "max_rel_err": o_rel,
         "lse_max_abs_err": float(lse_err.max()) if live.any() else 0.0,
         "bf16_mismatch_share": mismatch,
@@ -1494,8 +1577,9 @@ def bert_train_data(n, length, seed):
 
 def profile_bert_step(torch, net, xs, y):
     """One more training step under ``torch.profiler``: device time (the
-    kernels' self time summed) against the step's wall time, and the
-    share of the three training flash kernels."""
+    kernels' self time summed) against the step's wall time, the host's
+    kernel launches, and the share of the three training flash
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     epochs = net.estimator.finished_epochs + 1
@@ -1511,7 +1595,9 @@ def profile_bert_step(torch, net, xs, y):
     flash = {name: sum(device_us(e) for e in events if name in e.key) / 1e3
              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     top = sorted(events, key=device_us, reverse=True)[:10]
-    return {"wall_ms": 1e3 * wall, "device_ms": busy,
+    launches = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    return {"wall_ms": 1e3 * wall, "device_ms": busy, "launches": launches,
             "device_busy_share": busy / (1e3 * wall) if wall else None,
             "flash_ms": flash,
             "flash_share_of_device": sum(flash.values()) / busy
@@ -1684,7 +1770,465 @@ def bert_training_phase(torch, eb, dq, fa):
     if (logits.shape != (64, 2) or not np.all(np.isfinite(logits))
             or not all(np.isfinite(v) for v in ev.values())):
         raise AssertionError(f"bad evaluate/predict: {ev} {logits.shape}")
-    return launches, eval_launches
+    return launches, eval_launches, out
+
+
+# ---------------------------------------------------------------------------
+# fault-tolerant bf16 fine-tuning phase
+
+
+def flash_dtype_spy(fa):
+    """Wrap the flash launchers so each launch records q's dtype under its
+    kernel's name; returns the record and a function that unwraps them."""
+    seen = {k: [] for k in ("flash_attention_fwd", "flash_attention_fwd_lse",
+                            "flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv")}
+    launch, dq_fn, dkv_fn = fa._launch, fa.launch_bwd_dq, fa.launch_bwd_dkv
+
+    def spy_launch(q, *a, with_lse=False, **kw):
+        seen["flash_attention_fwd_lse" if with_lse
+             else "flash_attention_fwd"].append(str(q.dtype))
+        return launch(q, *a, with_lse=with_lse, **kw)
+
+    def spy(name, fn):
+        def run(q, *a):
+            seen[name].append(str(q.dtype))
+            return fn(q, *a)
+        return run
+
+    fa._launch = spy_launch
+    fa.launch_bwd_dq = spy("flash_attention_bwd_dq", dq_fn)
+    fa.launch_bwd_dkv = spy("flash_attention_bwd_dkv", dkv_fn)
+
+    def undo():
+        fa._launch, fa.launch_bwd_dq, fa.launch_bwd_dkv = (launch, dq_fn,
+                                                           dkv_fn)
+    return seen, undo
+
+
+def tree_leaves(tree, path=""):
+    """``(key path, array)`` for every leaf of a nested weight tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{path}/{k}" if path else k)
+    else:
+        yield path, np.asarray(tree)
+
+
+def tree_diff(a, b):
+    """(largest |a - b| over two weight trees, bit-equal?)"""
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    assert all(x[0] == y[0] for x, y in pairs)
+    return (max(float(np.abs(x[1].astype(np.float64) - y[1]).max())
+                for x, y in pairs),
+            all(np.array_equal(x[1], y[1]) for x, y in pairs))
+
+
+def l2(a, b):
+    """||a - b|| over two weight trees, in f64."""
+    return float(np.sqrt(sum(
+        np.sum((x[1].astype(np.float64) - y[1]) ** 2)
+        for x, y in zip(tree_leaves(a), tree_leaves(b)))))
+
+
+def restored_matches_live(tree, live):
+    """The names of the restored values that differ from the live state at
+    the flush, bit for bit (an empty list when all agree)."""
+    import pickle
+
+    got = dict(tree_leaves(tree["params"]))
+    bad = [f"params/{k}" for k, v in tree_leaves(live["params"])
+           if k not in got or not np.array_equal(got[k], v)]
+    bad += [f"opt_state/{n}" for n, (a, b) in enumerate(
+        zip(tree["opt_state"], live["opt_state"]))
+        if not np.array_equal(a, b.numpy())]
+    if len(tree["opt_state"]) != len(live["opt_state"]):
+        bad.append("opt_state length")
+    meta = tree["meta"]
+    if not np.array_equal(meta["torch_rng"], live["torch_rng"].numpy()):
+        bad.append("meta/torch_rng")
+    for key in ("global_step", "finished_epochs"):
+        if int(meta[key]) != live[key]:
+            bad.append(f"meta/{key}")
+    host = pickle.loads(np.asarray(meta["host_rng"]).tobytes())
+    want = live["host_rng"]
+    if not (host[0] == want[0] and np.array_equal(host[1], want[1])
+            and tuple(host[2:]) == tuple(want[2:])):
+        bad.append("meta/host_rng")
+    return bad
+
+
+def ft_bert(torch, eb, dq, fa, root, f32):
+    """BERT-Base fine-tuned in bf16 with checkpoints, a real SIGTERM and a
+    resume (docstring item 7); returns the record and the launches of its
+    window."""
+    import os
+    import shutil
+
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+    from analytics_zoo_tpu_torch.robust import (FaultInjector,
+                                                TrainingPreempted)
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    from analytics_zoo_tpu_torch.train.checkpoint import CheckpointManager
+    from analytics_zoo_tpu_torch.train.optimizers import AdamWeightDecay
+
+    cfg, batch = BERT_TRAIN, BERT_TRAIN["batch"]
+    epochs = cfg["epochs"]
+    init_zoo_context(async_checkpoint=True)
+    bert_cfg = dict(BERT_BASE, attn_drop=0.0, hidden_drop=0.1)
+    reset_name_scope()
+    net = BERTClassifier(num_classes=2, bert_config=bert_cfg,
+                         generator=torch.Generator().manual_seed(SEED))
+    init = export_params(net)
+    ids, seg, y = bert_train_data(cfg["rows"], cfg["length"], SEED + 4)
+    xs = [ids, seg]
+    steps = cfg["rows"] // batch
+    loss = "sparse_categorical_crossentropy_with_logits"
+
+    def fresh(ckpt=None):
+        """The initial weights and a new Estimator in bf16 compute: a fresh
+        optimizer state and dropout generator, seeded as every run's."""
+        load_jax_params(net, init)
+        net.compile(AdamWeightDecay(cfg["lr"], warmup_portion=0.1,
+                                    total=steps * epochs), loss,
+                    device="cuda", compute_dtype="bfloat16")
+        if ckpt is not None:
+            net.estimator.set_checkpoint(os.path.join(root, ckpt), keep=1)
+        return net.estimator
+
+    # run U, the main path's window: counts start at 0 here
+    est = fresh("u")
+    reset_counts(eb, dq, fa)
+    window = METRICS.snapshot()
+    seen, undo = flash_dtype_spy(fa)
+    try:
+        t0 = time.perf_counter()
+        u_hist = [dict(h) for h in net.fit(xs, y, batch_size=batch,
+                                           epochs=epochs, verbose=False)]
+        torch.cuda.synchronize()
+        u_wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = flash_counts(fa)
+    others = (eb.LAUNCHES.value, eb.BWD_LAUNCHES.value, dq.LAUNCHES.value)
+    counters = METRICS.delta(window)["counters"]
+    sel = {f"{k}/{p}": counters.get(
+        f'ops_kernel_selected_total{{kernel="{k}",path="{p}"}}', 0)
+        for k in ("flash_attention", "flash_attention_bwd")
+        for p in ("cuda", "reference")}
+    u_steps = est.global_step
+    u_loss = [h["loss"] for h in u_hist]
+    u_weights = export_params(net)
+    snapshot_bytes = os.path.getsize(os.path.join(
+        root, "u", f"ckpt_{u_steps:010d}.npz"))
+    shutil.rmtree(os.path.join(root, "u"))
+
+    # checkpoint costs, on a run without a checkpoint trigger
+    cost = fresh()
+    net.fit(xs, y, batch_size=batch, epochs=1, verbose=False)
+    mgr = CheckpointManager(os.path.join(root, "cost"), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(cost.global_step, cost._snapshot())
+    sync_s = time.perf_counter() - t0
+
+    def epoch_ms_per_step():
+        t0 = time.perf_counter()
+        net.fit(xs, y, batch_size=batch, epochs=cost.finished_epochs + 1,
+                verbose=False)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    # bf16 against phase 6's f32: an epoch with no write in flight, and
+    # one step under the profiler for the device's share
+    quiet = epoch_ms_per_step()
+    profile = profile_bert_step(torch, net, [ids[:batch], seg[:batch]],
+                                y[:batch])
+    t0 = time.perf_counter()
+    mgr.save_async(cost.global_step, cost._snapshot())
+    async_return_s = time.perf_counter() - t0
+    in_flight = epoch_ms_per_step()
+    t1 = time.perf_counter()
+    mgr.wait()
+    wait_after_s = time.perf_counter() - t1
+    async_total_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.restore()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(root, "cost"))
+
+    # run P: a real SIGTERM at epoch 2's fourth step, sent from the
+    # estimator.preempt fault site, then a fresh Estimator resumes
+    est = fresh("p")
+    preempt_at = steps + 3
+    preempted = None
+    with FaultInjector().plan("estimator.preempt", at=preempt_at,
+                              action="sigterm"):
+        try:
+            net.fit(xs, y, batch_size=batch, epochs=epochs, verbose=False)
+        except TrainingPreempted as e:
+            preempted = e.step
+    first = [h["loss"] for h in est.history]
+    live = {"params": export_params(net),
+            "opt_state": [t.cpu() for t in est.opt_state],
+            "torch_rng": est._dropout_gen.get_state(),
+            "host_rng": est._host_rng.get_state(),
+            "global_step": est.global_step,
+            "finished_epochs": est.finished_epochs}
+    _, tree = CheckpointManager(os.path.join(root, "p")).restore()
+    flush_bytes = os.path.getsize(os.path.join(
+        root, "p", f"ckpt_{preempt_at:010d}.npz"))
+    restore_bad = restored_matches_live(tree, live)
+    del tree, live
+    est = fresh("p")
+    t0 = time.perf_counter()
+    net.fit(xs, y, batch_size=batch, epochs=epochs, verbose=False,
+            resume=True)
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t0
+    p_loss = first + [h["loss"] for h in est.history]
+    p_weights = export_params(net)
+    p_w_diff, p_bit_equal = tree_diff(p_weights, u_weights)
+    p_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(p_loss, u_loss))
+    p_w_rel = l2(p_weights, u_weights) / l2(u_weights, init)
+    resumed = (est.finished_epochs, est.global_step)
+    shutil.rmtree(os.path.join(root, "p"))
+
+    # save_weights -> load_weights of the fine-tuned net into another one
+    fwd0 = fa.LAUNCHES.value
+    want = net.predict([ids[:64], seg[:64]], batch_size=32)
+    path = os.path.join(root, "weights.npz")
+    net.save_weights(path)
+    weights_bytes = os.path.getsize(path)
+    reset_name_scope()
+    other = BERTClassifier(num_classes=2, bert_config=bert_cfg,
+                           generator=torch.Generator().manual_seed(SEED + 1))
+    other.load_weights(path)
+    other.compile("sgd", loss, device="cuda", compute_dtype="bfloat16")
+    got = other.predict([ids[:64], seg[:64]], batch_size=32)
+    weights_equal = bool(np.array_equal(got, want))
+    predict_launches = fa.LAUNCHES.value - fwd0
+    del other
+
+    # run R: U's epochs through the plain versions
+    before = flash_counts(fa)
+    with forced(PATH_REFERENCE):
+        fresh()
+        r_loss = [h["loss"] for h in net.fit(xs, y, batch_size=batch,
+                                             epochs=epochs, verbose=False)]
+    plain_launched = flash_counts(fa) != before
+    r_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(u_loss, r_loss))
+
+    n_block = BERT_BASE["n_block"]
+    want_counts = {"flash_attention_fwd": 0}
+    want_counts.update({k: n_block * u_steps for k in (
+        "flash_attention_fwd_lse", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")})
+    dtypes = {k: sorted(set(v)) for k, v in seen.items()}
+    out = {
+        "model": {**bert_cfg, "num_classes": 2, "compute_dtype": "bfloat16",
+                  "params": sum(p.numel() for p in net.parameters())},
+        "data": cfg, "steps": u_steps,
+        "epoch_loss_U": u_loss, "epoch_loss_P": p_loss,
+        "epoch_loss_plain": r_loss,
+        "loss_max_rel_diff_P_vs_U": p_loss_rel,
+        "weights_max_abs_diff_P_vs_U": p_w_diff,
+        "weights_rel_l2_P_vs_U": p_w_rel,
+        "tolerance": {"P_loss_rtol": P_LOSS_RTOL,
+                      "P_weights_rel_l2": P_WEIGHTS_REL,
+                      "plain_loss_rtol": BF16_PLAIN_LOSS_RTOL},
+        "P_bit_equal_to_U": p_bit_equal and p_loss == u_loss,
+        "loss_max_rel_diff_U_vs_plain": r_loss_rel,
+        "preempted_at_step": preempted,
+        "restored_differs_from_live": restore_bad,
+        "flush_bytes": flush_bytes,
+        "resumed_to": resumed, "resume_wall_s": resume_wall,
+        "launches": launches, "launch_dtypes": dtypes, "selected": sel,
+        "bf16": {"ms_per_step": quiet, "samples_per_s": 1e3 * batch / quiet,
+                 "profiled_step": profile,
+                 "U_samples_per_s_epochs": [h["throughput"]
+                                            for h in u_hist],
+                 "U_wall_s": u_wall},
+        "f32_phase6": {"samples_per_s": f32["samples_per_s"],
+                       "ms_per_step": f32["ms_per_step"],
+                       "profiled_step": f32["profile"]},
+        "bf16_speedup": f32["ms_per_step"] / quiet,
+        "checkpoint": {"snapshot_bytes": snapshot_bytes,
+                       "sync_save_s": sync_s,
+                       "async_save_return_s": async_return_s,
+                       "async_save_total_s": async_total_s,
+                       "ms_per_step_quiet": quiet,
+                       "ms_per_step_async_in_flight": in_flight,
+                       "wait_after_the_epoch_s": wait_after_s,
+                       "restore_s": restore_s},
+        "save_load_weights": {"bytes": weights_bytes,
+                              "predict_bit_equal": weights_equal,
+                              "flash_fwd_launches": predict_launches},
+    }
+    log("fault_tolerant_bert", json.dumps(out))
+    if (launches != want_counts or any(others)
+            or sel != {"flash_attention/cuda": n_block * u_steps,
+                       "flash_attention/reference": 0,
+                       "flash_attention_bwd/cuda": n_block * u_steps,
+                       "flash_attention_bwd/reference": 0}
+            or any(v and v != ["torch.bfloat16"] for v in dtypes.values())
+            or len(seen["flash_attention_fwd_lse"]) != n_block * u_steps):
+        raise AssertionError(
+            f"bf16 fine-tuning launched {launches} (want {want_counts}) on "
+            f"{dtypes}, NCF kernels {others}, selections {sel}")
+    if not u_loss[-1] < u_loss[0]:
+        raise AssertionError(f"bf16 BERT loss did not fall: {u_loss}")
+    if preempted != preempt_at or restore_bad:
+        raise AssertionError(f"preemption at {preempted} (want "
+                             f"{preempt_at}); restored values that differ "
+                             f"from the live state: {restore_bad}")
+    if (resumed != (epochs, u_steps) or p_loss_rel > P_LOSS_RTOL
+            or p_w_rel > P_WEIGHTS_REL):
+        raise AssertionError(
+            f"the resumed run left the uninterrupted one: epochs/steps "
+            f"{resumed}, losses {p_loss} vs {u_loss}, weights {p_w_diff}")
+    if plain_launched or r_loss_rel > BF16_PLAIN_LOSS_RTOL:
+        raise AssertionError(f"bf16 fine-tuning disagrees with the plain "
+                             f"path: {u_loss} vs {r_loss}")
+    if not weights_equal or predict_launches != 2 * 2 * n_block:
+        raise AssertionError(f"load_weights did not reproduce predict, or "
+                             f"the forwards launched {predict_launches} "
+                             f"flash kernels")
+    return out, dict(launches, flash_attention_fwd=predict_launches)
+
+
+def ft_ncf(torch, eb, root):
+    """NeuralCF at the ML-1M width: a NaN rollback, gradient accumulation
+    and save_model / load_model (docstring item 7); returns the record and
+    the bag kernels' launches of its window."""
+    import os
+
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.core.profiling import TIMERS
+    from analytics_zoo_tpu_torch.data import generate_movielens_like
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.models.common import ZooModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.robust import FaultInjector
+    from analytics_zoo_tpu_torch.train.optimizers import SGD, Adam
+
+    max_bad = 3
+    init_zoo_context(nan_policy="rollback", max_bad_steps=max_bad,
+                     async_checkpoint=True)
+    users, items, ratings = generate_movielens_like(seed=SEED)
+    u = users[:, None].astype(np.int32)
+    i = items[:, None].astype(np.int32)
+    y = (ratings - 1).astype(np.int32)
+    steps = len(y) // TRAIN_BATCH
+
+    def model(opt, **kw):
+        reset_name_scope()
+        ncf = NeuralCF(USERS, ITEMS, device="cuda")
+        load_jax_params(ncf.model, init)
+        ncf.compile(opt, "sparse_categorical_crossentropy", **kw)
+        return ncf
+
+    reset_name_scope()
+    init = export_params(NeuralCF(USERS, ITEMS, device="cuda").model)
+    eb.LAUNCHES.reset()
+    eb.BWD_LAUNCHES.reset()
+
+    # max_bad NaN batches in a row in epoch 2, after epoch 1's checkpoint
+    ncf = model(Adam(lr=1e-3))
+    ncf.estimator.set_checkpoint(os.path.join(root, "ncf"), keep=1)
+    n0 = TIMERS.count("robust/nan_rollbacks")
+    bad = [steps + 5 + k for k in range(max_bad)]
+    with FaultInjector().plan("estimator.step", at=bad, action="nan"):
+        hist = [dict(h) for h in ncf.fit([u, i], y, batch_size=TRAIN_BATCH,
+                                         epochs=3, verbose=False)]
+    rollbacks = TIMERS.count("robust/nan_rollbacks") - n0
+    lr_scale = ncf.estimator._lr_scale
+    losses = [h["loss"] for h in hist]
+    trained = 4 * steps                 # epoch 2 ran twice
+
+    # grad_accum_steps=2 at half the batch against the full batch, one
+    # epoch on the same shuffle, SGD (Adam would turn last-bit gradient
+    # differences into lr-sized steps on gradients near 0)
+    half = model(SGD(lr=ACCUM_LR), grad_accum_steps=2)
+    half.fit([u, i], y, batch_size=TRAIN_BATCH // 2, epochs=1, verbose=False)
+    full = model(SGD(lr=ACCUM_LR))
+    full.fit([u, i], y, batch_size=TRAIN_BATCH, epochs=1, verbose=False)
+    accum_diff, _ = tree_diff(export_params(half.model),
+                              export_params(full.model))
+    moved, _ = tree_diff(export_params(full.model), init)
+    updates = int(half.estimator.opt_state[1])
+    trained += len(y) // (TRAIN_BATCH // 2) + steps
+
+    # save_model -> load_model -> InferenceModel, bit-equal
+    path = os.path.join(root, "ncf_model")
+    ncf.save_model(path)
+    back = ZooModel.load_model(path, device="cuda")
+    probe = [u[:4096], i[:4096]]
+    a = InferenceModel.from_keras_net(ncf.model, device="cuda").predict(probe)
+    b = InferenceModel.from_keras_net(back.model, device="cuda").predict(
+        probe)
+    launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                "embedding_bag_bwd": eb.BWD_LAUNCHES.value}
+    out = {"rollback": {"nan_steps_at": bad, "max_bad_steps": max_bad,
+                        "rollbacks": rollbacks, "lr_scale": lr_scale,
+                        "epoch_loss": losses,
+                        "finished_epochs": ncf.estimator.finished_epochs},
+           "grad_accum": {"batch": TRAIN_BATCH // 2, "accum_steps": 2,
+                          "lr": ACCUM_LR, "updates": updates,
+                          "full_batch_steps": steps,
+                          "weights_max_abs_diff": accum_diff,
+                          "weights_max_abs_moved": moved,
+                          "atol": ACCUM_ATOL},
+           "save_load_model_bit_equal": bool(np.array_equal(a, b)),
+           "training_steps": trained, "launches": launches}
+    log("fault_tolerant_ncf", json.dumps(out))
+    if (rollbacks != 1 or lr_scale != 0.5 or len(losses) != 3
+            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]):
+        raise AssertionError(f"NCF rollback: {out['rollback']}")
+    if (updates != steps or accum_diff > ACCUM_ATOL
+            or moved < 10 * ACCUM_ATOL):
+        raise AssertionError(f"NCF gradient accumulation: "
+                             f"{out['grad_accum']}")
+    if not out["save_load_model_bit_equal"]:
+        raise AssertionError("the loaded NCF model answers differently")
+    if launches["embedding_bag_bwd"] != 4 * trained:
+        raise AssertionError(f"NCF legs launched {launches} over {trained} "
+                             f"training steps (want 4 bag backwards each)")
+    return out, launches
+
+
+def fault_tolerant_phase(torch, eb, dq, fa, f32, card):
+    """Docstring item 7, in a temporary directory removed at the end;
+    fails, naming the bytes, where the disk is short."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="zoo_ckpt_")
+    try:
+        params = 109_483_778
+        need = 2 * 3 * 4 * params + (1 << 30)
+        free = shutil.disk_usage(root).free
+        log("fault_tolerant disk", json.dumps({
+            "dir": root, "free_bytes": free, "needed_bytes": need}))
+        if free < need:
+            raise AssertionError(
+                f"the fault-tolerant phase needs {need} bytes free under "
+                f"{root} (two snapshots of params, m and v in f32 and 1 GiB "
+                f"to spare), and {free} are")
+        bert, bert_launches = ft_bert(torch, eb, dq, fa, root, f32)
+        ncf, ncf_launches = ft_ncf(torch, eb, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("fault_tolerant card", card, json.dumps({
+        "bf16_ms_per_step": bert["bf16"]["ms_per_step"],
+        "f32_ms_per_step": bert["f32_phase6"]["ms_per_step"],
+        **bert["checkpoint"]}))
+    return bert_launches, ncf_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1896,24 +2440,30 @@ def main() -> int:
     served = serving_phase(torch, eb, dq)
     trained = training_phase(torch, eb, dq)
     bert = bert_serving_phase(torch, eb, dq, fa)
-    bert_trained, bert_eval = bert_training_phase(torch, eb, dq, fa)
+    bert_trained, bert_eval, bert_f32 = bert_training_phase(torch, eb, dq,
+                                                            fa)
+    ft_bert_launches, ft_ncf = fault_tolerant_phase(torch, eb, dq, fa,
+                                                    bert_f32, card)
     fwd_by_path = {"serving": served["embedding_bag"],
                    "training": trained["embedding_bag_fwd"],
-                   "bert_serving": bert["embedding_bag"]}
+                   "bert_serving": bert["embedding_bag"],
+                   "fault_tolerant_ncf": ft_ncf["embedding_bag_fwd"]}
     kernels = [
         headline(bag_cases, "embedding_bag_fwd", "cuda", BAG_SRC, BAG_TPU,
                  sum(fwd_by_path.values()),
                  lambda c: c["vocab"] == USERS + 1 and c["bags"] == 256),
         headline(bwd_cases, "embedding_bag_bwd", "cuda", BAG_SRC,
-                 BAG_BWD_TPU, trained["embedding_bag_bwd"],
+                 BAG_BWD_TPU, trained["embedding_bag_bwd"]
+                 + ft_ncf["embedding_bag_bwd"],
                  lambda c: c["vocab"] == USERS + 1),
         headline(dq_cases, "dequant_matmul", "cuda", DQ_SRC, DQ_TPU,
                  served["dequant_matmul"],
                  lambda c: c["m"] == 256 and c["bits"] == 8),
     ]
     kernels[0]["launches_by_path"] = fwd_by_path
-    kernels[1]["launches_by_path"] = {"training": trained[
-        "embedding_bag_bwd"]}
+    kernels[1]["launches_by_path"] = {
+        "training": trained["embedding_bag_bwd"],
+        "fault_tolerant_ncf": ft_ncf["embedding_bag_bwd"]}
     dq_f32 = [c for c in dq_cases if c["dtype"] == "float32"]
     kernels[2]["max_abs_err"] = max(c["max_abs_err"] for c in dq_f32)
     kernels[2]["max_rel_err"] = max(c["max_rel_err"] for c in dq_f32)
@@ -1923,19 +2473,27 @@ def main() -> int:
                                       "training": trained["dequant_matmul"],
                                       "bert_serving": bert["dequant_matmul"]}
     fwd_paths = {"bert_serving": bert["flash_attention"],
-                 "bert_training_no_grad": bert_eval["flash_attention_fwd"]}
+                 "bert_training_no_grad": bert_eval["flash_attention_fwd"],
+                 "fault_tolerant_no_grad": ft_bert_launches[
+                     "flash_attention_fwd"]}
     flash_rows = [
         (fl_cases, "flash_attention_fwd", FLASH_SRC, FLASH_TPU, fwd_paths,
          "bert_l128"),
         (lse_cases, "flash_attention_fwd_lse", FLASH_SRC, FLASH_LSE_TPU,
-         {"bert_training": bert_trained["flash_attention_fwd_lse"]},
+         {"bert_training": bert_trained["flash_attention_fwd_lse"],
+          "fault_tolerant_bf16":
+              ft_bert_launches["flash_attention_fwd_lse"]},
          "bert_train_l128"),
         (bwd_dq_cases, "flash_attention_bwd_dq", FLASH_BWD_SRC, FLASH_DQ_TPU,
-         {"bert_training": bert_trained["flash_attention_bwd_dq"]},
+         {"bert_training": bert_trained["flash_attention_bwd_dq"],
+          "fault_tolerant_bf16":
+              ft_bert_launches["flash_attention_bwd_dq"]},
          "bert_train_l128"),
         (bwd_dkv_cases, "flash_attention_bwd_dkv", FLASH_BWD_SRC,
          FLASH_DKV_TPU,
-         {"bert_training": bert_trained["flash_attention_bwd_dkv"]},
+         {"bert_training": bert_trained["flash_attention_bwd_dkv"],
+          "fault_tolerant_bf16":
+              ft_bert_launches["flash_attention_bwd_dkv"]},
          "bert_train_l128")]
     for cases, name, src, tpu, by_path, head in flash_rows:
         row = headline(cases, name, "cuda", src, tpu, sum(by_path.values()),

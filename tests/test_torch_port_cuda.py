@@ -838,3 +838,165 @@ def test_bert_fit_on_card_matches_plain_path(cuda_device):
     for name, g in want.items():
         err = float((got[name] - g).abs().max())
         assert err <= 1e-4 * float(g.abs().max()) + 1e-6 * g_all, (name, err)
+
+
+def _spy_flash_dtypes(monkeypatch, tfa):
+    """Record the dtype of q at every launch of the lse, dQ and dK/dV
+    kernels."""
+    seen = {"fwd": [], "lse": [], "dq": [], "dkv": []}
+    launch, dq, dkv = tfa._launch, tfa.launch_bwd_dq, tfa.launch_bwd_dkv
+
+    def spy_launch(q, *a, with_lse=False, **kw):
+        seen["lse" if with_lse else "fwd"].append(q.dtype)
+        return launch(q, *a, with_lse=with_lse, **kw)
+
+    def spy(name, fn):
+        def run(q, *a):
+            seen[name].append(q.dtype)
+            return fn(q, *a)
+        return run
+
+    monkeypatch.setattr(tfa, "_launch", spy_launch)
+    monkeypatch.setattr(tfa, "launch_bwd_dq", spy("dq", dq))
+    monkeypatch.setattr(tfa, "launch_bwd_dkv", spy("dkv", dkv))
+    return seen
+
+
+@pytest.mark.cuda
+def test_bf16_bert_fit_runs_the_bf16_kernels_on_card(cuda_device,
+                                                     monkeypatch):
+    """``compute_dtype="bfloat16"``: every block's attention in a training
+    step launches the lse, dQ and dK/dV kernels on bf16 q, k, v — 3 of
+    each for 3 blocks — the masters stay f32, and one step from the same
+    weights and batch gives the plain path's loss within one bf16 step
+    (2^-8: the forwards round attention's output to bf16 apart on a few
+    elements) and every leaf's gradient within 2^-5 of that leaf's
+    largest plain |g| plus 2^-8 of the largest over all leaves (bf16
+    products through 3 blocks rounded apart; the floor is for the key
+    bias, whose gradient is 0 in exact arithmetic)."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import dispatch
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    from analytics_zoo_tpu_torch.train.optimizers import AdamWeightDecay
+
+    cfg = dict(vocab=500, n_block=3, attn_drop=0.0, hidden_drop=0.1)
+    rs = np.random.RandomState(2)
+    ids = rs.randint(0, 500, (32, 40)).astype(np.int32)
+    seg = (np.arange(40)[None, :] >= rs.randint(1, 40, (32, 1))).astype(
+        np.int32)
+    y = (ids[:, 1] < 250).astype(np.int32)
+    reset_name_scope()
+    init = export_params(BERTClassifier(2, bert_config=cfg))
+
+    def step():
+        reset_name_scope()
+        net = BERTClassifier(2, bert_config=cfg)
+        load_jax_params(net, init)
+        grads = {}
+        for name, p in net.named_parameters():
+            p.register_hook(lambda g, name=name: grads.__setitem__(
+                name, g.detach().clone()))
+        net.compile(AdamWeightDecay(1e-3), "sparse_categorical_crossentropy"
+                    "_with_logits", device=cuda_device,
+                    compute_dtype="bfloat16")
+        hist = net.fit([ids, seg], y, batch_size=32, epochs=1, verbose=False)
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+        assert all(g.dtype == torch.float32 for g in grads.values())
+        return hist[0]["loss"], grads
+
+    seen = _spy_flash_dtypes(monkeypatch, tfa)
+    loss, got = step()
+    assert seen == {"fwd": [], "lse": [torch.bfloat16] * 3,
+                    "dq": [torch.bfloat16] * 3,
+                    "dkv": [torch.bfloat16] * 3}, seen
+    with dispatch.forced(dispatch.PATH_REFERENCE):
+        ref_loss, want = step()
+    assert len(seen["lse"]) == 3
+    np.testing.assert_allclose(loss, ref_loss, rtol=2.0 ** -8)
+    assert set(got) == set(want) and len(got) > 40
+    g_all = max(float(g.abs().max()) for g in want.values())
+    for name, g in want.items():
+        err = float((got[name] - g).abs().max())
+        assert err <= 2.0 ** -5 * float(g.abs().max()) + 2.0 ** -8 * g_all, (
+            name, err)
+
+
+@pytest.mark.cuda
+def test_save_async_copies_off_live_tensors_on_card(cuda_device, tmp_path):
+    """On the card the snapshot is a device clone queued after the steps
+    already issued: steps trained right after ``save_async`` (in-place
+    updates) do not reach it, and the restore equals the state at the
+    save bit for bit."""
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.train.checkpoint import CheckpointManager
+
+    rs = np.random.RandomState(0)
+    u = rs.randint(1, 301, (4096, 1)).astype(np.int32)
+    i = rs.randint(1, 201, (4096, 1)).astype(np.int32)
+    y = rs.randint(0, 5, 4096).astype(np.int32)
+    reset_name_scope()
+    ncf = NeuralCF(300, 200, device=cuda_device)
+    ncf.compile("adam", "sparse_categorical_crossentropy")
+    ncf.fit([u, i], y, batch_size=256, nb_epoch=1, verbose=False)
+    est = ncf.estimator
+    mgr = CheckpointManager(str(tmp_path))
+    snapshot = est._snapshot()
+    mgr.save_async(est.global_step, snapshot)
+    want = export_params(ncf.model)
+    state = [t.cpu() for t in est.opt_state]
+    gen = est._dropout_gen.get_state()
+    ncf.fit([u, i], y, batch_size=256, nb_epoch=3, verbose=False)
+    mgr.wait()
+    _, tree = mgr.restore()
+    moved = export_params(ncf.model)
+    for layer, leaves in want.items():
+        for leaf, w in leaves.items():
+            np.testing.assert_array_equal(tree["params"][layer][leaf], w)
+            assert not np.array_equal(moved[layer][leaf], w)
+    for a, b in zip(tree["opt_state"], state):
+        np.testing.assert_array_equal(a, b.numpy())
+    np.testing.assert_array_equal(tree["meta"]["torch_rng"], gen.numpy())
+
+
+@pytest.mark.cuda
+def test_dropout_generator_state_round_trips_on_card(cuda_device, tmp_path):
+    """The CUDA dropout generator's state is captured at the flush's step
+    boundary and restored by ``load_checkpoint`` (at the model's build,
+    here the first ``predict``): the restored generator's next draws
+    equal the ones the preempted run would make."""
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.robust import (FaultInjector,
+                                                TrainingPreempted)
+
+    rs = np.random.RandomState(1)
+    u = rs.randint(1, 51, (512, 1)).astype(np.int32)
+    i = rs.randint(1, 41, (512, 1)).astype(np.int32)
+    y = rs.randint(0, 5, 512).astype(np.int32)
+
+    def model():
+        reset_name_scope()
+        ncf = NeuralCF(50, 40, dropout=0.3, device=cuda_device)
+        ncf.compile("adam", "sparse_categorical_crossentropy")
+        ncf.set_checkpoint(str(tmp_path))
+        return ncf
+
+    ncf = model()
+    with FaultInjector().plan("estimator.preempt", at=21):
+        with pytest.raises(TrainingPreempted):
+            ncf.fit([u, i], y, batch_size=32, nb_epoch=3, verbose=False)
+    at_flush = ncf.estimator._dropout_gen.get_state()
+    want = torch.rand(1000, device=cuda_device,
+                      generator=ncf.estimator._dropout_gen)
+    again = model()
+    est = again.estimator
+    est.load_checkpoint(str(tmp_path))
+    again.predict([u[:4], i[:4]])
+    assert est.global_step == 21
+    assert torch.equal(est._dropout_gen.get_state(), at_flush)
+    got = torch.rand(1000, device=cuda_device, generator=est._dropout_gen)
+    assert torch.equal(got, want)
