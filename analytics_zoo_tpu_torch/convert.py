@@ -102,12 +102,37 @@ def load_jax_params(model, params) -> None:
 
     Raises on a missing or extra key or a leaf whose shape does not fit,
     naming its full path; nothing is changed before every leaf has been
-    checked.
+    checked.  A float leaf of the live parameter's shape and dtype is
+    copied into that parameter's storage, which a captured training step
+    (``core/graphs.py``) may hold; other leaves replace theirs.
     """
     staged: list = []
     _stage(model.params(), params, (), staged)
     for path, value in staged:
-        model.set_leaf(path, value)
+        live = _live_parameter(model, path)
+        if (live is not None and not is_qleaf(value)
+                and value.shape == live.shape and value.dtype == live.dtype):
+            with torch.no_grad():
+                live.copy_(value)
+        else:
+            model.set_leaf(path, value)
+
+
+def _live_parameter(model, path):
+    """The parameter ``set_leaf`` would replace at key path ``path``, or
+    None: a quantized leaf, or a layer on the path with a ``set_leaf`` of
+    its own (a stacked tree, which splits the leaf across its blocks)."""
+    from analytics_zoo_tpu_torch.nn.module import Layer
+
+    layer = model
+    for depth, key in enumerate(path):
+        if type(layer).set_leaf is not Layer.set_leaf:
+            return None
+        if depth < len(path) - 1:
+            layer = layer.subtree(key)
+    if path[-1] in layer._qkinds:
+        return None
+    return layer._parameters.get(path[-1])
 
 
 def export_params(model) -> dict:

@@ -5,6 +5,18 @@
 - Shape buckets: requests pad up to the next bucket, and larger batches
   split into full-bucket chunks (``plan_buckets``), so the set of batch
   shapes the device sees stays bounded.
+- One program per bucket signature, the JAX package's one executable per
+  signature: on the card, the bucket's forward over static input buffers
+  runs eagerly for the signature's first request and is then captured
+  into a CUDA graph (``core/graphs.py``), each later request's batch
+  copied in and the graph replayed.  A graph's buffers take a lock
+  of their own; a capture takes the model's gate exclusively, so no
+  replay of this model runs beside it.  ``compile_count`` counts the
+  signatures captured live.  ``attach_compile_cache`` persists every
+  captured signature (``deploy/compile_cache.py``), and ``warm()``
+  captures all of them before the first request, so a restarted server
+  holds ``compile_count == 0``.  On the CPU the same static-buffer
+  program runs eagerly.
 - int8 / int4 weights: per-output-channel symmetric quantization, with
   the JAX package's rule and leaf format (``quantize_pytree``).  Dense
   kernels stay packed end to end and run through the fused
@@ -18,14 +30,21 @@
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import hashlib
+import json
+import struct
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import zlib
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.core import graphs
 from analytics_zoo_tpu_torch.core.context import resolve_device
 from analytics_zoo_tpu_torch.nn.module import is_qleaf
 
@@ -122,6 +141,100 @@ def dequantize_pytree(qparams):
 
 
 # ---------------------------------------------------------------------------
+# one program per bucket signature
+# ---------------------------------------------------------------------------
+
+class _Gate:
+    """Many replays at once, or one capture alone."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._alone = False
+
+    @contextlib.contextmanager
+    def shared(self) -> Iterator[None]:
+        with self._cv:
+            while self._alone:
+                self._cv.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._shared -= 1
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def alone(self) -> Iterator[None]:
+        with self._cv:
+            while self._alone or self._shared:
+                self._cv.wait()
+            self._alone = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._alone = False
+                self._cv.notify_all()
+
+
+class _BucketProgram:
+    """The forward of one bucket signature over static input buffers: on
+    the card its first run is eager (the warm-up), then it is captured
+    into a CUDA graph and replayed; on the CPU, or while graphs are off,
+    the same code runs eagerly.  ``run`` never captures: the model
+    captures through ``capture`` alone (``InferenceModel._capture``), and
+    hands the one eager warm-up to one caller (``warm_up_taken``)."""
+
+    def __init__(self, net, sig: Dict[str, Any], device: torch.device,
+                 name: str):
+        self.device = device
+        self.lock = threading.Lock()
+        self.warm_up_taken = False
+        self.inputs = inputs = [
+            torch.from_numpy(np.zeros(shape, dtype)).to(device)
+            for shape, dtype in sig["in"]]
+        self.staging = ([torch.empty_like(t, device="cpu").pin_memory()
+                         for t in inputs]
+                        if device.type == "cuda" else None)
+
+        def forward():          # holds the buffers, not the program
+            with torch.inference_mode():
+                return net(*inputs)
+
+        self.graph = graphs.StepGraph(forward, device,
+                                      name=f"{name} forward {sig['in']}")
+
+    def capture(self) -> None:
+        if not self.graph.captured and graphs.enabled(self.device):
+            self.graph.capture()
+            from analytics_zoo_tpu_torch.observe import metrics as obs
+
+            obs.count("graph_captures_total", kind="serving")
+            obs.observe("graph_capture_seconds", self.graph.capture_s,
+                        kind="serving")
+
+    def run(self, xs: List[np.ndarray]):
+        with self.lock:
+            for t, x, h in zip(self.inputs, xs, self.staging
+                               or [None] * len(xs)):
+                if h is None:
+                    t.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+                else:
+                    h.numpy()[...] = x
+                    t.copy_(h, non_blocking=True)
+            g = self.graph
+            if not graphs.enabled(self.device):
+                out = g.fn()
+            elif g.captured:
+                out = g.replay()
+            else:               # the caller that took the warm-up
+                out = g.warm_up()
+            return _f32_out(out)
+
+
+# ---------------------------------------------------------------------------
 # InferenceModel
 # ---------------------------------------------------------------------------
 
@@ -133,27 +246,41 @@ class InferenceModel:
     then ``m.predict(inputs)`` from any number of threads.
     """
 
-    def __init__(self, forward: Callable, batch_buckets: Sequence[int] =
-                 (1, 8, 64, 256), name: str = DEFAULT_MODEL):
+    def __init__(self, forward: Optional[Callable],
+                 batch_buckets: Sequence[int] = (1, 8, 64, 256),
+                 name: str = DEFAULT_MODEL):
         """``forward``: fn(list_of_np_inputs_padded) -> np output(s) for a
-        full padded batch.  Wrapped by bucket padding in predict()."""
+        full padded batch, wrapped by bucket padding in predict(); None
+        for a native net's bucket programs (``from_keras_net``)."""
         self._forward = forward
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.name = str(name)
         # batch-signature ledger: one entry per distinct padded batch
-        # shape dispatched — the bounded-shape contract of the buckets
+        # shape dispatched that paid a live capture — the bounded-shape
+        # contract of the buckets.  Signatures captured from the compile
+        # cache (warm()) land in _warm_shapes instead.
         self._seen_shapes = set()
+        self._warm_shapes = set()
         self._shape_lock = threading.Lock()
         self._net = None
         self._weight_dtype = "float32"
         self.device: Optional[torch.device] = None
+        # one program per signature key; the gate orders captures against
+        # replays; the persistent cache and the weights' fingerprint
+        self._programs: Dict[str, _BucketProgram] = {}
+        self._programs_lock = threading.Lock()
+        self._gate = _Gate()
+        self._cache = None
+        self._fingerprint: Optional[str] = None
 
     def _note_shapes(self, xs) -> None:
-        """Record the batch signature about to be dispatched."""
+        """Record the batch signature about to be dispatched, on first
+        sight (a live capture).  Signatures ``warm()`` captured are not
+        novel."""
         sig = tuple((tuple(np.shape(x)), str(getattr(x, "dtype", "")))
                     for x in xs)
         with self._shape_lock:
-            if sig in self._seen_shapes:
+            if sig in self._seen_shapes or sig in self._warm_shapes:
                 return
             self._seen_shapes.add(sig)
             live = len(self._seen_shapes)
@@ -165,9 +292,125 @@ class InferenceModel:
 
     @property
     def compile_count(self) -> int:
-        """Number of distinct batch signatures dispatched."""
+        """Number of distinct batch signatures captured live (signatures
+        captured by ``warm()`` excluded)."""
         with self._shape_lock:
             return len(self._seen_shapes)
+
+    @property
+    def warm_count(self) -> int:
+        """Number of signatures ``warm()`` captured from the cache."""
+        with self._shape_lock:
+            return len(self._warm_shapes)
+
+    # -- programs and the persistent compile cache ------------------------
+    def fingerprint(self) -> str:
+        """Content hash of this model's weights: net class + weight dtype
+        + per-leaf (path, shape, dtype, CRC32 of the bytes).  The compile
+        cache keys on it, so a signature captured for one set of weights
+        never warms another."""
+        if self._fingerprint is not None:
+            return self._fingerprint
+        h = hashlib.sha256()
+        h.update((type(self._net).__name__ if self._net is not None
+                  else "<fn>").encode())
+        h.update(self._weight_dtype.encode())
+
+        def walk(tree, path):
+            for key in sorted(tree):
+                leaf = tree[key]
+                if isinstance(leaf, dict):
+                    walk(leaf, path + (key,))
+                    continue
+                t = leaf.detach().cpu().contiguous()
+                h.update("/".join(path + (key,)).encode())
+                h.update(str(tuple(t.shape)).encode())
+                h.update(str(t.dtype).encode())
+                h.update(struct.pack("<I", zlib.crc32(
+                    t.reshape(-1).view(torch.uint8).numpy()) & 0xFFFFFFFF))
+
+        if self._net is not None:
+            walk(self._net.params(), ())
+        self._fingerprint = h.hexdigest()[:16]
+        return self._fingerprint
+
+    def attach_compile_cache(self, cache, name: Optional[str] = None
+                             ) -> "InferenceModel":
+        """Wire a ``deploy.compile_cache.CompileCache`` into the dispatch
+        path: every signature captured live is persisted, and ``warm()``
+        on the next process start captures them all up front.  Only a
+        model with a native net qualifies: a function model has no
+        program to capture."""
+        if self._net is None:
+            raise ValueError(
+                "attach_compile_cache needs a native net (from_keras_net); "
+                "a function model has no program to capture")
+        self._cache = cache
+        if name:
+            self.name = str(name)
+        return self
+
+    def _sig(self, xs) -> Dict[str, Any]:
+        """JSON-able program signature: input shapes/dtypes + device +
+        fused top-N + weight dtype.  Joined with ``fingerprint()`` (and
+        the devices, added by the cache) it addresses one program."""
+        return {"in": [[list(np.shape(x)), str(np.asarray(x).dtype)]
+                       for x in xs],
+                "dev": str(self.device), "top_n": 0,
+                "weight_dtype": self._weight_dtype}
+
+    def _program(self, sig: Dict[str, Any]) -> Tuple[_BucketProgram, bool]:
+        """The program of ``sig``, made if there is none (not captured),
+        and whether it was made now."""
+        key = json.dumps(sig, sort_keys=True)
+        with self._programs_lock:
+            prog = self._programs.get(key)
+            if prog is not None:
+                return prog, False
+            prog = _BucketProgram(self._net, sig, self.device, self.name)
+            self._programs[key] = prog
+        return prog, True
+
+    def _capture(self, prog: _BucketProgram) -> None:
+        """Capture ``prog`` alone: no run of this model beside it."""
+        with self._gate.alone():
+            prog.capture()
+
+    def _bucket_forward(self, xs: List[np.ndarray]):
+        """A padded batch through its signature's program: a new
+        signature's first run is eager (one caller's, whoever comes
+        first), and any other caller captures it (alone) before it runs,
+        so no capture happens beside another run of this model."""
+        sig = self._sig(xs)
+        prog, new = self._program(sig)
+        with self._programs_lock:
+            warm_up, prog.warm_up_taken = not prog.warm_up_taken, True
+        if new and self._cache is not None and self._cache.load(
+                self.fingerprint(), sig, model=self.name) is None:
+            self._cache.store(self.fingerprint(), sig, model=self.name)
+        if (not warm_up and not prog.graph.captured
+                and graphs.enabled(self.device)):
+            self._capture(prog)
+        with self._gate.shared():
+            return prog.run(xs)
+
+    def warm(self) -> int:
+        """Capture every signature the compile cache holds for this
+        model's fingerprint.  A restarted server reaches full bucket
+        coverage here instead of after N live captures, and
+        ``compile_count`` stays 0 for every warmed signature.  Returns
+        the number of programs installed."""
+        if self._cache is None:
+            return 0
+        n = 0
+        for sig, _ in self._cache.load_all(self.fingerprint(),
+                                           model=self.name):
+            self._capture(self._program(sig)[0])
+            with self._shape_lock:
+                self._warm_shapes.add(tuple((tuple(s), d)
+                                            for s, d in sig["in"]))
+            n += 1
+        return n
 
     def weight_nbytes(self) -> int:
         """Device bytes of the served weights (quantized leaves at their
@@ -219,14 +462,7 @@ class InferenceModel:
             load_jax_params(net, quantize_pytree(
                 net.params(), bits=4 if weight_dtype == "int4" else 8))
         net = net.to(device).eval()
-
-        def forward(inputs: List[np.ndarray]):
-            with torch.inference_mode():
-                xs = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                      for x in inputs]
-                return _f32_out(net(*xs))
-
-        m = cls(forward, **kw)
+        m = cls(None, **kw)
         m._net, m._weight_dtype, m.device = net, weight_dtype, device
         return m
 
@@ -266,7 +502,8 @@ class InferenceModel:
                         for i in range(len(outs[0]))]
             return np.concatenate(outs, axis=0)
         self._note_shapes(xs)
-        out = self._forward(xs)
+        out = (self._bucket_forward(xs) if self._forward is None
+               else self._forward(xs))
         if isinstance(out, (list, tuple)):
             return [np.asarray(o)[:n] for o in out]
         return np.asarray(out)[:n]

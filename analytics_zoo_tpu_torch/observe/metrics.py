@@ -40,6 +40,19 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...]]] = {
     "ops_kernel_selected_total": (
         "counter", "kernel routing decisions, one per call, by kernel and "
         "chosen path (cuda | reference)", ("kernel", "path")),
+    "serving_compile_cache_events_total": (
+        "counter", "persistent compile-cache outcomes "
+        "(hit|miss|corrupt|version_skew)", ("event", "model")),
+    "train_steps_total": (
+        "counter", "optimizer steps dispatched, by dispatch kind "
+        "(1|K|resident)", ("kind",)),
+    "train_step_seconds": (
+        "histogram", "host wall time of one step dispatch", ("kind",)),
+    "graph_captures_total": (
+        "counter", "CUDA graphs captured, by owner (train|serving)",
+        ("kind",)),
+    "graph_capture_seconds": (
+        "histogram", "wall time of one CUDA graph capture", ("kind",)),
     "observe_undeclared_metrics_total": (
         "counter", "emissions against names missing from CATALOG", ()),
 }

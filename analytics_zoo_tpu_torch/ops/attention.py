@@ -37,7 +37,9 @@ def _neg_like(logits):
     """-1e30 in the logits' dtype, as the JAX package's weakly typed
     NEG_INF becomes in a ``where``: -inf in float16, whose range ends at
     65504 (a Python -1e30 cannot fill a float16 tensor)."""
-    return torch.tensor(NEG_INF, device=logits.device).to(logits.dtype)
+    # a fill, not a host copy: capturable in a CUDA graph
+    return torch.full((), NEG_INF, dtype=torch.float32,
+                      device=logits.device).to(logits.dtype)
 
 
 def reference_attention(q, k, v, mask=None, causal: bool = False,

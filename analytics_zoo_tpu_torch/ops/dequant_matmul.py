@@ -36,7 +36,7 @@ from analytics_zoo_tpu_torch.ops import _build, dispatch
 BITS = (8, 4)
 
 # one per launch of the CUDA kernel, nowhere else
-LAUNCHES = dispatch.LaunchCount()
+LAUNCHES = dispatch.LaunchCount("dequant_matmul")
 
 # x types the kernel takes, with their code in the C interface; float64
 # is taken as float32, as the JAX kernel widens x to f32 in its body

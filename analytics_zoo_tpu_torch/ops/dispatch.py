@@ -20,6 +20,12 @@ raise rather than quietly run the plain version on the card.
 ``select_path`` is the one predicate behind both kernels and records every
 decision in ``ops_kernel_selected_total{kernel,path}``, so a serving run
 can show from metrics alone that its hot loop went through the kernels.
+
+Under a CUDA graph (``core/graphs.py``) the Python of a wrapper runs once,
+at the capture, and the kernel once per replay.  So a launch or a routing
+decision made while the current stream is capturing is recorded in the
+capture's ``LaunchRecord`` instead of counted, and every replay of the
+graph adds the record: the counts stay launches, not Python calls.
 The JAX package's TPU minimum-work gates (a 4096-row table, a 256x256
 weight, the flash kernel's D % 128 and L >= 2048) are not carried over:
 they come back once measured on the card.  The 4096-row gate was
@@ -29,6 +35,7 @@ table size from 1024 rows up, so it stays out.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 from typing import Iterator, Optional
@@ -41,6 +48,8 @@ _PATHS = (PATH_CUDA, PATH_REFERENCE)
 
 # the path ``forced`` pins for the duration of its block; None otherwise
 _FORCED: Optional[str] = None
+# the record of the capture in progress (one at a time in a process)
+_RECORD: Optional["LaunchRecord"] = None
 
 
 def _check_path(path: str) -> str:
@@ -77,12 +86,25 @@ def config_knob(name: str, default=None):
     return getattr(ctx.config, name, default)
 
 
-def record_selection(kernel: str, path: str) -> None:
-    """Count one routing decision."""
+def forced_path() -> Optional[str]:
+    """The path ``forced`` pins now, or None."""
+    return _FORCED
+
+
+def _count_selection(kernel: str, path: str, n: int) -> None:
     from analytics_zoo_tpu_torch.observe import metrics as _metrics
 
-    _metrics.count("ops_kernel_selected_total", 1,
+    _metrics.count("ops_kernel_selected_total", n,
                    flat=f"{kernel}/{path}", kernel=kernel, path=path)
+
+
+def record_selection(kernel: str, path: str) -> None:
+    """Count one routing decision (record it, under a capture)."""
+    rec = _capturing()
+    if rec is not None:
+        rec.selections[(kernel, path)] += 1
+    else:
+        _count_selection(kernel, path, 1)
 
 
 def select_path(kernel: str, *, device: torch.device,
@@ -124,16 +146,69 @@ def select_path(kernel: str, *, device: torch.device,
     return path
 
 
-class LaunchCount:
-    """A kernel wrapper's launch count: one per launch, thread-safe."""
+class LaunchRecord:
+    """What one CUDA graph launches per replay: launches by counter and
+    routing decisions by (kernel, path)."""
 
     def __init__(self) -> None:
+        self.launches: collections.Counter = collections.Counter()
+        self.selections: collections.Counter = collections.Counter()
+
+    def replay(self) -> None:
+        """Count one replay of the graph."""
+        for counter, n in self.launches.items():
+            counter._bump(n)
+        for (kernel, path), n in self.selections.items():
+            _count_selection(kernel, path, n)
+
+    def per_replay(self) -> dict:
+        """{kernel counter name: launches per replay}."""
+        return {c.name: n for c, n in self.launches.items()}
+
+
+def _capturing() -> Optional[LaunchRecord]:
+    """The capture's record when the calling thread's current stream is
+    the capturing one (the autograd engine's device thread runs a
+    captured backward on it too), else None."""
+    rec = _RECORD
+    if rec is None or not torch.cuda.is_current_stream_capturing():
+        return None
+    return rec
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[LaunchRecord]:
+    """Record, instead of counting, the launches and routing decisions
+    made on a capturing stream inside the block (``core/graphs.py`` wraps
+    each capture in it, under its process-wide capture lock)."""
+    global _RECORD
+    rec = LaunchRecord()
+    before, _RECORD = _RECORD, rec
+    try:
+        yield rec
+    finally:
+        _RECORD = before
+
+
+class LaunchCount:
+    """A kernel wrapper's launch count: one per launch, thread-safe; a
+    launch inside a graph capture counts at each replay instead."""
+
+    def __init__(self, name: str = "") -> None:
+        self.name = name
         self._lock = threading.Lock()
         self._n = 0
 
     def add(self) -> None:
+        rec = _capturing()
+        if rec is not None:
+            rec.launches[self] += 1
+        else:
+            self._bump(1)
+
+    def _bump(self, n: int) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:

@@ -42,8 +42,8 @@ _COMBINER_CODE = {"sum": 0, "mean": 1, "sqrtn": 2}
 _INT32 = (-(1 << 31), (1 << 31) - 1)
 
 # one per launch of each CUDA kernel, nowhere else
-LAUNCHES = dispatch.LaunchCount()           # forward
-BWD_LAUNCHES = dispatch.LaunchCount()       # backward
+LAUNCHES = dispatch.LaunchCount("embedding_bag")               # forward
+BWD_LAUNCHES = dispatch.LaunchCount("embedding_bag_bwd")       # backward
 
 # the forward kernel's table types, by their code in the C entry
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,

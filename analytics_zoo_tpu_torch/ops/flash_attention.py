@@ -55,10 +55,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # one per launch of each CUDA kernel, nowhere else
-LAUNCHES = dispatch.LaunchCount()           # forward (kernel 4)
-LSE_LAUNCHES = dispatch.LaunchCount()       # forward with lse (kernel 5)
-BWD_DQ_LAUNCHES = dispatch.LaunchCount()    # backward dQ (kernel 6)
-BWD_DKV_LAUNCHES = dispatch.LaunchCount()   # backward dK, dV (kernel 7)
+LAUNCHES = dispatch.LaunchCount("flash_attention")             # kernel 4
+LSE_LAUNCHES = dispatch.LaunchCount("flash_attention_lse")     # kernel 5
+BWD_DQ_LAUNCHES = dispatch.LaunchCount("flash_attention_bwd_dq")    # kernel 6
+BWD_DKV_LAUNCHES = dispatch.LaunchCount("flash_attention_bwd_dkv")  # kernel 7
 
 _FWD_ARGS = [ctypes.c_int] * 6 + [ctypes.c_int64] * 9 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]

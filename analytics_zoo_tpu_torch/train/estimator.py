@@ -40,6 +40,25 @@ What carries over from the JAX design:
   scales every later update by a device scalar, ``lr_scale``.
 - **No per-step host reads.** The guard's counters and the loss sums
   stay on the device and are read back once per epoch.
+- **One dispatch per step, or per K steps** (``core/graphs.py``).  A
+  training step updates every piece of its state in place — the
+  parameters, the optimizer state, the guard, the loss sums, read with
+  ``lr_scale`` and a NaN-fault scalar from device tensors the host fills
+  between dispatches — so on the card it is captured once into a CUDA
+  graph and replayed: the counterpart of the JAX package's one jitted
+  step.  ``steps_per_execution = K`` captures K steps over a (K·B)-row
+  superbatch copied into the graph's static inputs (the ``lax.scan``);
+  an epoch's ``steps % K`` tail steps run one at a time, as in the JAX
+  package.  The device-resident path keeps the epoch's permutation in a
+  static buffer and the batch offset in a device counter the graph
+  advances, so one graph of K steps (or one) serves every chunk of every
+  epoch: the counterpart of the JAX package's one program per epoch,
+  replayed ``steps / K`` times.  A program's first step runs eagerly (its
+  warm-up), the next captures; programs are kept by their shapes and
+  dropped when the tensors they hold change (a new optimizer state,
+  replaced parameters, another frozen set).  An estimator's programs
+  capture into one memory pool, since they never replay at once.  On
+  the CPU the same static-buffer code runs eagerly.
 - **Checkpoints and resume** (``set_checkpoint``, ``fit(resume=True)``,
   ``train/checkpoint.py``): a snapshot holds the parameters (the JAX
   tree), the flat optimizer state, and ``meta`` — the step and epoch
@@ -67,11 +86,13 @@ import pickle
 import signal
 import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.core import graphs
 from analytics_zoo_tpu_torch.core.context import (ZooContext, get_zoo_context,
                                                   resolve_device)
 from analytics_zoo_tpu_torch.core.profiling import TIMERS
@@ -79,6 +100,7 @@ from analytics_zoo_tpu_torch.core.triggers import (EveryEpoch, Trigger,
                                                    TriggerState)
 from analytics_zoo_tpu_torch.nn import metrics as metrics_lib
 from analytics_zoo_tpu_torch.nn import objectives
+from analytics_zoo_tpu_torch.observe import metrics as obs
 from analytics_zoo_tpu_torch.robust import (RetryPolicy, TrainingPreempted,
                                             faults)
 from analytics_zoo_tpu_torch.train import checkpoint as ckpt_lib
@@ -130,6 +152,90 @@ def _to_f32(preds):
 
 def _has_float(arrays) -> bool:
     return any(np.issubdtype(a.dtype, np.floating) for a in arrays)
+
+
+def _spans(steps: int, k: int) -> List[tuple]:
+    """An epoch's dispatches as in-epoch step ranges: ``steps // k``
+    chunks of ``k`` steps, then the tail one step at a time (the JAX
+    package's rule)."""
+    n_chunks = steps // k if k > 1 else 0
+    return ([(c * k, (c + 1) * k) for c in range(n_chunks)]
+            + [(s, s + 1) for s in range(n_chunks * k, steps)])
+
+
+class _ResidentFeed:
+    """The device-resident path's static inputs: the arrays, the epoch's
+    permutation (filled each epoch) and the batch offset, a device
+    counter the step programs advance."""
+
+    def __init__(self, arrays, n: int, batch: int, device):
+        self.arrays = list(arrays)
+        self.batch = batch
+        self.perm = torch.empty(n, dtype=torch.int64, device=device)
+        self.offset = torch.zeros((), dtype=torch.int64, device=device)
+        self.lanes = torch.arange(batch, dtype=torch.int64, device=device)
+        self.key = self.key_of(arrays, n, batch)
+
+    @staticmethod
+    def key_of(arrays, n: int, batch: int) -> tuple:
+        """What a feed's programs hold: the arrays' tensors and shapes."""
+        return (n, batch) + tuple((id(a), a.data_ptr(), a.shape)
+                                  for a in arrays)
+
+    def rows(self):
+        """The next batch (a list of gathered arrays), advancing the
+        offset on the device."""
+        idx = self.perm.index_select(0, self.offset + self.lanes)
+        self.offset.add_(self.batch)
+        return [a.index_select(0, idx) for a in self.arrays]
+
+
+class _StepProgram:
+    """``k`` train steps over static inputs, as one ``StepGraph``: host
+    batches are copied into the program's own buffers before each run;
+    resident batches are gathered inside it from the feed.  The step
+    function holds the estimator weakly and the program not at all, so
+    no reference cycle keeps a graph's memory alive after its owner."""
+
+    def __init__(self, est: "Estimator", kind: str, feed, k: int, params,
+                 mask):
+        dev = est.device
+        owner = weakref.ref(est)
+
+        def step(*args):
+            owner()._train_step(*args)
+
+        self.kind = kind
+        self.nan_scale = nan_scale = torch.ones((), dtype=torch.float32,
+                                                device=dev)
+        self._nan = False
+        self.static = static = ([torch.empty_like(t) for t in feed]
+                                if kind == "host" else None)
+        if kind == "host":
+            b = feed[0].shape[0] // k
+
+            def fn():
+                for j in range(k):
+                    rows = [t[j * b:(j + 1) * b] for t in static]
+                    step(params, rows[:-1], rows[-1], mask, nan_scale)
+        else:
+            def fn():
+                for _ in range(k):
+                    rows = feed.rows()
+                    step(params, rows[:-1], rows[-1], mask, nan_scale)
+
+        self.graph = graphs.StepGraph(
+            fn, dev, generators=est._generators, pool=est._graph_pool(),
+            name=f"train step ({kind}, {k} step{'s' if k > 1 else ''})")
+
+    def run(self, feed, nan_loss: bool) -> None:
+        if self.kind == "host":
+            for t, src in zip(self.static, feed):
+                t.copy_(src)
+        if nan_loss != self._nan:
+            self.nan_scale.fill_(float("nan") if nan_loss else 1.0)
+            self._nan = nan_loss
+        self.graph()
 
 
 def _pickled(state) -> np.ndarray:
@@ -214,6 +320,18 @@ class Estimator:
         self._pending_resume = None
         self._preempt = threading.Event()
         self._sigterm_handled = False
+        # the step programs (graphs on the card) by dispatch key, valid
+        # while the tensors they hold stay the live ones (_programs_key);
+        # the cached update mask and its key; the resident path's feed;
+        # the generators the captured steps draw from; the memory pool
+        # the programs' graphs share (they never replay at the same time)
+        self._programs: Dict[tuple, "_StepProgram"] = {}
+        self._programs_key = None
+        self._pool = None
+        self._mask_key = None
+        self._mask = None
+        self._feed: Optional[_ResidentFeed] = None
+        self._generators: tuple = ()
 
     # ------------------------------------------------------------------
     # configuration
@@ -305,15 +423,22 @@ class Estimator:
     def _update_mask(self, params) -> Optional[torch.Tensor]:
         """True where the flat vector's element may move: False over the
         parameters of the model's frozen top-level layers; None when
-        nothing is frozen."""
-        frozen = getattr(self.model, "_frozen", None)
-        if not frozen:
-            return None
-        held = {id(p) for name in frozen
-                for p in self.model.subtree(name).parameters()}
-        return torch.cat([torch.full((p.numel(),), id(p) not in held,
-                                     dtype=torch.bool, device=self.device)
-                          for p in params])
+        nothing is frozen.  The same tensor while the frozen set and the
+        parameters stay, so a captured step can keep reading it."""
+        frozen = frozenset(getattr(self.model, "_frozen", None) or ())
+        key = (frozen, tuple(id(p) for p in params))
+        if key == self._mask_key:
+            return self._mask
+        mask = None
+        if frozen:
+            held = {id(p) for name in frozen
+                    for p in self.model.subtree(name).parameters()}
+            mask = torch.cat([torch.full((p.numel(),), id(p) not in held,
+                                         dtype=torch.bool,
+                                         device=self.device)
+                              for p in params])
+        self._mask_key, self._mask = key, mask
+        return mask
 
     # ------------------------------------------------------------------
     # the forward and the train step
@@ -346,17 +471,16 @@ class Estimator:
                 loss = loss + penalty
         return loss
 
-    def _train_step(self, params, xs, y, mask=None,
-                    nan_loss: bool = False) -> None:
+    def _train_step(self, params, xs, y, mask, nan_scale) -> None:
         """One step: forward, backward, update — all queued on the device,
-        no host read.  The update is scaled by ``lr_scale`` and zero where
-        ``mask`` is False.  A non-finite loss keeps every parameter and
-        every optimizer-state tensor as it was (``nan_loss``: the
-        ``estimator.step`` fault on a batch without float arrays makes it
-        so)."""
-        loss = self._objective(xs, y)
-        if nan_loss:
-            loss = loss * float("nan")
+        no host read, every result written in place (the parameters, the
+        optimizer state, the guard and the loss sums), so the step can be
+        captured and replayed.  The update is scaled by ``lr_scale`` and
+        zero where ``mask`` is False.  A non-finite loss keeps every
+        parameter and every optimizer-state tensor as it was;
+        ``nan_scale``, a device scalar, multiplies the loss: 1, or NaN for
+        the ``estimator.step`` fault on a batch without float arrays."""
+        loss = self._objective(xs, y) * nan_scale
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         g = self._flat([gr if gr is not None else torch.zeros_like(p)
                         for gr, p in zip(grads, params)])
@@ -367,33 +491,108 @@ class Estimator:
             updates = torch.where(mask, updates, 0.0)
         loss = loss.detach()
         ok = torch.isfinite(loss)
-        p_new = torch.where(ok, p + updates, p)
-        self.opt_state = [torch.where(ok, n, o)
-                          for n, o in zip(new_state, self.opt_state)]
         with torch.no_grad():
+            p_new = torch.where(ok, p + updates, p)
+            torch._foreach_copy_(self.opt_state, [
+                torch.where(ok, n, o)
+                for n, o in zip(new_state, self.opt_state)])
             torch._foreach_copy_(params, [
                 v.view_as(q) for v, q in zip(
                     torch.split(p_new, [q.numel() for q in params]),
                     params)])
-        bad = (~ok).to(torch.int32)
-        consec = (self._guard[1] + 1) * bad
-        self._guard = torch.stack([self._guard[0] + bad, consec,
-                                   torch.maximum(self._guard[2], consec)])
-        self._loss_acc = self._loss_acc + torch.stack(
-            [torch.where(ok, loss, torch.zeros_like(loss)),
-             ok.to(torch.float32)])
+            bad = (~ok).to(torch.int32)
+            consec = (self._guard[1] + 1) * bad
+            self._guard.copy_(torch.stack([
+                self._guard[0] + bad, consec,
+                torch.maximum(self._guard[2], consec)]))
+            self._loss_acc.add_(torch.stack(
+                [torch.where(ok, loss, torch.zeros_like(loss)),
+                 ok.to(torch.float32)]))
 
     def _fresh_accumulators(self, saved=None):
-        """Zeroed epoch accumulators, or ``saved`` ones (a resume in the
-        middle of an epoch), and the device copy of ``lr_scale``."""
-        loss_acc, guard = saved if saved is not None else (
-            np.zeros(2, np.float32), np.zeros(3, np.int32))
-        self._loss_acc = torch.as_tensor(loss_acc, dtype=torch.float32,
+        """Zero the epoch accumulators, or fill them with ``saved`` ones
+        (a resume in the middle of an epoch), and the device copy of
+        ``lr_scale``: in place, so a captured step keeps its tensors."""
+        if self._loss_acc is None:
+            self._loss_acc = torch.zeros(2, dtype=torch.float32,
                                          device=self.device)
-        self._guard = torch.as_tensor(guard, dtype=torch.int32,
+            self._guard = torch.zeros(3, dtype=torch.int32,
                                       device=self.device)
-        self._lr_scale_t = torch.tensor(self._lr_scale, dtype=torch.float32,
-                                        device=self.device)
+            self._lr_scale_t = torch.ones((), dtype=torch.float32,
+                                          device=self.device)
+        if saved is None:
+            self._loss_acc.zero_()
+            self._guard.zero_()
+        else:
+            self._loss_acc.copy_(torch.as_tensor(np.asarray(saved[0]),
+                                                 dtype=torch.float32))
+            self._guard.copy_(torch.as_tensor(np.asarray(saved[1]),
+                                              dtype=torch.int32))
+        self._lr_scale_t.fill_(self._lr_scale)
+
+    # ------------------------------------------------------------------
+    # dispatch: one program per step, or per K steps
+    # ------------------------------------------------------------------
+    def _programs_for(self, params, mask) -> None:
+        """Drop every step program when the tensors they would hold are
+        no longer the live ones (called at each epoch's start)."""
+        key = (tuple(p.data_ptr() for p in params),
+               tuple(t.data_ptr() for t in self.opt_state),
+               None if mask is None else mask.data_ptr(),
+               self._loss_acc.data_ptr(), self._guard.data_ptr(),
+               self._lr_scale_t.data_ptr(), self._generators,
+               self.compute_dtype, id(self.tx), id(self.loss_fn))
+        if key != self._programs_key:
+            self._programs.clear()
+            self._programs_key = key
+
+    def _graph_pool(self):
+        """The step programs' shared graph memory pool (None off the
+        card)."""
+        if self._pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _resident_feed(self, arrays, perm, batch: int) -> _ResidentFeed:
+        """The resident programs' feed over ``arrays`` (the live one when
+        they are the same tensors) with ``perm`` copied in and the offset
+        at 0; a new feed drops the programs of the old one."""
+        n = int(perm.shape[0])
+        feed = self._feed
+        if feed is None or feed.key != _ResidentFeed.key_of(arrays, n,
+                                                            batch):
+            self._programs = {k: v for k, v in self._programs.items()
+                              if k[0] != "resident"}
+            feed = self._feed = _ResidentFeed(arrays, n, batch, self.device)
+        feed.perm.copy_(perm)
+        feed.offset.zero_()
+        return feed
+
+    def _dispatch(self, kind: str, feed, k: int, nan_loss: bool, params,
+                  mask) -> None:
+        """``k`` steps as one program launch.  ``kind`` "host": ``feed``
+        is ``[inputs..., label]`` of ``k`` batches stacked along rows;
+        "resident": ``feed`` is the epoch's ``_ResidentFeed``."""
+        if kind == "host":
+            key = ("host", k) + tuple((tuple(t.shape), t.dtype)
+                                      for t in feed)
+        else:
+            key = ("resident", k) + feed.key
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = _StepProgram(self, kind, feed, k, params, mask)
+            self._programs[key] = prog
+        label = kind if kind == "resident" else ("K" if k > 1 else "1")
+        t0 = time.perf_counter()
+        captures = prog.graph.captured
+        prog.run(feed, nan_loss)
+        if not captures and prog.graph.captured:
+            obs.count("graph_captures_total", kind="train")
+            obs.observe("graph_capture_seconds", prog.graph.capture_s,
+                        kind="train")
+        obs.observe("train_step_seconds", time.perf_counter() - t0,
+                    kind=label)
+        obs.count("train_steps_total", k, kind=label)
 
     def _read_epoch(self):
         """The one host read of an epoch: (mean finite loss, bad steps,
@@ -524,12 +723,9 @@ class Estimator:
         pair = getattr(self.loss_fn, "batch_structured", False)
         depth = int(self.ctx.config.data_prefetch)
         stager = prefetch_lib.HostStager(self.device, slots=depth + 2)
-        # K > 1: K batches gathered and copied as one chunk, run as K
-        # steps (the same step sequence as K = 1)
-        k = max(1, int(self.ctx.config.steps_per_execution))
-        n_chunks = steps // k if k > 1 else 0
-        spans = ([(c * k, (c + 1) * k) for c in range(n_chunks)]
-                 + [(s, s + 1) for s in range(n_chunks * k, steps)])
+        # K > 1: K batches gathered and copied as one chunk, run as one
+        # K-step program (the same step sequence as K = 1)
+        spans = _spans(steps, self._steps_per_execution())
 
         def prep(item):
             s0, s1, rows = item
@@ -552,10 +748,14 @@ class Estimator:
             try:
                 for s0, s1, tensors, event, nan_loss in it:
                     stager.ready(event)
-                    for s in range(max(s0, start), s1):
+                    if start <= s0:
+                        yield "host", tensors, s1 - s0, nan_loss
+                        continue
+                    # a resume inside a chunk: its other steps one by one
+                    for s in range(start, s1):
                         off = (s - s0) * batch_size
-                        yield [t[off:off + batch_size]
-                               for t in tensors], nan_loss
+                        yield ("host", [t[off:off + batch_size]
+                                        for t in tensors], 1, nan_loss)
             finally:
                 if hasattr(it, "close"):
                     it.close()
@@ -568,12 +768,14 @@ class Estimator:
                       validation_data, end_trigger, shuffle, verbose,
                       dropouts):
         """Every epoch's permutation and every batch's gather on the
-        device: no host-to-device bytes per batch.  Resume and preemption
-        act at epoch boundaries, as on the JAX package's one-dispatch
-        resident epochs."""
+        device: no host-to-device bytes per batch, and one program launch
+        per K steps (``_ResidentFeed``).  Resume and preemption act at
+        epoch boundaries, as on the JAX package's one-dispatch resident
+        epochs."""
         n = int(xs[0].shape[0])
         pair = getattr(self.loss_fn, "batch_structured", False)
         seed = self.ctx.config.seed
+        spans = _spans(steps, self._steps_per_execution())
 
         def poisoned(arrays):
             """The epoch's arrays, float values NaN at the rows an
@@ -592,7 +794,6 @@ class Estimator:
 
         def batches(epoch, start):
             arrays = poisoned(xs + [y])
-            perm = None
             if shuffle:
                 gen = torch.Generator(device=self.device).manual_seed(
                     seed + 7919 * epoch)
@@ -600,13 +801,11 @@ class Estimator:
                                                   device=self.device), n)
                         if pair else torch.randperm(n, generator=gen,
                                                     device=self.device))
-            for s in range(steps):
-                if perm is None:
-                    yield [a[s * batch_size:(s + 1) * batch_size]
-                           for a in arrays], False
-                else:
-                    idx = perm[s * batch_size:(s + 1) * batch_size]
-                    yield [a.index_select(0, idx) for a in arrays], False
+            else:
+                perm = torch.arange(n, device=self.device)
+            feed = self._resident_feed(arrays, perm, batch_size)
+            for s0, s1 in spans:
+                yield "resident", feed, s1 - s0, False
 
         return self._epochs(batches, steps, batch_size, epochs,
                             validation_data, end_trigger, verbose, dropouts,
@@ -659,7 +858,7 @@ class Estimator:
             try:
                 for tensors, event, nan_loss in it:
                     stager.ready(event)
-                    yield tensors, nan_loss
+                    yield "host", tensors, 1, nan_loss
             finally:
                 if hasattr(it, "close"):
                     it.close()
@@ -669,6 +868,14 @@ class Estimator:
         return self._epochs(batches, steps, batch_size, epochs,
                             validation_data, end_trigger, verbose, dropouts,
                             mid_epoch=False)
+
+    def _steps_per_execution(self) -> int:
+        k = max(1, int(self.ctx.config.steps_per_execution))
+        if k > 1 and self._val_trigger is not None:
+            logger.warning(
+                "steps_per_execution=%d: validation/trigger checks happen "
+                "every K-th iteration (K-step chunks are one dispatch)", k)
+        return k
 
     def _steps_per_epoch(self, n: int, batch_size: int) -> int:
         steps = n // batch_size
@@ -705,12 +912,13 @@ class Estimator:
     def _epochs(self, batches, steps, batch_size, epochs, validation_data,
                 end_trigger, verbose, dropouts, mid_epoch):
         """The epoch loop shared by every data path: ``batches(epoch,
-        start)`` yields, per step, a list ``[inputs..., label]`` of device
-        tensors and whether the step's loss is to be made NaN (a fault),
-        from in-epoch step ``start`` on (always 0 unless ``mid_epoch``:
-        the path can resume inside an epoch).  Preemption,
-        the NaN policy's rollback, checkpoints and the failure retry
-        from the last checkpoint live here."""
+        start)`` yields, per dispatch, ``(kind, feed, k, nan_loss)`` —
+        ``k`` steps of ``feed`` (see ``_dispatch``) and whether their loss
+        is to be made NaN (a fault) — from in-epoch step ``start`` on
+        (always 0 unless ``mid_epoch``: the path can resume inside an
+        epoch).  Preemption, the NaN policy's rollback, checkpoints and
+        the failure retry from the last checkpoint live here; they act
+        between dispatches."""
         cfg = self.ctx.config
         retry = RetryPolicy.from_config(
             cfg, max_attempts=cfg.failure_retry_times,
@@ -746,19 +954,21 @@ class Estimator:
                 self.model.train(True)
                 for m in dropouts:
                     m.generator = self._dropout_gen
+                self._generators = ((self._dropout_gen,) if dropouts
+                                    else ())
                 params = self._trainable()
                 mask = self._update_mask(params)
+                self._programs_for(params, mask)
                 done = start
                 it = batches(epoch, start)
-                for batch, nan_loss in it:
+                for kind, feed, k, nan_loss in it:
                     if mid_epoch:
-                        # before the step: a flush never marks a finished
-                        # epoch as interrupted
+                        # before the dispatch: a flush never marks a
+                        # finished epoch as interrupted
                         self._maybe_preempt(epoch, done, epoch_rng_state)
-                    self._train_step(params, batch[:-1], batch[-1], mask,
-                                     nan_loss)
-                    done += 1
-                    self.global_step += 1
+                    self._dispatch(kind, feed, k, nan_loss, params, mask)
+                    done += k
+                    self.global_step += k
                     self._maybe_midepoch_validation(validation_data,
                                                     epoch + 1, batch_size)
                 mean_loss, bad, max_consec = self._read_epoch()
@@ -960,10 +1170,7 @@ class Estimator:
         from analytics_zoo_tpu_torch.convert import load_archive_params
 
         step, tree = self._ckpt_mgr.restore()
-        load_archive_params(self.model, tree["params"])
-        self.model.to(self.device)
-        opt = [torch.from_numpy(np.asarray(a)).to(self.device)
-               for a in tree["opt_state"]]
+        opt = [torch.from_numpy(np.asarray(a)) for a in tree["opt_state"]]
         numel = sum(p.numel() for p in self._trainable())
         if len(opt) != len(self.opt_state) or any(
                 a.shape != b.shape for a, b in zip(opt, self.opt_state)):
@@ -971,8 +1178,12 @@ class Estimator:
                 f"checkpoint step {step} holds an optimizer state of "
                 f"{[tuple(a.shape) for a in opt]}, not this estimator's "
                 f"({numel} trainable parameters)")
-        self.opt_state = opt
-        self._state_numel = numel
+        # into the live tensors, which captured steps hold
+        load_archive_params(self.model, tree["params"])
+        self.model.to(self.device)
+        with torch.no_grad():
+            for live, saved in zip(self.opt_state, opt):
+                live.copy_(saved)
         meta = tree["meta"]
         self.global_step = int(meta["global_step"])
         self.finished_epochs = int(meta["finished_epochs"])

@@ -280,7 +280,12 @@ def exponential_decay(init_value: float, transition_steps: int,
 def join_schedules(schedules: Sequence[Schedule],
                    boundaries: Sequence[int]) -> Schedule:
     def value(v, count):
-        return torch.as_tensor(v, dtype=torch.float32, device=count.device)
+        # a float is filled on the device, never copied from the host, so
+        # the schedule can run inside a captured step
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.float32)
+        return torch.full((), float(v), dtype=torch.float32,
+                          device=count.device)
 
     def sched(count):
         out = schedules[0](count)

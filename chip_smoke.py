@@ -192,7 +192,39 @@
    no write in flight, and one step under ``torch.profiler`` for the
    device's share) print beside phase 6's f32, with the card's name and
    power limit.
-8. Prints the kernels JSON line and, last, the ok line.
+8. Graphed dispatch phase.  Every main path above already runs through
+   CUDA graphs (``core/graphs.py``): a training step, or K of them, is one
+   replay, a serving bucket signature one captured graph, and the launch
+   counters count launches per replay times replays (a signature's first
+   request runs eagerly as the warm-up, its second captures the graph).
+   This phase
+   holds graphed against eager (``graphs.disabled()``) and times both:
+   NeuralCF at the ML-1M width on phase 4's data and optimizer, two
+   epochs each from the same weights, on the host path and the resident
+   path at ``steps_per_execution`` 1 and 8 (per-epoch losses within rtol
+   1e-4, weights reported; every step 4 bag backwards; every replay 4
+   bag forwards and 4 backwards per step it holds), one epoch of each
+   profiled for device ms per step, the busy share and the host's graph
+   and kernel launches; BERT-Base fine-tuned at phase 6/7's
+   configuration in bf16 and f32, two epochs each (one step program, 12
+   lse, dQ and dK/dV launches per replay; losses and weights equal bit
+   for bit; the card's peak and held memory), one step profiled, then one graphed bf16 device-resident epoch (a program of
+   its own, replayed every step after its first); BERT-Base (f32, buckets 1, 8, 32) and int8 NeuralCF (buckets
+   1, 8, 64, 256) served from bucket graphs that fill a ``CompileCache``
+   in a temporary directory, BERT at the batcher's 8-row batches from 8
+   threads eager, graphed, graphed, eager (p50/p99, one forward
+   profiled; answers within 1e-5); then a second process
+   (``chip_smoke.py --serve-warm DIR``, a real restart) warms both
+   models from the cache and serves 64 single requests each through
+   ``DynamicBatcher`` with ``compile_count == 0``; its answers, the
+   cover batches and the served requests, are held element by element
+   against the first process's (within 1e-6 of the largest).  Phases 4, 6 and 7 run graphed: phase 7's run U and NCF
+   rollback leg must each be one step program replayed at every step
+   after its first (the NaN steps and the rolled-back epoch included),
+   and its SIGTERM-and-resume runs graphed.  Capture seconds and launches
+   per replay print for every program, with the card's name and power
+   limit.
+9. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -1249,7 +1281,7 @@ def bert_serving_phase(torch, eb, dq, fa):
     del net
     setup_s = time.perf_counter() - t0
     forwards = [0]
-    plain_forward = im._forward
+    plain_forward = im._bucket_forward
 
     rows = []
 
@@ -1258,11 +1290,16 @@ def bert_serving_phase(torch, eb, dq, fa):
         rows.append(int(xs[0].shape[0]))
         return plain_forward(xs)
 
-    im._forward = counted
+    im._bucket_forward = counted
     short = bert_requests(48, 128, SEED + 2)
     long = bert_requests(8, 512, SEED + 3)
-    for xs in (short[0], long[0], batch_of(short[:32])):
-        im.predict(xs)                  # first calls: cuBLAS and loads
+    # first calls: cuBLAS, the kernels' loads, and one graph per bucket
+    # signature (every bucket at both lengths: a signature's first
+    # request runs eagerly, its second captures it)
+    for reqs in (short, long):
+        for b in (1, 8, 32):
+            for _ in range(2):
+                im.predict(batch_of((reqs * 4)[:b]))
 
     # the main path's window: counts start at 0 here
     reset_counts(eb, dq, fa)
@@ -1915,6 +1952,10 @@ def ft_bert(torch, eb, dq, fa, root, f32):
         undo()
     launches = flash_counts(fa)
     others = (eb.LAUNCHES.value, eb.BWD_LAUNCHES.value, dq.LAUNCHES.value)
+    # the spy sees the launchers' Python calls: the step program's eager
+    # warm-up step and its capture; the replays launch without Python
+    u_programs = programs_of(est._programs)
+    python_steps = len(est._programs) + len(u_programs)
     counters = METRICS.delta(window)["counters"]
     sel = {f"{k}/{p}": counters.get(
         f'ops_kernel_selected_total{{kernel="{k}",path="{p}"}}', 0)
@@ -2047,6 +2088,7 @@ def ft_bert(torch, eb, dq, fa, root, f32):
         "flush_bytes": flush_bytes,
         "resumed_to": resumed, "resume_wall_s": resume_wall,
         "launches": launches, "launch_dtypes": dtypes, "selected": sel,
+        "U_programs": u_programs,
         "bf16": {"ms_per_step": quiet, "samples_per_s": 1e3 * batch / quiet,
                  "profiled_step": profile,
                  "U_samples_per_s_epochs": [h["throughput"]
@@ -2075,12 +2117,15 @@ def ft_bert(torch, eb, dq, fa, root, f32):
                        "flash_attention_bwd/cuda": n_block * u_steps,
                        "flash_attention_bwd/reference": 0}
             or any(v and v != ["torch.bfloat16"] for v in dtypes.values())
-            or len(seen["flash_attention_fwd_lse"]) != n_block * u_steps):
+            or len(seen["flash_attention_fwd_lse"]) != n_block * python_steps):
         raise AssertionError(
             f"bf16 fine-tuning launched {launches} (want {want_counts}) on "
             f"{dtypes}, NCF kernels {others}, selections {sel}")
     if not u_loss[-1] < u_loss[0]:
         raise AssertionError(f"bf16 BERT loss did not fall: {u_loss}")
+    if [v["replays"] for v in u_programs.values()] != [u_steps - 1]:
+        raise AssertionError(f"run U did not replay one step graph: "
+                             f"{u_programs}")
     if preempted != preempt_at or restore_bad:
         raise AssertionError(f"preemption at {preempted} (want "
                              f"{preempt_at}); restored values that differ "
@@ -2148,6 +2193,7 @@ def ft_ncf(torch, eb, root):
                                          epochs=3, verbose=False)]
     rollbacks = TIMERS.count("robust/nan_rollbacks") - n0
     lr_scale = ncf.estimator._lr_scale
+    rollback_programs = programs_of(ncf.estimator._programs)
     losses = [h["loss"] for h in hist]
     trained = 4 * steps                 # epoch 2 ran twice
 
@@ -2177,7 +2223,8 @@ def ft_ncf(torch, eb, root):
     out = {"rollback": {"nan_steps_at": bad, "max_bad_steps": max_bad,
                         "rollbacks": rollbacks, "lr_scale": lr_scale,
                         "epoch_loss": losses,
-                        "finished_epochs": ncf.estimator.finished_epochs},
+                        "finished_epochs": ncf.estimator.finished_epochs,
+                        "programs": rollback_programs},
            "grad_accum": {"batch": TRAIN_BATCH // 2, "accum_steps": 2,
                           "lr": ACCUM_LR, "updates": updates,
                           "full_batch_steps": steps,
@@ -2187,8 +2234,12 @@ def ft_ncf(torch, eb, root):
            "save_load_model_bit_equal": bool(np.array_equal(a, b)),
            "training_steps": trained, "launches": launches}
     log("fault_tolerant_ncf", json.dumps(out))
+    # one step program, its first step eager, the rest (the NaN steps and
+    # the rolled-back epoch's rerun included) replays
     if (rollbacks != 1 or lr_scale != 0.5 or len(losses) != 3
-            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]):
+            or not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+            or [v["replays"] for v in rollback_programs.values()]
+            != [4 * steps - 1]):
         raise AssertionError(f"NCF rollback: {out['rollback']}")
     if (updates != steps or accum_diff > ACCUM_ATOL
             or moved < 10 * ACCUM_ATOL):
@@ -2229,6 +2280,482 @@ def fault_tolerant_phase(torch, eb, dq, fa, f32, card):
         "f32_ms_per_step": bert["f32_phase6"]["ms_per_step"],
         **bert["checkpoint"]}))
     return bert_launches, ncf_launches
+
+
+# ---------------------------------------------------------------------------
+# graphed dispatch phase
+
+
+def programs_of(programs):
+    """What each captured program of an Estimator or InferenceModel did:
+    capture seconds, replays, kernel launches per replay."""
+    return {str(key if isinstance(key, str) else key[:2]): {
+        "steps": None if isinstance(key, str) else key[1],
+        "capture_s": p.graph.capture_s, "replays": p.graph.replays,
+        "launches_per_replay": p.graph.record.per_replay()}
+        for key, p in programs.items() if p.graph.captured}
+
+
+def graph_launches(prof):
+    """Graph launches and kernel launches the host made under ``prof``."""
+    keys = {"graph": ("cudaGraphLaunch",),
+            "kernel": ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernelEx", "cuLaunchKernel")}
+    return {k: sum(e.count for e in prof.key_averages() if e.key in v)
+            for k, v in keys.items()}
+
+
+def ncf_leg(torch, init, data, k, graphed, epochs=2):
+    """NeuralCF at the ML-1M width from ``init`` (phase 4's data and
+    optimizer), ``epochs`` epochs at ``steps_per_execution = k``, graphed
+    or with graphs off; returns the net and its history."""
+    import contextlib
+
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    init_zoo_context(steps_per_execution=k)
+    reset_name_scope()
+    ncf = NeuralCF(USERS, ITEMS, class_num=5, user_embed=20, item_embed=20,
+                   hidden_layers=(40, 20, 10), mf_embed=20, device="cuda")
+    load_jax_params(ncf.model, init)
+    ncf.compile(optimizer=Adam(lr=1e-3),
+                loss="sparse_categorical_crossentropy")
+    with contextlib.nullcontext() if graphed else graphs.disabled():
+        hist = ncf.fit(data[0], data[1], batch_size=TRAIN_BATCH,
+                       epochs=epochs, verbose=False)
+    torch.cuda.synchronize()
+    init_zoo_context()
+    return ncf, [dict(h) for h in hist]
+
+
+def profile_ncf_epoch(torch, ncf, data, graphed):
+    """One more epoch under ``torch.profiler``: device and wall ms per
+    step, the busy share, and the host's graph and kernel launches."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.core import graphs
+
+    est = ncf.estimator
+    steps0 = est.global_step
+    torch.cuda.synchronize()
+    with contextlib.nullcontext() if graphed else graphs.disabled():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ncf.fit(data[0], data[1], batch_size=TRAIN_BATCH,
+                    epochs=est.finished_epochs + 1, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    steps = est.global_step - steps0
+    busy = sum(device_us(e) for e in kernel_events(torch, prof)) / 1e3
+    return {"wall_ms_per_step": 1e3 * wall / steps,
+            "device_ms_per_step": busy / steps,
+            "device_busy_share": busy / (1e3 * wall),
+            "host_launches_per_step": {
+                k: v / steps for k, v in graph_launches(prof).items()}}
+
+
+def graphed_ncf_training(torch, eb):
+    """NCF training eager against graphed: host and resident paths, K = 1
+    and 8, two epochs each from the same weights."""
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.data import generate_movielens_like
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    users, items, ratings = generate_movielens_like(seed=SEED)
+    u = users[:, None].astype(np.int32)
+    i = items[:, None].astype(np.int32)
+    y = (ratings - 1).astype(np.int32)
+    steps = len(y) // TRAIN_BATCH
+    reset_name_scope()
+    init = export_params(NeuralCF(USERS, ITEMS, device="cuda").model)
+    host = ([u, i], y)
+    dev = ([torch.from_numpy(u).cuda(), torch.from_numpy(i).cuda()],
+           torch.from_numpy(y).cuda())
+    legs, worst = {}, 0.0
+    for path, data in (("host", host), ("resident", dev)):
+        for k in (1, 8):
+            leg = {}
+            for mode in ("eager", "graphed"):
+                b0 = eb.BWD_LAUNCHES.value
+                ncf, hist = ncf_leg(torch, init, data, k, mode == "graphed")
+                est = ncf.estimator
+                leg[mode] = {
+                    **rates(hist, steps),
+                    "bag_bwd_launches": eb.BWD_LAUNCHES.value - b0,
+                    "steps": est.global_step,
+                    "programs": programs_of(est._programs),
+                    "weights": export_params(ncf.model)}
+                if path == "host" and k == 1 or mode == "graphed":
+                    leg[mode]["profile"] = profile_ncf_epoch(
+                        torch, ncf, data, mode == "graphed")
+            a, b = leg["graphed"], leg["eager"]
+            leg["loss_max_rel_diff"] = max(
+                abs(x - z) / abs(z)
+                for x, z in zip(a["epoch_loss"], b["epoch_loss"]))
+            wa, wb = a.pop("weights"), b.pop("weights")
+            leg["weights_max_rel_diff"] = max(
+                float(np.abs(wa[m][n] - wb[m][n]).max()
+                      / np.abs(wb[m][n]).max()) for m in wb for n in wb[m])
+            leg["speedup"] = b["ms_per_step"] / a["ms_per_step"]
+            worst = max(worst, leg["loss_max_rel_diff"])
+            legs[f"{path}_k{k}"] = leg
+            log("graphed_ncf", f"{path} K={k}", json.dumps(leg))
+            n_steps = 2 * steps
+            for mode in ("eager", "graphed"):
+                if leg[mode]["bag_bwd_launches"] != 4 * n_steps:
+                    raise AssertionError(
+                        f"NCF {path} K={k} {mode}: {leg[mode]} bag "
+                        f"backwards over {n_steps} steps")
+            progs = a["programs"]
+            if (not progs or any(v["launches_per_replay"] != {
+                    "embedding_bag": 4 * v["steps"],
+                    "embedding_bag_bwd": 4 * v["steps"]}
+                    for v in progs.values()) or b["programs"]):
+                raise AssertionError(f"NCF {path} K={k}: graphed programs "
+                                     f"{progs}, eager {b['programs']}")
+    if worst > 1e-4:
+        raise AssertionError(f"graphed NCF training left the eager one: "
+                             f"losses {worst}")
+    return legs
+
+
+def bert_leg(torch, net, init, xs, y, compute_dtype, graphed, steps):
+    """BERT-Base at phase 6/7's configuration, two epochs from ``init``
+    graphed or with graphs off: ms per step of epoch 2, the losses, the
+    weights after them, the card's memory (the peak over the two epochs
+    and what stays reserved after them, in GiB), the step programs and
+    one profiled step."""
+    import contextlib
+
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.train.optimizers import AdamWeightDecay
+
+    def held_gib():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved() / 2 ** 30
+
+    cfg = BERT_TRAIN
+    load_jax_params(net, init)
+    net.compile(AdamWeightDecay(cfg["lr"], warmup_portion=0.1,
+                                total=steps * 3),
+                "sparse_categorical_crossentropy_with_logits",
+                device="cuda", compute_dtype=compute_dtype)
+    before = held_gib()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.nullcontext() if graphed else graphs.disabled():
+        hist = [dict(h) for h in net.fit(xs, y, batch_size=cfg["batch"],
+                                         epochs=2, verbose=False)]
+        memory = {"reserved_before_fit": before,
+                  "peak_allocated": torch.cuda.max_memory_allocated()
+                  / 2 ** 30,
+                  "peak_reserved": torch.cuda.max_memory_reserved() / 2 ** 30,
+                  "reserved_after_fit": held_gib()}
+        weights = export_params(net)
+        b = cfg["batch"]
+        profile = profile_bert_step(torch, net, [x[:b] for x in xs], y[:b])
+    est = net.estimator
+    out = {"ms_per_step": 1e3 * b / hist[1]["throughput"],
+           "samples_per_s": hist[1]["throughput"],
+           "epoch_loss": [h["loss"] for h in hist], "weights": weights,
+           "memory_gib": memory,
+           "programs": programs_of(est._programs), "profiled_step": profile}
+    if graphed and compute_dtype == "bfloat16":
+        # one device-resident epoch: a program of its own, graphed too
+        dev = [torch.from_numpy(a).cuda() for a in (*xs, y)]
+        t0 = time.perf_counter()
+        net.fit(dev[:-1], dev[-1], batch_size=b,
+                epochs=est.finished_epochs + 1, verbose=False)
+        torch.cuda.synchronize()
+        out["resident_epoch"] = {
+            "ms_per_step": 1e3 * (time.perf_counter() - t0) / steps,
+            "reserved_after_gib": held_gib(),
+            "path": est.last_data_path,
+            "programs": programs_of({k: p for k, p in est._programs.items()
+                                     if k[0] == "resident"})}
+    return out
+
+
+def graphed_bert_training(torch, fa):
+    """BERT-Base fine-tuning eager against graphed, in bf16 and f32."""
+    import gc
+
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    init_zoo_context()
+    cfg = BERT_TRAIN
+    reset_name_scope()
+    net = BERTClassifier(num_classes=2, bert_config=dict(
+        BERT_BASE, attn_drop=0.0, hidden_drop=0.1),
+        generator=torch.Generator().manual_seed(SEED))
+    init = export_params(net)
+    ids, seg, y = bert_train_data(cfg["rows"], cfg["length"], SEED + 4)
+    steps = cfg["rows"] // cfg["batch"]
+    out = {}
+    for cd in ("bfloat16", "float32"):
+        leg = {}
+        for mode in ("eager", "graphed"):
+            n0 = fa.BWD_DKV_LAUNCHES.value
+            leg[mode] = bert_leg(torch, net, init, [ids, seg], y, cd,
+                                 mode == "graphed", steps)
+            leg[mode]["bwd_dkv_launches"] = fa.BWD_DKV_LAUNCHES.value - n0
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = leg["graphed"], leg["eager"]
+        leg["loss_max_rel_diff"] = max(
+            abs(x - z) / abs(z)
+            for x, z in zip(a["epoch_loss"], b["epoch_loss"]))
+        leg["weights_max_abs_diff"], leg["weights_bit_equal"] = tree_diff(
+            a.pop("weights"), b.pop("weights"))
+        leg["speedup"] = b["ms_per_step"] / a["ms_per_step"]
+        out[cd] = leg
+        log("graphed_bert", cd, json.dumps(leg))
+        n_block = BERT_BASE["n_block"]
+        per_replay = {"flash_attention_lse": n_block,
+                      "flash_attention_bwd_dq": n_block,
+                      "flash_attention_bwd_dkv": n_block}
+        progs = a["programs"]
+        res = a.get("resident_epoch", {}).get("programs", {})
+        resident_steps = steps if cd == "bfloat16" else 0
+        if (len(progs) != 1 or any(v["launches_per_replay"] != per_replay
+                                   for v in progs.values())
+                or b["programs"]
+                or a["bwd_dkv_launches"]
+                != n_block * (2 * steps + 1 + resident_steps)
+                or b["bwd_dkv_launches"] != n_block * (2 * steps + 1)
+                or a["epoch_loss"] != b["epoch_loss"]
+                or not leg["weights_bit_equal"]
+                or (cd == "bfloat16" and (
+                    a["resident_epoch"]["path"] != "device_resident"
+                    or [(v["replays"], v["launches_per_replay"])
+                        for v in res.values()]
+                    != [(steps - 1, per_replay)]))):
+            raise AssertionError(f"graphed BERT {cd}: {leg}")
+    return out
+
+
+def serve_rows(batcher, reqs, n_threads):
+    """Requests through the batcher from ``n_threads`` threads; answers
+    and latencies (ms)."""
+    return serve_requests(batcher, reqs, n_threads)
+
+
+def graphed_serving(torch, fa, root):
+    """BERT-Base and int8 NCF served from bucket graphs through
+    ``DynamicBatcher``: the cold process fills a CompileCache, a second
+    process warms from it and serves with zero live captures; BERT at
+    8-row batches eager against graphed."""
+    import contextlib
+    import os
+
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import CompileCache, DynamicBatcher
+
+    out = {}
+    cache_dir = os.path.join(root, "compile_cache")
+    models = serving_models(torch)
+    reqs = serving_requests()
+    cold, cold_answers = {}, {}
+    for name, im in models.items():
+        im.attach_compile_cache(CompileCache(cache_dir), name=name)
+        t0 = time.perf_counter()
+        for xs in reqs[name]["cover"]:
+            for _ in range(2):          # eager, then captured
+                cover = im.predict(xs)
+            cold_answers.setdefault(f"{name}_cover", []).append(cover)
+        torch.cuda.synchronize()
+        cold[name] = {"cover_s": time.perf_counter() - t0,
+                      "compile_count": im.compile_count,
+                      "programs": programs_of(im._programs)}
+        batcher = DynamicBatcher(im, max_batch=8, max_latency_ms=2.0)
+        cold_answers[f"{name}_served"], _ = serve_rows(
+            batcher, reqs[name]["single"], 8)
+        batcher.close()
+    # BERT at the batcher's 8-row batches: eager, graphed, graphed, eager
+    im = models["bert"]
+    lat = {}
+    answers = {}
+    for mode in ("eager", "graphed", "graphed2", "eager2"):
+        ctx = (graphs.disabled() if mode.startswith("eager")
+               else contextlib.nullcontext())
+        with ctx:
+            batcher = DynamicBatcher(im, max_batch=8, max_latency_ms=2.0)
+            t0 = time.perf_counter()
+            ans, ms = serve_rows(batcher, reqs["bert"]["single"], 8)
+            wall = time.perf_counter() - t0
+            batcher.close()
+            prof = profile_forward(torch, im, reqs["bert"]["batch8"])
+        answers[mode] = ans
+        lat[mode] = {"p50_ms": float(np.percentile(ms, 50)),
+                     "p99_ms": float(np.percentile(ms, 99)),
+                     "requests": len(ms), "wall_s": wall,
+                     "requests_per_s": len(ms) / wall,
+                     "forward_8_rows": {k: prof[k] for k in (
+                         "wall_ms", "device_ms", "device_busy_share")}}
+    diff = float(np.abs(answers["graphed"] - answers["eager"]).max())
+    out["bert_8_row_batches"] = {**lat, "max_abs_diff_graphed_vs_eager":
+                                 diff}
+    out["cold"] = cold
+    log("graphed_serving", json.dumps(out))
+    # a real restart: another process warms from the cache and serves
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--serve-warm", cache_dir], capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"the warm serving process failed: "
+                             f"{res.stderr[-3000:]}")
+    warm = json.loads(res.stdout.strip().splitlines()[-1])
+    # the restarted process's answers against this one's, element by
+    # element: the cover batches bucket for bucket, the batcher's
+    # answers request for request (within 1e-6 of the largest answer)
+    with np.load(cache_dir + ".answers.npz") as f:
+        got = dict(f)
+    for name in models:
+        for part in ("cover", "served"):
+            want = cold_answers[f"{name}_{part}"]
+            want = np.concatenate(want) if part == "cover" else want
+            warm[name][f"{part}_max_abs_diff"] = float(np.abs(
+                got[f"{name}_{part}"] - want).max())
+            warm[name][f"{part}_largest"] = float(np.abs(want).max())
+    out["warm_process"] = warm
+    log("graphed_serving_warm", json.dumps(warm))
+    for name in models:
+        w = warm[name]
+        if (w["compile_count"] != 0
+                or w["warmed"] != cold[name]["compile_count"]
+                or w["served"] != len(reqs[name]["single"])
+                or not w["finite"]
+                or any(w[f"{part}_max_abs_diff"]
+                       > 1e-6 * w[f"{part}_largest"]
+                       for part in ("cover", "served"))):
+            raise AssertionError(f"warm {name}: {w}, cold {cold[name]}")
+    if diff > 1e-5:
+        raise AssertionError(f"BERT served from graphs left the eager "
+                             f"answers by {diff}")
+    return out
+
+
+def serving_models(torch):
+    """The served models of the graphed phase, from seeds: BERT-Base in
+    f32 (buckets 1, 8, 32) and NCF at the ML-1M width in int8 (buckets 1,
+    8, 64, 256)."""
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    reset_name_scope()
+    net = BERTClassifier(num_classes=2, bert_config=BERT_BASE,
+                         generator=torch.Generator().manual_seed(SEED))
+    bert = InferenceModel.from_keras_net(net, device="cuda",
+                                         batch_buckets=(1, 8, 32))
+    reset_name_scope()
+    ncf = NeuralCF(USERS, ITEMS, class_num=5, user_embed=20, item_embed=20,
+                   hidden_layers=(40, 20, 10), mf_embed=20, device="cuda")
+    load_jax_params(ncf.model, seeded_params(ncf.model, SEED))
+    return {"bert": bert, "ncf_int8": ncf.inference_model(
+        weight_dtype="int8")}
+
+
+def serving_requests():
+    """Per model: one padded batch per bucket signature (``cover``),
+    single-row requests for the batcher, and an 8-row BERT batch."""
+    bert = bert_requests(64, 128, SEED + 5)
+    rs = np.random.RandomState(SEED + 6)
+    u = rs.randint(1, USERS + 1, (256, 1)).astype(np.int32)
+    i = rs.randint(1, ITEMS + 1, (256, 1)).astype(np.int32)
+    return {"bert": {"cover": [batch_of(bert[:b]) for b in (1, 8, 32)],
+                     "single": bert, "batch8": batch_of(bert[:8])},
+            "ncf_int8": {"cover": [[u[:b], i[:b]] for b in (1, 8, 64, 256)],
+                         "single": [[u[r:r + 1], i[r:r + 1]]
+                                    for r in range(64)]}}
+
+
+def serve_warm(cache_dir):
+    """The restarted serving process: the same seeded models warm from
+    the cache, then serve single requests through ``DynamicBatcher``;
+    writes its answers to ``<cache_dir>.answers.npz`` and prints one JSON
+    line."""
+    import torch
+
+    from analytics_zoo_tpu_torch.deploy import CompileCache, DynamicBatcher
+
+    models = serving_models(torch)
+    reqs = serving_requests()
+    out, answers = {}, {}
+    for name, im in models.items():
+        cache = CompileCache(cache_dir)
+        im.attach_compile_cache(cache, name=name)
+        t0 = time.perf_counter()
+        warmed = im.warm()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        batcher = DynamicBatcher(im, max_batch=8, max_latency_ms=2.0)
+        ans, ms = serve_requests(batcher, reqs[name]["single"], 8)
+        batcher.close()
+        cover = np.concatenate([im.predict(xs) for xs in
+                                reqs[name]["cover"]])
+        answers[f"{name}_cover"], answers[f"{name}_served"] = cover, ans
+        out[name] = {"warmed": warmed, "warm_s": warm_s,
+                     "compile_count": im.compile_count,
+                     "warm_count": im.warm_count, "served": len(ms),
+                     "p50_ms": float(np.percentile(ms, 50)),
+                     "p99_ms": float(np.percentile(ms, 99)),
+                     "finite": bool(np.all(np.isfinite(ans))
+                                    and np.all(np.isfinite(cover))),
+                     "cache": cache.stats()["events"],
+                     "capture_s": [p["capture_s"] for p in programs_of(
+                         im._programs).values()]}
+    np.savez(cache_dir + ".answers.npz", **answers)
+    print(json.dumps(out))
+    return 0
+
+
+def graphed_phase(torch, eb, fa, card):
+    """Phase 8 (docstring item 8): NCF and BERT-Base training and
+    serving, eager against graphed, with the card beside the numbers."""
+    import gc
+    import shutil
+    import tempfile
+
+    out = {"card": card, "ncf_training": graphed_ncf_training(torch, eb)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bert_training"] = graphed_bert_training(torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="zoo_graphs_")
+    try:
+        out["serving"] = graphed_serving(torch, fa, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary = {
+        "card": card,
+        "ncf_ms_per_step": {k: {m: v[m]["ms_per_step"]
+                                for m in ("eager", "graphed")}
+                            for k, v in out["ncf_training"].items()},
+        "bert_ms_per_step": {k: {m: v[m]["ms_per_step"]
+                                 for m in ("eager", "graphed")}
+                             for k, v in out["bert_training"].items()},
+        "bert_serving_8_rows": {k: {m: out["serving"][
+            "bert_8_row_batches"][k][m] for m in ("p50_ms", "p99_ms")}
+            for k in ("eager", "graphed")}}
+    log("graphed_summary", json.dumps(summary))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2444,6 +2971,7 @@ def main() -> int:
                                                             fa)
     ft_bert_launches, ft_ncf = fault_tolerant_phase(torch, eb, dq, fa,
                                                     bert_f32, card)
+    graphed_phase(torch, eb, fa, card)
     fwd_by_path = {"serving": served["embedding_bag"],
                    "training": trained["embedding_bag_fwd"],
                    "bert_serving": bert["embedding_bag"],
@@ -2517,4 +3045,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-warm"]:
+        sys.exit(serve_warm(sys.argv[2]))
     sys.exit(main())

@@ -1000,3 +1000,385 @@ def test_dropout_generator_state_round_trips_on_card(cuda_device, tmp_path):
     assert torch.equal(est._dropout_gen.get_state(), at_flush)
     got = torch.rand(1000, device=cuda_device, generator=est._dropout_gen)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: whole training steps and serving buckets (core/graphs.py)
+
+
+def _tree_rel_diff(got, want):
+    """The largest |got - want| over every leaf, relative to that leaf's
+    largest |want|."""
+    worst = 0.0
+    for layer, leaves in want.items():
+        for leaf, w in leaves.items():
+            if isinstance(w, dict):
+                worst = max(worst, _tree_rel_diff({"x": got[layer][leaf]},
+                                                  {"x": w}))
+                continue
+            w = np.asarray(w, np.float64)
+            d = np.abs(np.asarray(got[layer][leaf], np.float64) - w).max()
+            worst = max(worst, float(d / max(np.abs(w).max(), 1e-30)))
+    return worst
+
+
+def _program_counts(est, counter):
+    """(steps of the programs' eager warm-up dispatches, launches of
+    ``counter`` their replays made) over ``est``'s step programs."""
+    eager = replayed = 0
+    for key, prog in est._programs.items():
+        eager += key[1]
+        if prog.graph.captured:
+            replayed += (prog.graph.record.launches.get(counter, 0)
+                         * prog.graph.replays)
+    return eager, replayed
+
+
+def _small_bert(seed=2, rows=64, length=40):
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, 500, (rows, length)).astype(np.int32)
+    seg = (np.arange(length)[None, :] >= rs.randint(1, length, (rows, 1))
+           ).astype(np.int32)
+    y = (ids[:, 1] < 250).astype(np.int32)
+    return ids, seg, y
+
+
+@pytest.mark.cuda
+def test_bf16_bert_fit_graphed_matches_eager_on_card(cuda_device):
+    """BERT (3 blocks, hidden dropout 0.1) fine-tuned in bf16 for two
+    epochs of 4 steps: one eager warm-up step, then one graph replay a
+    step, 3 lse/dQ/dK-dV launches per replay; against the same run with
+    graphs off (``graphs.disabled``): every loss, weight and optimizer
+    state tensor equal, bit for bit (the same kernels in the same order
+    on the same inputs and dropout bits; a looser bound, such as bf16
+    fine-tuning's 2^-5 on the losses, would let replays that redraw one
+    dropout mask pass).  The differences are printed."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    from analytics_zoo_tpu_torch.train.optimizers import AdamWeightDecay
+
+    cfg = dict(vocab=500, n_block=3, attn_drop=0.0, hidden_drop=0.1)
+    ids, seg, y = _small_bert()
+    reset_name_scope()
+    init = export_params(BERTClassifier(2, bert_config=cfg))
+
+    def run():
+        reset_name_scope()
+        net = BERTClassifier(2, bert_config=cfg)
+        load_jax_params(net, init)
+        net.compile(AdamWeightDecay(1e-3, warmup_portion=0.1, total=8),
+                    "sparse_categorical_crossentropy_with_logits",
+                    device=cuda_device, compute_dtype="bfloat16")
+        hist = net.fit([ids, seg], y, batch_size=16, epochs=2,
+                       verbose=False)
+        return [h["loss"] for h in hist], export_params(net), net.estimator
+
+    n0 = tfa.BWD_DKV_LAUNCHES.value
+    loss, got, est = run()
+    assert tfa.BWD_DKV_LAUNCHES.value - n0 == 3 * 8
+    (prog,) = est._programs.values()
+    assert prog.graph.captured and prog.graph.replays == 7
+    assert prog.graph.record.per_replay() == {
+        "flash_attention_lse": 3, "flash_attention_bwd_dq": 3,
+        "flash_attention_bwd_dkv": 3}
+    with graphs.disabled():
+        eager_loss, want, eager_est = run()
+    assert not any(p.graph.captured for p in eager_est._programs.values())
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(loss, eager_loss))
+    weight_diff = _tree_rel_diff(got, want)
+    print(f"bf16 BERT graphed vs eager: loss rel {loss_diff:.3e}, "
+          f"weights rel {weight_diff:.3e}")
+    assert loss == eager_loss and weight_diff == 0.0
+    for a, b in zip(est.opt_state, eager_est.opt_state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dropout_replays_draw_the_eager_masks_on_card(cuda_device):
+    """A Dropout captured with its generator registered: each call (the
+    eager warm-up, then capture and replays) draws the mask an eager call
+    from the same generator state draws, no two calls the same mask, and
+    the generator ends where the eager calls leave it."""
+    import contextlib
+
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.nn.layers.core import Dropout
+
+    reset_name_scope()
+    drop = Dropout(0.5)
+    x = torch.ones(4096, device=cuda_device)
+
+    def calls(graphed):
+        drop.generator = torch.Generator(cuda_device).manual_seed(7)
+        g = graphs.StepGraph(lambda: drop(x), cuda_device,
+                             generators=(drop.generator,), name="dropout")
+        with contextlib.nullcontext() if graphed else graphs.disabled():
+            outs = [g().clone() for _ in range(4)]
+        return outs, g, drop.generator.get_state()
+
+    want, _, want_state = calls(False)
+    got, g, got_state = calls(True)
+    assert g.captured and g.replays == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not any(torch.equal(want[i], want[j])
+                   for i in range(4) for j in range(i + 1, 4))
+    assert torch.equal(got_state, want_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,k", [("host", 1), ("host", 4),
+                                    ("resident", 1), ("resident", 4)])
+def test_ncf_fit_graphed_matches_eager_on_card(cuda_device, path, k):
+    """NCF for two epochs of 8 steps, one graph replay per ``k`` steps on
+    the host and the device-resident paths, against graphs off: losses
+    and every leaf within 1e-6 relative (the bag backward's atomics add
+    duplicate ids in a free order).  The launch counters equal the
+    launches per replay times the replays, plus the eager warm-up
+    dispatch's."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core import context, graphs
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    rs = np.random.RandomState(0)
+    u = rs.randint(1, 201, (1024, 1)).astype(np.int32)
+    i = rs.randint(1, 151, (1024, 1)).astype(np.int32)
+    y = rs.randint(0, 5, 1024).astype(np.int32)
+    data = ([u, i], y) if path == "host" else (
+        [torch.from_numpy(u).to(cuda_device),
+         torch.from_numpy(i).to(cuda_device)],
+        torch.from_numpy(y).to(cuda_device))
+    reset_name_scope()
+    init = export_params(NeuralCF(200, 150, device=cuda_device).model)
+
+    def run():
+        reset_name_scope()
+        ncf = NeuralCF(200, 150, device=cuda_device)
+        load_jax_params(ncf.model, init)
+        ncf.compile("adam", "sparse_categorical_crossentropy")
+        hist = ncf.fit(*data, batch_size=128, epochs=2, verbose=False)
+        return [h["loss"] for h in hist], export_params(ncf.model), \
+            ncf.estimator
+
+    context.init_zoo_context(steps_per_execution=k)
+    try:
+        b0, f0 = teb.BWD_LAUNCHES.value, teb.LAUNCHES.value
+        loss, got, est = run()
+        assert teb.BWD_LAUNCHES.value - b0 == 4 * 16
+        assert teb.LAUNCHES.value - f0 == 4 * 16
+        eager_steps, replayed = _program_counts(est, teb.BWD_LAUNCHES)
+        assert (eager_steps, replayed) == (k, 4 * (16 - k))
+        assert all(p.graph.record.launches[teb.BWD_LAUNCHES] == 4 * key[1]
+                   for key, p in est._programs.items())
+        with graphs.disabled():
+            eager_loss, want, _ = run()
+    finally:
+        context.set_zoo_context(None)
+    np.testing.assert_allclose(loss, eager_loss, rtol=1e-6)
+    diff = _tree_rel_diff(got, want)
+    print(f"NCF {path} K={k} graphed vs eager: weights rel {diff:.3e}")
+    assert diff <= 1e-6
+
+
+@pytest.mark.cuda
+def test_graphed_resume_after_sigterm_is_bit_exact_on_card(cuda_device,
+                                                           tmp_path):
+    """BERT (3 blocks, hidden dropout 0.1, bf16) for three epochs of 4
+    steps, graphed: a real SIGTERM before epoch 2's third step flushes a
+    checkpoint; a fresh net resumed with ``fit(resume=True)`` (its first
+    step eager, then replays) equals the uninterrupted graphed run in
+    every loss and weight, bit for bit."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.robust import (FaultInjector,
+                                                TrainingPreempted)
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+    from analytics_zoo_tpu_torch.train.optimizers import AdamWeightDecay
+
+    cfg = dict(vocab=500, n_block=3, attn_drop=0.0, hidden_drop=0.1)
+    ids, seg, y = _small_bert()
+    reset_name_scope()
+    init = export_params(BERTClassifier(2, bert_config=cfg))
+
+    def net(ckpt=None):
+        reset_name_scope()
+        n = BERTClassifier(2, bert_config=cfg)
+        load_jax_params(n, init)
+        n.compile(AdamWeightDecay(1e-3, warmup_portion=0.1, total=12),
+                  "sparse_categorical_crossentropy_with_logits",
+                  device=cuda_device, compute_dtype="bfloat16")
+        if ckpt is not None:
+            n.set_checkpoint(ckpt)
+        return n
+
+    whole = net()
+    want = whole.fit([ids, seg], y, batch_size=16, epochs=3, verbose=False)
+    cut = net(str(tmp_path))
+    with FaultInjector().plan("estimator.preempt", at=6, action="sigterm"):
+        with pytest.raises(TrainingPreempted):
+            cut.fit([ids, seg], y, batch_size=16, epochs=3, verbose=False)
+    resumed = net(str(tmp_path))
+    got = resumed.fit([ids, seg], y, batch_size=16, epochs=3,
+                      verbose=False, resume=True)
+    assert resumed.estimator.global_step == 12
+    assert [h["loss"] for h in got] == [h["loss"] for h in want[1:]]
+    a, b = export_params(resumed), export_params(whole)
+    assert _tree_rel_diff(a, b) == 0.0
+    for x, w in zip(resumed.estimator.opt_state, whole.estimator.opt_state):
+        assert torch.equal(x, w)
+
+
+def _ncf_serving(cuda_device):
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    reset_name_scope()
+    ncf = NeuralCF(200, 150, device=cuda_device)
+    rs = np.random.RandomState(4)
+    load_jax_params(ncf.model, {
+        layer: {leaf: (rs.randn(*v.shape) * 0.1).astype(np.float32)
+                for leaf, v in sub.items()}
+        for layer, sub in export_params(ncf.model).items()})
+    u = rs.randint(1, 201, (64, 1)).astype(np.int32)
+    i = rs.randint(1, 151, (64, 1)).astype(np.int32)
+    return ncf.model, [u, i]
+
+
+@pytest.mark.cuda
+def test_warm_bucket_graphs_serve_threads_on_card(cuda_device, tmp_path):
+    """int8 NCF: a first model captures buckets 1, 8 and 64 and fills a
+    compile cache; a second, after ``warm()``, holds one captured graph
+    per bucket and answers eight threads' 240 requests with the eager
+    answers exactly (graphs off), with zero live captures; every request
+    replays 4 bag forwards and one dequantize-matmul."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import CompileCache, InferenceModel
+
+    net, x = _ncf_serving(cuda_device)
+
+    def model():
+        return InferenceModel.from_keras_net(
+            net, weight_dtype="int8", batch_buckets=(1, 8, 64),
+            device=cuda_device).attach_compile_cache(
+                CompileCache(str(tmp_path)))
+
+    cold = model()
+    for b in (1, 8, 64):
+        cold.predict([a[:b] for a in x])
+    assert cold.compile_count == 3
+    m = model()
+    assert m.warm() == 3 and m.warm_count == 3
+    assert all(p.graph.captured for p in m._programs.values())
+    with graphs.disabled():
+        want = {b: m.predict([a[:b] for a in x]) for b in (1, 8, 64)}
+    f0, q0 = teb.LAUNCHES.value, tdq.LAUNCHES.value
+    got, errors = [], []
+
+    def worker(t):
+        try:
+            for r in range(30):
+                b = (1, 8, 64)[(t + r) % 3]
+                got.append((b, m.predict([a[:b] for a in x])))
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    import threading
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert len(got) == 240 and m.compile_count == 0
+    for b, out in got:
+        np.testing.assert_array_equal(out, want[b])
+    assert teb.LAUNCHES.value - f0 == 4 * 240
+    assert tdq.LAUNCHES.value - q0 == 240
+
+
+@pytest.mark.cuda
+def test_threads_on_a_new_signature_capture_it_once_on_card(cuda_device,
+                                                            tmp_path):
+    """int8 NCF: eight threads send one new signature at the same time.
+    One of them runs the eager warm-up; the others wait for one capture,
+    made alone, and replay.  One capture counted, one cache entry stored,
+    every answer the eager one exactly."""
+    import threading
+
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import CompileCache, InferenceModel
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+
+    net, x = _ncf_serving(cuda_device)
+    cache = CompileCache(str(tmp_path))
+    m = InferenceModel.from_keras_net(
+        net, weight_dtype="int8", batch_buckets=(1, 8),
+        device=cuda_device).attach_compile_cache(cache)
+    xs = [a[:8] for a in x]
+    with graphs.disabled():
+        want = InferenceModel.from_keras_net(
+            net, weight_dtype="int8", batch_buckets=(1, 8),
+            device=cuda_device).predict(xs)
+    window = METRICS.snapshot()
+    f0 = teb.LAUNCHES.value
+    start = threading.Barrier(8)
+    got, errors = [], []
+
+    def worker():
+        try:
+            start.wait(timeout=60)
+            got.append(m.predict(xs))
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    (prog,) = m._programs.values()
+    captures = METRICS.delta(window)["counters"].get(
+        'graph_captures_total{kind="serving"}')
+    assert prog.graph.captured and captures == 1
+    # one eager warm-up (a caller's, or the capture's own), then replays
+    assert prog.graph.replays in (7, 8)
+    assert teb.LAUNCHES.value - f0 == 4 * (1 + prog.graph.replays)
+    assert m.compile_count == 1 and cache.stats()["events"] == {"miss": 1}
+    assert len(got) == 8
+    for out in got:
+        np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.cuda
+def test_bert_bucket_graphs_match_eager_on_card(cuda_device):
+    """BERT (2 blocks) served from bucket graphs: 2 flash launches per
+    replay, the eager answers exactly."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    reset_name_scope()
+    net = BERTClassifier(2, bert_config=dict(vocab=500, n_block=2))
+    ids, seg, _ = _small_bert(rows=8)
+    m = InferenceModel.from_keras_net(net, batch_buckets=(1, 8),
+                                      device=cuda_device)
+    for b in (1, 8):
+        m.predict([ids[:b], seg[:b]])
+    n0 = tfa.LAUNCHES.value
+    got = {b: m.predict([ids[:b], seg[:b]]) for b in (1, 8)}
+    assert tfa.LAUNCHES.value - n0 == 2 * 2
+    assert all(p.graph.captured and p.graph.record.per_replay()
+               == {"flash_attention": 2} for p in m._programs.values())
+    with graphs.disabled():
+        for b in (1, 8):
+            np.testing.assert_array_equal(got[b],
+                                          m.predict([ids[:b], seg[:b]]))
