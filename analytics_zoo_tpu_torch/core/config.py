@@ -90,6 +90,74 @@ class ZooConfig:
     retry_jitter: float = 0.1
     retry_deadline_s: Optional[float] = None
 
+    # -- serving (deploy/serving.py), the JAX package's defaults ---------
+    # The DynamicBatcher dispatches a shape bucket on whichever comes
+    # first: batch-full (serving_batch_size rows) or the
+    # serving_max_batch_delay_ms deadline.
+    serving_batch_size: int = 32
+    serving_max_batch_delay_ms: float = 5.0
+    # Decode-pool threads: record decode and host preprocess, beside the
+    # device's work.
+    serving_decode_workers: int = 4
+    # Model replicas round-robined by the device executor (each with its
+    # own stream and bucket graphs).
+    serving_replicas: int = 1
+    # Batches in flight per executor (2 = double buffering: batch N+1 is
+    # enqueued while N computes; also the backpressure bound).
+    serving_max_inflight: int = 2
+    # Each replica's circuit breaker quarantines it after this many
+    # consecutive dispatch/harvest failures, lets one half-open probe
+    # through after the cooldown, and a replica still open past the
+    # cooldown is rebuilt by the supervisor.
+    serving_breaker_threshold: int = 3
+    serving_breaker_cooldown_s: float = 2.0
+    # How often the supervisor runs its repair checks.
+    serving_supervisor_interval_s: float = 0.25
+    # A stage whose heartbeat is older than this while work is pending is
+    # flagged as stalled.
+    serving_stage_stall_s: float = 10.0
+    # A harvest blocked longer than this is a hung dispatch: the replica
+    # is quarantined and its records requeued.
+    serving_harvest_deadline_s: float = 30.0
+    # Client TTL for records without their own ttl_ms (None: no expiry).
+    serving_default_ttl_ms: Optional[float] = None
+    # p99 bound on serving_stage_seconds{stage=e2e} for the flight
+    # recorder, over serving_slo_window_s windows; 0 disables it.
+    serving_slo_p99_ms: float = 0.0
+    serving_slo_window_s: float = 5.0
+    # Queue transport: "memory", "file" (spool directory, binary framed
+    # records), "shm" (shared-memory ring) or "redis" (not ported).
+    serving_queue_backend: str = "memory"
+    # ShmQueue arena geometry: ring capacity in records and the byte cap
+    # per request slot / per result slot.
+    serving_shm_slots: int = 256
+    serving_shm_slot_bytes: int = 1 << 20
+    serving_shm_result_slot_bytes: int = 1 << 20
+    # Persistent compile cache directory (deploy/compile_cache.py);
+    # empty string = off.
+    serving_compile_cache_dir: str = ""
+    # Shared device-memory budget for multi-model replica planning
+    # (0 = no cap).
+    serving_hbm_budget_bytes: int = 0
+    # Metrics-driven autoscaler (deploy/autoscale.py).
+    serving_autoscale: bool = False
+    serving_autoscale_cooldown_s: float = 5.0
+    serving_autoscale_interval_s: float = 1.0
+
+    # -- observability ----------------------------------------------------
+    # Bounded ring of completed spans kept by observe.TRACER.
+    observe_span_ring: int = 4096
+    # JSONL event log (spans as they complete + metric dumps); "" = off.
+    observe_jsonl_path: str = ""
+    # Where flight-recorder snapshots are written; "" = memory only.
+    observe_flight_dir: str = ""
+    # Arm a short torch.profiler trace when the flight recorder trips
+    # (written under observe_flight_dir/profile).
+    observe_profile_on_breach: bool = False
+    # TensorBoard directory (the serving writer is not ported: setting it
+    # for ClusterServing raises).
+    tensorboard_dir: Optional[str] = None
+
     @classmethod
     def from_env(cls, **overrides: Any) -> "ZooConfig":
         """Build a config from defaults <- ZOO_* env vars <- overrides."""

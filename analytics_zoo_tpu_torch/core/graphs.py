@@ -152,10 +152,16 @@ class StepGraph:
             self.capture()
         return self.replay()
 
-    def warm_up(self):
-        """Run ``fn`` once eagerly on a side stream (never captures)."""
+    def warm_up(self, stream=None):
+        """Run ``fn`` once eagerly (never captures): on a side stream, or
+        on ``stream`` when one is given, in either case after the work
+        the current stream holds."""
         self._warmed = True
         cur = torch.cuda.current_stream(self.device)
+        if stream is not None:
+            stream.wait_stream(cur)
+            with torch.cuda.stream(stream):
+                return self.fn()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
@@ -163,9 +169,12 @@ class StepGraph:
         cur.wait_stream(side)
         return out
 
-    def capture(self) -> None:
+    def capture(self, stream=None) -> None:
         """Capture ``fn`` into a CUDA graph, after the eager warm-up if it
-        has not run (run now on a side stream)."""
+        has not run (run now on a side stream): on ``stream``, or on
+        PyTorch's default capture stream.  Graphs captured on one stream
+        share its library workspaces, so graphs that may replay at once
+        on different streams are captured on different ones."""
         if not enabled(self.device):
             raise GraphCaptureError(f"{self.name}: graphs are off for "
                                     f"{self.device} here")
@@ -179,7 +188,7 @@ class StepGraph:
                     graph.register_generator_state(gen)
                 with dispatch.recording() as rec:
                     with torch.cuda.graph(
-                            graph, pool=self.pool,
+                            graph, pool=self.pool, stream=stream,
                             capture_error_mode=CAPTURE_ERROR_MODE):
                         out = self.fn()
             except Exception as e:

@@ -1,7 +1,9 @@
 """Host-side timers and event counters.
 
 ``TIMERS`` is the process-wide registry of named durations (count,
-total, p50/p99 over a ring of recent samples) and event counters.  The
+total, p50/p99 over a ring of recent samples, which the serving
+pipeline's ``health()`` reads per stage), event counters, and gauges
+(point-in-time levels: replicas healthy, heartbeat ages).  The
 JAX package's ``jax.profiler`` wrappers have no counterpart here: device
 traces come from ``torch.profiler``.
 """
@@ -54,11 +56,19 @@ class Timers:
         self._lock = threading.Lock()
         self._stats: Dict[str, _Stat] = {}
         self._counts: Dict[str, int] = {}
+        self._gauges: Dict[str, float] = {}
 
     def observe(self, name: str, seconds: float) -> None:
         """Record one duration measured externally."""
         with self._lock:
             self._stats.setdefault(name, _Stat()).add(seconds)
+
+    def percentile(self, name: str, q: float) -> float:
+        """q-th percentile (0-100) of the named timer's recent samples
+        (0.0 if never observed)."""
+        with self._lock:
+            s = self._stats.get(name)
+            return s.percentile(q) if s else 0.0
 
     def incr(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -67,6 +77,20 @@ class Timers:
     def count(self, name: str) -> int:
         with self._lock:
             return self._counts.get(name, 0)
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def set_gauge(self, name: str, value: float) -> None:
+        """Record a point-in-time level; unlike a counter it overwrites,
+        so the reader sees the current state."""
+        with self._lock:
+            self._gauges[name] = float(value)
+
+    def gauges(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._gauges)
 
     def stats(self) -> Dict[str, Dict[str, float]]:
         with self._lock:

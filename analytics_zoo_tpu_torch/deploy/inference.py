@@ -17,6 +17,27 @@
   captures all of them before the first request, so a restarted server
   holds ``compile_count == 0``.  On the CPU the same static-buffer
   program runs eagerly.
+- Replicas: ``replica_forwards`` gives the serving ``DeviceExecutor``
+  per-device ``ModelReplica`` objects with an asynchronous dispatch.  A
+  dispatch fills the bucket program's static inputs from its pinned
+  staging buffer, replays the graph, and enqueues the copy of the
+  outputs (the fused top-N's (indices, values) when ``top_n`` is set)
+  into pinned host buffers owned by that flight, then records an event;
+  ``harvest`` waits on that event only.  So a later replay of the same
+  bucket never overwrites answers not yet read, and no harvest
+  synchronises the card.
+- One serving stream per device: every program's copies, eager runs and
+  replays, of every model, go on it in the order they are launched, each
+  launch after the work the caller's stream holds so far (the writes of
+  its inputs and of the weights a rebuild or ``fit`` left there).
+  Graphs captured by one thread share the library workspaces of the
+  stream they were captured on (cuBLAS keys its workspace by handle and
+  stream), so two replays must never run at once; on one stream they
+  cannot.  Serving graphs are captured on a capture stream of their own,
+  never on PyTorch's default capture stream, where ``fit`` captures its
+  step programs: training and serving in one process replay on
+  different streams and so must not share a workspace.  No replay or
+  copy lands on a stream being captured.
 - int8 / int4 weights: per-output-channel symmetric quantization, with
   the JAX package's rule and leaf format (``quantize_pytree``).  Dense
   kernels stay packed end to end and run through the fused
@@ -34,6 +55,7 @@ import contextlib
 import copy
 import hashlib
 import json
+import os
 import struct
 import threading
 import time
@@ -49,12 +71,18 @@ from analytics_zoo_tpu_torch.core.context import resolve_device
 from analytics_zoo_tpu_torch.nn.module import is_qleaf
 
 __all__ = ["InferenceModel", "DynamicBatcher", "BatchRequest",
-           "scatter_batch_results", "quantize_pytree", "dequantize_pytree",
-           "plan_buckets", "DEFAULT_MODEL"]
+           "ModelReplica", "scatter_batch_results", "quantize_pytree",
+           "dequantize_pytree", "plan_buckets", "bucket_class",
+           "LONG_DOC_TOKENS", "DEFAULT_MODEL"]
 
-# the implicit model name for single-model serving paths
+# the implicit model name for single-model serving paths; multi-model
+# callers (ClusterServing with a dict of models) use their own names
 DEFAULT_MODEL = "default"
 WEIGHT_DTYPES = ("float32", "int8", "int4")
+
+
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (list, tuple)) else (x,)
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -64,10 +92,31 @@ def _next_bucket(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-def plan_buckets(n: int, buckets: Sequence[int]) -> List[tuple]:
+# Requests at or past this many tokens belong to the "long_doc" bucket
+# class: they plan at the smallest row bucket, one program per class
+# instead of one per (rows x length) combination.  (The JAX package
+# routes that class to mesh replicas, which the port does not have yet.)
+LONG_DOC_TOKENS = 32768
+
+
+def bucket_class(tokens: Optional[int]) -> str:
+    """Which bucket class a request of ``tokens`` sequence length falls
+    in: ``"long_doc"`` (>= LONG_DOC_TOKENS) or ``"short"``."""
+    return ("long_doc" if tokens is not None
+            and int(tokens) >= LONG_DOC_TOKENS else "short")
+
+
+def plan_buckets(n: int, buckets: Sequence[int],
+                 tokens: Optional[int] = None) -> List[tuple]:
     """Split ``n`` rows into ``[(rows, bucket), ...]`` chunks: full
     ``buckets[-1]``-row chunks first, then one tail chunk padded up to its
-    nearest bucket."""
+    nearest bucket.  Both ``InferenceModel.predict`` and the serving
+    executor's replica dispatch plan through it.  In the ``"long_doc"``
+    class (``tokens`` >= LONG_DOC_TOKENS) every chunk is the smallest row
+    bucket."""
+    if bucket_class(tokens) == "long_doc":
+        cap = buckets[0]
+        return [(min(n - s, cap), cap) for s in range(0, n, cap)]
     out: List[tuple] = []
     cap = buckets[-1]
     s = 0
@@ -78,13 +127,48 @@ def plan_buckets(n: int, buckets: Sequence[int]) -> List[tuple]:
     return out
 
 
-def _f32_out(out):
-    def cast(o):
-        o = o.float() if o.is_floating_point() else o
-        return o.cpu().numpy()
+_SERVING_STREAMS: Dict[int, tuple] = {}
+_SERVING_STREAMS_LOCK = threading.Lock()
 
-    return ([cast(o) for o in out]
-            if isinstance(out, (list, tuple)) else cast(out))
+
+def _serving_streams(device: torch.device) -> tuple:
+    """The device's (serving stream, serving capture stream), both from
+    the high-priority pool, which nothing else here draws from (PyTorch's
+    capture stream and the warm-up side streams come from the other
+    one)."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    with _SERVING_STREAMS_LOCK:
+        pair = _SERVING_STREAMS.get(index)
+        if pair is None:
+            dev = torch.device("cuda", index)
+            pair = _SERVING_STREAMS[index] = (
+                torch.cuda.Stream(dev, priority=-1),
+                torch.cuda.Stream(dev, priority=-1))
+        return pair
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    """The tensor dtype of a signature's dtype name (``bfloat16`` is the
+    codec's wire name)."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, np.dtype(name))).dtype
+
+
+def _dtype_name(x) -> str:
+    from analytics_zoo_tpu_torch.deploy.codec import wire_name
+
+    return wire_name(np.asarray(x).dtype)
+
+
+def _host_view(t: torch.Tensor) -> np.ndarray:
+    """A numpy view of a host tensor (bf16 as the codec's ``BFLOAT16``)."""
+    if t.dtype == torch.bfloat16:
+        from analytics_zoo_tpu_torch.deploy.codec import BFLOAT16
+
+        return t.view(torch.int16).numpy().view(BFLOAT16)
+    return t.numpy()
 
 
 def _tree_map(fn, tree):
@@ -179,59 +263,199 @@ class _Gate:
                 self._cv.notify_all()
 
 
+class _Flight:
+    """One launch of a bucket program: its outputs, copied into pinned
+    host buffers owned by this flight, and the event recorded after the
+    copy out.  ``result`` waits on that event alone.  A flight whose
+    reader gave up (the executor's harvest watchdog) keeps its buffers
+    and event until it is dropped, so the card's late copy lands in
+    memory nobody reuses."""
+
+    __slots__ = ("host", "event", "multi", "program", "replayed")
+
+    def __init__(self, host, event, multi, program, replayed=False):
+        self.host = host
+        self.event = event
+        self.multi = multi
+        self.program = program      # keeps the graph's memory alive
+        self.replayed = replayed
+
+    def result(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [_host_view(h) for h in self.host]
+
+    def device_s(self) -> Optional[float]:
+        """Seconds the card ran this flight's program, once ``result``
+        has returned: a replay's time, read from the events the graph
+        itself records at its start and end (``replay_s``); None for the
+        eager warm-up and on the CPU."""
+        return self.program.replay_s() if self.replayed else None
+
+
 class _BucketProgram:
     """The forward of one bucket signature over static input buffers: on
     the card its first run is eager (the warm-up), then it is captured
     into a CUDA graph and replayed; on the CPU, or while graphs are off,
-    the same code runs eagerly.  ``run`` never captures: the model
+    the same code runs eagerly.  ``launch`` never captures: the model
     captures through ``capture`` alone (``InferenceModel._capture``), and
-    hands the one eager warm-up to one caller (``warm_up_taken``)."""
+    hands the one eager warm-up to one caller (``warm_up_taken``).
+
+    Every launch goes on the device's serving stream, after the work the
+    caller's stream holds, so the fills of its static inputs, its replays
+    and the copies of its static outputs are ordered among themselves,
+    and after every other program's, whoever launches.  ``preprocess`` (a
+    torch function of the raw inputs, giving the net's inputs) runs
+    inside the program; ``top_n`` > 0 ends it with the top-N (int32
+    indices, values) of the first output."""
 
     def __init__(self, net, sig: Dict[str, Any], device: torch.device,
-                 name: str):
+                 name: str, preprocess: Optional[Callable] = None):
         self.device = device
         self.lock = threading.Lock()
         self.warm_up_taken = False
+        self.multi = False
         self.inputs = inputs = [
-            torch.from_numpy(np.zeros(shape, dtype)).to(device)
+            torch.zeros(shape, dtype=_torch_dtype(dtype), device=device)
             for shape, dtype in sig["in"]]
+        cuda = device.type == "cuda"
         self.staging = ([torch.empty_like(t, device="cpu").pin_memory()
-                         for t in inputs]
-                        if device.type == "cuda" else None)
+                         for t in inputs] if cuda else None)
+        self.stream, self.capture_stream = (_serving_streams(device) if cuda
+                                            else (None, None))
+        self._staged: Optional[torch.cuda.Event] = None
+        # recorded by the graph at its start and end at every replay
+        self.timing = ((torch.cuda.Event(enable_timing=True, external=True),
+                        torch.cuda.Event(enable_timing=True, external=True))
+                       if cuda else None)
+        self._replay_s: Optional[float] = None
+        # held around a replay's launch and the reads of ``timing``, never
+        # across a wait, so a harvest never waits on a launch
+        self._timing_lock = threading.Lock()
+        top_n = int(sig.get("top_n") or 0)
+        timing = self.timing
 
         def forward():          # holds the buffers, not the program
+            mark = (timing is not None
+                    and torch.cuda.is_current_stream_capturing())
+            if mark:
+                timing[0].record()
             with torch.inference_mode():
-                return net(*inputs)
+                xs = inputs
+                if preprocess is not None:
+                    xs = _as_tuple(preprocess(*xs))
+                out = net(*xs)
+                multi = isinstance(out, (list, tuple))
+                outs = [o.float() if o.is_floating_point() else o
+                        for o in (out if multi else [out])]
+                if top_n:
+                    vals, idx = torch.topk(outs[0], top_n, dim=-1)
+                    outs, multi = [idx.to(torch.int32), vals], True
+            if mark:
+                timing[1].record()
+            return outs if multi else outs[0]
 
         self.graph = graphs.StepGraph(forward, device,
                                       name=f"{name} forward {sig['in']}")
 
     def capture(self) -> None:
         if not self.graph.captured and graphs.enabled(self.device):
-            self.graph.capture()
+            self.graph.capture(stream=self.capture_stream)
             from analytics_zoo_tpu_torch.observe import metrics as obs
 
             obs.count("graph_captures_total", kind="serving")
             obs.observe("graph_capture_seconds", self.graph.capture_s,
                         kind="serving")
 
-    def run(self, xs: List[np.ndarray]):
-        with self.lock:
-            for t, x, h in zip(self.inputs, xs, self.staging
-                               or [None] * len(xs)):
-                if h is None:
-                    t.copy_(torch.from_numpy(np.ascontiguousarray(x)))
-                else:
-                    h.numpy()[...] = x
-                    t.copy_(h, non_blocking=True)
-            g = self.graph
-            if not graphs.enabled(self.device):
-                out = g.fn()
-            elif g.captured:
+    def _forward(self):
+        g = self.graph
+        if not graphs.enabled(self.device):
+            out = g.fn()
+        elif g.captured:
+            with self._timing_lock:
                 out = g.replay()
-            else:               # the caller that took the warm-up
-                out = g.warm_up()
-            return _f32_out(out)
+        else:               # the caller that took the warm-up
+            out = g.warm_up(self.stream)
+        self.multi = isinstance(out, (list, tuple))
+        return list(out) if self.multi else [out]
+
+    def replay_s(self) -> Optional[float]:
+        """Seconds of this program's latest finished replay on the card,
+        between the events the graph records at its start and end (no
+        host time lies between them).  Replays of one signature take the
+        same kernels over the same shapes, so a flight whose own replay
+        was followed by another of the same program before it was read
+        is given that one's time.  The first read waits for the latest
+        replay; None while no replay has been read."""
+        begin, end = self.timing
+        if self._replay_s is None:
+            end.synchronize()
+        with self._timing_lock:     # no replay is launched between reads
+            if end.query():
+                self._replay_s = begin.elapsed_time(end) / 1e3
+        return self._replay_s
+
+    def launch(self, xs: List[np.ndarray]) -> _Flight:
+        """Fill the inputs with ``xs`` (one copy each, into the pinned
+        staging buffer), run the program and start the copy of its
+        outputs to the host; returns the flight without waiting."""
+        with self.lock:
+            if self.stream is None:
+                for t, x in zip(self.inputs, xs):
+                    _host_view(t)[...] = x
+                outs = self._forward()
+                # eager outputs are this call's own; copy them anyway so
+                # no later launch can reach them through a view
+                return _Flight([o.clone() for o in outs], None,
+                               self.multi, self)
+            if self._staged is not None:
+                # the previous launch's copy out of staging must be done
+                # before staging is refilled
+                self._staged.synchronize()
+            for h, x in zip(self.staging, xs):
+                _host_view(h)[...] = x
+            replayed = self.graph.captured and graphs.enabled(self.device)
+            # after what the caller's stream wrote (the inputs' zeros, a
+            # rebuilt or trained net's weights)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self.stream):
+                for t, h in zip(self.inputs, self.staging):
+                    t.copy_(h, non_blocking=True)
+                self._staged = torch.cuda.Event()
+                self._staged.record(self.stream)
+                outs = self._forward()
+                host = [torch.empty(o.shape, dtype=o.dtype,
+                                    pin_memory=True) for o in outs]
+                for h, o in zip(host, outs):
+                    h.copy_(o, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            return _Flight(host, done, self.multi, self, replayed)
+
+    def run(self, xs: List[np.ndarray]):
+        """``launch`` and wait: the outputs as numpy arrays (a list when
+        the program has several)."""
+        flight = self.launch(xs)
+        out = flight.result()
+        return out if flight.multi else out[0]
+
+
+class ModelReplica:
+    """One serving replica: ``dispatch(xs)`` enqueues the computation and
+    returns a handle at once; ``harvest(handle)`` waits for it and returns
+    a list of numpy output arrays.  The split is what lets the device
+    executor double-buffer: dispatch batch N+1 while N's readback is in
+    flight."""
+
+    def __init__(self, dispatch: Callable, harvest: Callable, device=None,
+                 on_device_topn: bool = False, pads_input: bool = True):
+        self.dispatch = dispatch
+        self.harvest = harvest
+        self.device = device
+        self.on_device_topn = on_device_topn
+        # False = dispatch() already handles buckets/slicing (the shared
+        # predict() fallback); True = the executor pads to a bucket
+        self.pads_input = pads_input
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +496,21 @@ class InferenceModel:
         self._gate = _Gate()
         self._cache = None
         self._fingerprint: Optional[str] = None
+        self._preprocess: Optional[Callable] = None
 
-    def _note_shapes(self, xs) -> None:
+    @staticmethod
+    def _shape_key(shapes, top_n: int = 0) -> tuple:
+        """The ledger key of a batch signature (shapes + dtypes, and the
+        fused top-N when there is one)."""
+        key = tuple((tuple(s), str(d)) for s, d in shapes)
+        return key + ((("top_n", int(top_n)),) if top_n else ())
+
+    def _note_shapes(self, xs, top_n: int = 0) -> None:
         """Record the batch signature about to be dispatched, on first
         sight (a live capture).  Signatures ``warm()`` captured are not
         novel."""
-        sig = tuple((tuple(np.shape(x)), str(getattr(x, "dtype", "")))
-                    for x in xs)
+        sig = self._shape_key(((np.shape(x), _dtype_name(x)) for x in xs),
+                              top_n)
         with self._shape_lock:
             if sig in self._seen_shapes or sig in self._warm_shapes:
                 return
@@ -350,13 +582,13 @@ class InferenceModel:
             self.name = str(name)
         return self
 
-    def _sig(self, xs) -> Dict[str, Any]:
+    def _sig(self, xs, top_n: int = 0) -> Dict[str, Any]:
         """JSON-able program signature: input shapes/dtypes + device +
         fused top-N + weight dtype.  Joined with ``fingerprint()`` (and
         the devices, added by the cache) it addresses one program."""
-        return {"in": [[list(np.shape(x)), str(np.asarray(x).dtype)]
-                       for x in xs],
-                "dev": str(self.device), "top_n": 0,
+        return {"in": [[list(np.shape(x)), _dtype_name(x)] for x in xs],
+                "dev": str(self.device),
+                "top_n": int(top_n or 0),
                 "weight_dtype": self._weight_dtype}
 
     def _program(self, sig: Dict[str, Any]) -> Tuple[_BucketProgram, bool]:
@@ -367,8 +599,9 @@ class InferenceModel:
             prog = self._programs.get(key)
             if prog is not None:
                 return prog, False
-            prog = _BucketProgram(self._net, sig, self.device, self.name)
-            self._programs[key] = prog
+            prog = self._programs[key] = _BucketProgram(
+                self._net, sig, torch.device(sig["dev"]), self.name,
+                preprocess=self._preprocess)
         return prog, True
 
     def _capture(self, prog: _BucketProgram) -> None:
@@ -376,12 +609,13 @@ class InferenceModel:
         with self._gate.alone():
             prog.capture()
 
-    def _bucket_forward(self, xs: List[np.ndarray]):
-        """A padded batch through its signature's program: a new
-        signature's first run is eager (one caller's, whoever comes
-        first), and any other caller captures it (alone) before it runs,
-        so no capture happens beside another run of this model."""
-        sig = self._sig(xs)
+    def _ready(self, xs: List[np.ndarray], top_n: int = 0
+               ) -> _BucketProgram:
+        """The program a padded batch runs through: a new signature's
+        first run is eager (one caller's, whoever comes first), and any
+        other caller captures it (alone) before it runs, so no capture
+        happens beside another run of this model."""
+        sig = self._sig(xs, top_n)
         prog, new = self._program(sig)
         with self._programs_lock:
             warm_up, prog.warm_up_taken = not prog.warm_up_taken, True
@@ -389,8 +623,12 @@ class InferenceModel:
                 self.fingerprint(), sig, model=self.name) is None:
             self._cache.store(self.fingerprint(), sig, model=self.name)
         if (not warm_up and not prog.graph.captured
-                and graphs.enabled(self.device)):
+                and graphs.enabled(prog.device)):
             self._capture(prog)
+        return prog
+
+    def _bucket_forward(self, xs: List[np.ndarray]):
+        prog = self._ready(xs)
         with self._gate.shared():
             return prog.run(xs)
 
@@ -405,10 +643,12 @@ class InferenceModel:
         n = 0
         for sig, _ in self._cache.load_all(self.fingerprint(),
                                            model=self.name):
+            if sig.get("dev") != str(self.device):
+                continue
             self._capture(self._program(sig)[0])
             with self._shape_lock:
-                self._warm_shapes.add(tuple((tuple(s), d)
-                                            for s, d in sig["in"]))
+                self._warm_shapes.add(self._shape_key(
+                    sig["in"], sig.get("top_n", 0)))
             n += 1
         return n
 
@@ -439,8 +679,25 @@ class InferenceModel:
         return weight_dtype
 
     @classmethod
+    def load(cls, path: str, int8: bool = False,
+             weight_dtype: Optional[str] = None, device=None,
+             **kw) -> "InferenceModel":
+        """Serve the model a ``ZooModel.save_model`` directory holds
+        (``config.json`` + ``weights.npz``, written by either package),
+        on ``device`` (default ``cuda``)."""
+        from analytics_zoo_tpu_torch.models.common import ZooModel
+
+        if not os.path.exists(os.path.join(path, "weights.npz")):
+            raise FileNotFoundError(f"{path} has no weights.npz")
+        zm = ZooModel.load_model(path, device="cpu")
+        return cls.from_keras_net(zm.model, int8=int8,
+                                  weight_dtype=weight_dtype, device=device,
+                                  **kw)
+
+    @classmethod
     def from_keras_net(cls, net, params=None, int8: bool = False,
                        weight_dtype: Optional[str] = None, device=None,
+                       preprocess: Optional[Callable] = None,
                        **kw) -> "InferenceModel":
         """Wrap a built net as a serving model on ``device`` (default
         ``cuda``; raises when there is none).
@@ -450,6 +707,10 @@ class InferenceModel:
         quantized) replaces its weights by layer and leaf name.
         ``weight_dtype``: "float32", "int8" or "int4"; ``None`` resolves
         the legacy ``int8`` flag, then the ``serving_weight_dtype`` knob.
+        ``preprocess``: a torch function of the raw inputs giving the
+        net's inputs, run on the device inside each bucket program (so a
+        client can send one (B, 2) id pair where the net takes two (B, 1)
+        inputs, or compact wire dtypes cast on the card).
         """
         from analytics_zoo_tpu_torch.convert import load_jax_params
 
@@ -464,7 +725,71 @@ class InferenceModel:
         net = net.to(device).eval()
         m = cls(None, **kw)
         m._net, m._weight_dtype, m.device = net, weight_dtype, device
+        m._preprocess = preprocess
         return m
+
+    # -- replicas ----------------------------------------------------------
+    def replica_forwards(self, n: int = 1, devices=None,
+                         top_n: Optional[int] = None
+                         ) -> List["ModelReplica"]:
+        """``n`` per-device serving replicas with an asynchronous
+        dispatch (at most one per device; ``devices`` defaults to the
+        model's device).
+
+        A native net's replica runs the bucket programs: ``dispatch``
+        launches one padded batch (``_BucketProgram.launch``) and returns
+        its flight, ``harvest`` waits on the flight's event.  Every
+        replica of the model, a rebuilt one too, shares its programs
+        (those ``warm()`` captured): each launch holds its program's lock
+        and reads its answers from buffers of its own, so two replicas
+        of one program are as safe as two flights of one replica.  A
+        native net serves on its own device only: replicas on other
+        cards wait for the multi-GPU slice (ROADMAP A9).  ``top_n`` fuses
+        ``torch.topk`` into every program: the readback is (int32
+        indices, values) per row, not the scores.  A function model's
+        ``n`` replicas share ``predict``, which is host work bound to no
+        device (the JAX package gives one per device, and its host
+        platform has eight)."""
+        if devices is None:
+            devices = [self.device] * (1 if self._net is not None else n)
+        devices = list(devices)[:max(1, int(n))]
+        if self._net is None:
+            # shared-forward fallback: predict() handles buckets/top-N
+            def dispatch(xs, _m=self):
+                return _m.predict(xs)
+
+            def harvest(h):
+                return h if isinstance(h, list) else [h]
+
+            return [ModelReplica(dispatch, harvest, device=None,
+                                 on_device_topn=False, pads_input=False)
+                    for _ in devices]
+        other = [d for d in devices if torch.device(d) != self.device]
+        if other:
+            raise NotImplementedError(
+                f"{self.name} serves on {self.device}; replicas on "
+                f"{other} wait for the multi-GPU slice (ROADMAP A9)")
+        top_n = int(top_n or 0)
+
+        def dispatch(xs):
+            self._note_shapes(xs, top_n)
+            prog = self._ready(xs, top_n)
+            with self._gate.shared():
+                return prog.launch(xs)
+
+        def harvest(flight):
+            out = flight.result()
+            dev_s = flight.device_s()
+            if dev_s is not None:
+                from analytics_zoo_tpu_torch.observe import metrics as obs
+
+                obs.count("serving_device_busy_seconds_total", dev_s,
+                          model=self.name)
+            return out
+
+        return [ModelReplica(dispatch, harvest, device=self.device,
+                             on_device_topn=bool(top_n), pads_input=True)
+                for _ in devices]
 
     def params(self):
         """The served weight tree (quantized leaves as stored)."""
@@ -523,17 +848,27 @@ class BatchRequest:
     """One queued request inside the DynamicBatcher: ``xs`` keep their
     leading batch dim (``n`` rows); ``callback(out, error)`` fires with
     the request's slice of the fused output (or the batch error).
-    ``deadline`` (monotonic seconds, optional) is the client TTL: a
-    request still unflushed past it is shed with ``DeadlineExpired``."""
+    ``deadline`` (monotonic seconds, optional) is the record's client
+    TTL: a request still unflushed past it is shed with a typed
+    ``DeadlineExpired`` instead of wasting a device slot.  ``span``
+    (optional observe.Span) is the record's batch_wait leg — the
+    batcher ends it when the request flushes, sheds, or the batcher
+    closes, so the request's timeline never dangles.  ``model`` names
+    the target model in a multi-model pipeline (None = single-model
+    legacy path); it rides into the bucket key so two models' requests
+    never fuse, and into every per-request metric as a label."""
 
-    __slots__ = ("xs", "n", "callback", "t_submit", "deadline")
+    __slots__ = ("xs", "n", "callback", "t_submit", "deadline", "span",
+                 "model")
 
-    def __init__(self, xs, callback, deadline=None):
+    def __init__(self, xs, callback, deadline=None, span=None, model=None):
         self.xs = xs
         self.n = xs[0].shape[0]
         self.callback = callback
         self.t_submit = time.monotonic()
         self.deadline = deadline
+        self.span = span
+        self.model = model
 
 
 def scatter_batch_results(out, reqs: List[BatchRequest]) -> None:
@@ -547,25 +882,38 @@ def scatter_batch_results(out, reqs: List[BatchRequest]) -> None:
 
 
 class DynamicBatcher:
-    """Shape-bucketed continuous batching.
+    """Shape-bucketed continuous batching: stage 2 of the serving pipeline.
 
-    Requests group by row shape/dtype and a bucket dispatches on
-    whichever comes first:
+    Requests group by row shape/dtype (mixed-shape traffic never fuses —
+    each shape is its own bucket feeding its own program) and a bucket
+    dispatches on whichever comes first:
 
-    - **batch-full** — ``max_batch`` rows accumulated (flushed from the
-      submitting thread at once);
-    - **deadline** — ``max_latency_ms`` since the bucket's oldest request.
+    - **batch-full** — ``max_batch`` rows accumulated (preempts the
+      deadline: a hot bucket never waits);
+    - **deadline** — ``max_latency_ms`` since the bucket's oldest
+      request (trickle traffic is never stranded).
 
-    Two front doors: blocking ``predict`` and async ``submit(xs,
-    callback)``.  Batches run inline through ``model.predict``.
+    Two front doors: blocking ``predict`` (drop-in concurrency helper)
+    and async ``submit(xs, callback)`` (the serving pipeline's path).
+    ``dispatch_fn(key, fused, reqs)`` hands full batches to an external
+    executor (the serving DeviceExecutor); without one, batches run
+    inline through ``model.predict``.
     """
 
-    def __init__(self, model: InferenceModel, max_batch: int = 64,
-                 max_latency_ms: float = 5.0, name: str = "serving"):
+    def __init__(self, model: Optional[InferenceModel] = None,
+                 max_batch: int = 64, max_latency_ms: float = 5.0,
+                 dispatch_fn: Optional[Callable] = None,
+                 name: str = "serving",
+                 heartbeat: Optional[Callable[[], None]] = None):
+        if model is None and dispatch_fn is None:
+            raise ValueError("DynamicBatcher needs a model or a "
+                             "dispatch_fn")
         self.model = model
         self.max_batch = max_batch
         self.max_latency = max_latency_ms / 1e3
         self.name = name
+        self._dispatch_fn = dispatch_fn
+        self._heartbeat = heartbeat
         self._cv = threading.Condition()
         self._buckets: Dict[Any, List[BatchRequest]] = {}
         self._rows: Dict[Any, int] = {}
@@ -580,24 +928,32 @@ class DynamicBatcher:
 
     # -- front doors -------------------------------------------------------
     def submit(self, inputs, callback: Callable,
-               deadline: Optional[float] = None) -> None:
+               deadline: Optional[float] = None, span=None,
+               model: Optional[str] = None) -> None:
         """Async enqueue; ``callback(out, error)`` fires from the
         dispatch side when this request's slice is ready.  ``deadline``
         (monotonic) sheds the request with ``DeadlineExpired`` if it is
-        still queued when its bucket flushes past it."""
+        still queued when the bucket flushes past it.  ``span`` is the
+        caller's batch_wait span, ended by the batcher at flush/shed.
+        ``model`` scopes the bucket: requests for different models never
+        fuse into one device batch."""
         if self._stop.is_set():
             raise RuntimeError("DynamicBatcher is closed")
         xs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
         xs = [np.asarray(x) for x in xs]
-        req = BatchRequest(xs, callback, deadline=deadline)
-        key = self._key(xs)
+        req = BatchRequest(xs, callback, deadline=deadline, span=span,
+                           model=model)
+        key = self._key(xs) if model is None else (model,) + self._key(xs)
         full_reqs = None
         with self._cv:
             self._buckets.setdefault(key, []).append(req)
             self._rows[key] = self._rows.get(key, 0) + req.n
             self._deadline.setdefault(key, req.t_submit + self.max_latency)
             if self._rows[key] >= self.max_batch:
-                # batch-full: flush from the submitting thread now
+                # batch-full preempts the dispatcher thread: flush from
+                # the submitting thread NOW rather than after the loop's
+                # next GIL slot, so the device starts on batch N while
+                # later requests are still being decoded/submitted
                 full_reqs = self._buckets.pop(key)
                 self._rows.pop(key, None)
                 self._deadline.pop(key, None)
@@ -614,11 +970,11 @@ class DynamicBatcher:
                     self._deadline.get(key, float("inf")),
                     leftover[0].t_submit + self.max_latency)
         for g, full in groups:
-            self._flush(g, full)
+            self._flush(key, g, full)
 
     def predict(self, inputs) -> Any:
-        """Enqueue one request; blocks until its slice of the fused batch
-        returns."""
+        """Enqueue one request (single example or small batch); blocks
+        until its slice of the fused batch returns."""
         done = threading.Event()
         slot: Dict[str, Any] = {}
 
@@ -632,6 +988,8 @@ class DynamicBatcher:
         self.submit(inputs, cb)
         while not done.wait(timeout=1.0):
             if self._stop.is_set() and not done.is_set():
+                # raced with close(): the worker may have exited before
+                # popping this request — close() drains, but don't hang
                 raise RuntimeError("DynamicBatcher closed while waiting")
         if "error" in slot:
             raise slot["error"]
@@ -639,15 +997,16 @@ class DynamicBatcher:
 
     def close(self, flush: bool = False):
         """Stop the dispatcher.  ``flush=True`` dispatches whatever is
-        buffered first; pending requests left after that fail with
-        RuntimeError so no caller blocks forever."""
+        buffered first (graceful pipeline drain); pending requests left
+        after that fail with RuntimeError so no caller blocks forever."""
         if flush and not self._stop.is_set():
             with self._cv:
-                groups = [self._buckets.pop(k) for k in list(self._buckets)]
+                groups = [(k, self._buckets.pop(k))
+                          for k in list(self._buckets)]
                 self._rows.clear()
                 self._deadline.clear()
-            for reqs in groups:
-                self._flush(reqs, full=False)
+            for key, reqs in groups:
+                self._flush(key, reqs, full=False)
         self._stop.set()
         with self._cv:
             self._cv.notify_all()
@@ -658,6 +1017,8 @@ class DynamicBatcher:
             self._rows.clear()
             self._deadline.clear()
         for r in pending:
+            if r.span is not None:
+                r.span.end(status="closed")
             r.callback(None, RuntimeError("DynamicBatcher closed"))
 
     # -- dispatcher --------------------------------------------------------
@@ -669,6 +1030,8 @@ class DynamicBatcher:
 
     def _loop(self):
         while not self._stop.is_set():
+            if self._heartbeat is not None:
+                self._heartbeat()
             flushes = []
             with self._cv:
                 now = time.monotonic()
@@ -688,16 +1051,16 @@ class DynamicBatcher:
                     if not reqs:
                         continue
                     groups, leftover = self._take(reqs, deadline_hit)
-                    flushes.extend(groups)
+                    flushes.extend((key, g, f) for g, f in groups)
                     if leftover:
-                        # the partial tail keeps batching toward its own
-                        # (original-arrival) deadline
+                        # a full-flush leaves the partial tail batching
+                        # toward its own (original-arrival) deadline
                         self._buckets[key] = leftover
                         self._rows[key] = sum(r.n for r in leftover)
                         self._deadline[key] = (leftover[0].t_submit
                                                + self.max_latency)
-            for reqs, full in flushes:
-                self._flush(reqs, full)
+            for key, reqs, full in flushes:
+                self._flush(key, reqs, full)
 
     def _take(self, reqs, deadline_hit):
         """Pack requests into ≤max_batch-row groups (request boundaries
@@ -717,7 +1080,7 @@ class DynamicBatcher:
                 leftover = cur
         return groups, leftover
 
-    def _flush(self, reqs: List[BatchRequest], full: bool) -> None:
+    def _flush(self, key, reqs: List[BatchRequest], full: bool) -> None:
         from analytics_zoo_tpu_torch.core.profiling import TIMERS
         from analytics_zoo_tpu_torch.observe import metrics as obs
         from analytics_zoo_tpu_torch.robust.errors import DeadlineExpired
@@ -726,14 +1089,18 @@ class DynamicBatcher:
         expired = [r for r in reqs
                    if r.deadline is not None and now > r.deadline]
         if expired:
-            # shed before paying the dispatch: the client's TTL elapsed
-            # while the request batched
-            model = self.model.name
-            obs.count("serving_shed_total", len(expired), code="expired",
-                      model=model, flat=f"{self.name}/shed_expired")
+            # shed before paying the dispatch: the client's TTL already
+            # elapsed while the request batched, so answer the typed
+            # error now and keep the device slot for live work
+            for r in expired:
+                obs.count("serving_shed_total", code="expired",
+                          model=r.model or DEFAULT_MODEL,
+                          flat=f"{self.name}/shed_expired")
             err = DeadlineExpired(
                 "client TTL expired while the request batched")
             for r in expired:
+                if r.span is not None:
+                    r.span.end(status="expired")
                 r.callback(None, err)
             reqs = [r for r in reqs if r not in expired]
             if not reqs:
@@ -742,15 +1109,24 @@ class DynamicBatcher:
                     else f"{self.name}/flush_deadline")
         for r in reqs:
             obs.observe("serving_stage_seconds", now - r.t_submit,
-                        stage="batch_wait", model=self.model.name,
+                        stage="batch_wait", model=r.model or DEFAULT_MODEL,
                         flat=f"{self.name}/batch_wait")
+            if r.span is not None:
+                r.span.end(rows=r.n, full=full)
         try:
             if len(reqs) == 1:
+                # single-request batch: hand the arrays through as-is —
+                # on the shm backend these are views into the slot, and
+                # this is the last place a host copy could sneak in
+                # before the copy into the bucket's staging buffer
                 fused = list(reqs[0].xs)
             else:
                 TIMERS.incr(f"{self.name}/batch_fuse_copies")
                 fused = [np.concatenate([r.xs[i] for r in reqs], axis=0)
                          for i in range(len(reqs[0].xs))]
+            if self._dispatch_fn is not None:
+                self._dispatch_fn(key, fused, reqs)
+                return
             out = self.model.predict(fused)
             scatter_batch_results(out, reqs)
         except Exception as e:  # surface errors to every waiter

@@ -11,7 +11,7 @@ name match its parameter tree.  Ratings/classes follow the reference's
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,11 +38,29 @@ def _check_placement(requested: str) -> None:
 
 
 class Recommender(ZooModel):
-    """Base with pair-scoring / top-K recommendation helpers.  They run
-    through the serving ``InferenceModel`` — the one ``inference_model()``
-    built last, or a float32 one on the model's device."""
+    """Base with pair-scoring / top-K recommendation helpers.  They score
+    the net's current weights, as the JAX package's helpers (which call
+    ``model.predict``) do: through the serving ``InferenceModel`` that
+    ``inference_model()`` built last while the weights it copied are
+    unchanged, and through a fresh one of the same kind once they have
+    changed (``fit``, ``load_weights``, ``load_jax_params`` or any
+    in-place update); without one, through a float32 one."""
 
     _inference = None
+    _inference_kw: Dict[str, Any] = {}
+    _inference_stamp: Optional[tuple] = None
+
+    def _weights_stamp(self) -> tuple:
+        """What changes whenever the weights do, read without touching
+        them: each tensor's storage and version counter (a replaced
+        tensor, ``copy_`` or any other in-place op), and the estimator's
+        step count (``fit`` on the card updates the weights inside
+        replayed graphs, which no version counter sees)."""
+        est = self.model._estimator
+        return (tuple((t.data_ptr(), t._version)
+                      for t in list(self.model.parameters())
+                      + list(self.model.buffers())),
+                id(est), None if est is None else est.global_step)
 
     def inference_model(self, **kw):
         """Build (and keep, for the helpers below) the serving model over
@@ -51,7 +69,18 @@ class Recommender(ZooModel):
         from analytics_zoo_tpu_torch.deploy.inference import InferenceModel
 
         kw.setdefault("device", self.device)
+        self._inference_stamp = self._weights_stamp()
         self._inference = InferenceModel.from_keras_net(self.model, **kw)
+        self._inference_kw = dict(kw)
+        return self._inference
+
+    def _scorer(self):
+        """The serving model of the current weights: the one built last
+        if the weights it copied are unchanged, else a fresh one built
+        the same way."""
+        if (self._inference is None
+                or self._inference_stamp != self._weights_stamp()):
+            return self.inference_model(**self._inference_kw)
         return self._inference
 
     def predict_user_item_pair(self, user_ids: np.ndarray,
@@ -60,22 +89,33 @@ class Recommender(ZooModel):
         """Class probabilities for (user, item) pairs."""
         u = np.asarray(user_ids).reshape(-1, 1).astype(np.int32)
         i = np.asarray(item_ids).reshape(-1, 1).astype(np.int32)
-        m = self._inference or self.inference_model()
-        return m.predict([u, i], batch_size=batch_size)
+        return self._scorer().predict([u, i], batch_size=batch_size)
 
-    def recommend_for_user(self, user_id: int, candidate_items: np.ndarray,
-                           max_items: int = 10) -> List[Tuple[int, float]]:
-        items = np.asarray(candidate_items)
-        users = np.full_like(items, user_id)
-        probs = self.predict_user_item_pair(users, items)
+    @staticmethod
+    def _ranked(ids: np.ndarray, probs: np.ndarray, k: int
+                ) -> List[Tuple[int, float]]:
         # score = expected rating over the 1-based classes
         if probs.shape[-1] > 1:
             classes = np.arange(1, probs.shape[-1] + 1)
             scores = (probs * classes).sum(-1)
         else:
             scores = probs[:, 0]
-        order = np.argsort(-scores)[:max_items]
-        return [(int(items[j]), float(scores[j])) for j in order]
+        order = np.argsort(-scores)[:k]
+        return [(int(ids[j]), float(scores[j])) for j in order]
+
+    def recommend_for_user(self, user_id: int, candidate_items: np.ndarray,
+                           max_items: int = 10) -> List[Tuple[int, float]]:
+        items = np.asarray(candidate_items)
+        users = np.full_like(items, user_id)
+        return self._ranked(items, self.predict_user_item_pair(users, items),
+                            max_items)
+
+    def recommend_for_item(self, item_id: int, candidate_users: np.ndarray,
+                           max_users: int = 10) -> List[Tuple[int, float]]:
+        users = np.asarray(candidate_users)
+        items = np.full_like(users, item_id)
+        return self._ranked(users, self.predict_user_item_pair(users, items),
+                            max_users)
 
 
 @register_model

@@ -224,7 +224,40 @@
    and its SIGTERM-and-resume runs graphed.  Capture seconds and launches
    per replay print for every program, with the card's name and power
    limit.
-9. Prints the kernels JSON line and, last, the ok line.
+9. ClusterServing phase.  int8 NeuralCF at the ML-1M width (buckets 1,
+   8, 64, 256; one (user, item) pair per record, split into the net's two
+   inputs on the card inside each bucket graph) and BERT-Base f32
+   (buckets 1, 8, 32; 128 ids per record) served together by one
+   ``ClusterServing({"ncf": ..., "bert": ...})`` worker with
+   ``postprocess_top_n=2`` (``torch.topk`` inside the bucket graphs) and
+   ``supervise=True``.  A first pass runs every bucket of both models
+   through a top-2 replica and ``predict`` into a ``CompileCache`` and
+   computes every record's plain scores (``forced("reference")``); the
+   worker's models are then made afresh and warm from the cache.  A
+   client in a second process (``chip_smoke.py --serve-client BACKEND
+   ADDRESS OUT``, which never touches CUDA) pushes 4,096 NCF records
+   (pairs from ``generate_movielens_like(seed=0)``) and 64 BERT records,
+   then one record without a tensor field and one with ``ttl_ms=1``,
+   over a ``ShmQueue`` it attaches to by name, and reads every answer;
+   then a second worker on the same models does the same over a
+   ``FileQueue``.  Every answer's top-2 indices and values are held
+   against the plain scores (phase 3's 1e-5 for NCF, phase 5's 1e-3 for
+   BERT; an index may differ only where the plain scores tie within
+   that), the two bad records must come back as typed error payloads
+   (``malformed``; ``expired`` or ``overloaded``), no record may be lost,
+   ``compile_count`` must stay 0, and no codec copy may be made.  In the
+   shared-memory run one ``serving.replica_crash`` is injected through
+   ``FaultInjector``: the slot's breaker opens, the batch is retried or
+   served by the sync fallback, and the slot comes back (the
+   supervisor's rebuild or the half-open probe).  Prints records per
+   second, e2e p50/p99 per model and per queue, the stage p50/p99 of
+   ``health()``, the launches of kernels 1, 3 and 4, breaker and
+   supervisor counters, and the card's busy share (its time in the bucket
+   graphs, by CUDA events each graph records at its start and end) over
+   one second of the file-queue run and over each run, with the card's
+   name and power limit (``cluster_serving`` and
+   ``cluster_serving_summary`` lines).
+10. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -2580,7 +2613,8 @@ def graphed_serving(torch, fa, root):
         cold[name] = {"cover_s": time.perf_counter() - t0,
                       "compile_count": im.compile_count,
                       "programs": programs_of(im._programs)}
-        batcher = DynamicBatcher(im, max_batch=8, max_latency_ms=2.0)
+        batcher = DynamicBatcher(im, max_batch=8,
+                                 max_latency_ms=FILL_DEADLINE_MS)
         cold_answers[f"{name}_served"], _ = serve_rows(
             batcher, reqs[name]["single"], 8)
         batcher.close()
@@ -2648,6 +2682,15 @@ def graphed_serving(torch, fa, root):
     return out
 
 
+# The batcher's deadline where the restart check compares two processes'
+# served answers request for request: long enough that every batch fills
+# to 8 rows, so each request runs through the same bucket graph in both
+# processes (a lone request flushed at a 2 ms deadline runs the bucket-1
+# graph, whose GEMM shapes sum in another order: up to 1.4e-6 apart on
+# BERT-Base's logits, on an H100)
+FILL_DEADLINE_MS = 5000.0
+
+
 def serving_models(torch):
     """The served models of the graphed phase, from seeds: BERT-Base in
     f32 (buckets 1, 8, 32) and NCF at the ML-1M width in int8 (buckets 1,
@@ -2704,7 +2747,8 @@ def serve_warm(cache_dir):
         warmed = im.warm()
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        batcher = DynamicBatcher(im, max_batch=8, max_latency_ms=2.0)
+        batcher = DynamicBatcher(im, max_batch=8,
+                                 max_latency_ms=FILL_DEADLINE_MS)
         ans, ms = serve_requests(batcher, reqs[name]["single"], 8)
         batcher.close()
         cover = np.concatenate([im.predict(xs) for xs in
@@ -2756,6 +2800,427 @@ def graphed_phase(torch, eb, fa, card):
             for k in ("eager", "graphed")}}
     log("graphed_summary", json.dumps(summary))
     return out
+
+
+# ---------------------------------------------------------------------------
+# ClusterServing phase
+
+# The served records: NCF (user, item) pairs drawn from the MovieLens-1M
+# stand-in, BERT-Base ids at L = 128; the worker's top-N
+CLUSTER_NCF, CLUSTER_BERT, CLUSTER_L, CLUSTER_TOP_N = 4096, 64, 128, 2
+# the two records the worker must refuse, and the codes each may carry:
+# no tensor field is malformed; a 1 ms TTL has run out by the time the
+# poller claims it (expired) or cannot be met (overloaded)
+CLUSTER_BAD = {"bad_fields": ("malformed",),
+               "bad_ttl": ("expired", "overloaded")}
+# NCF answers against the plain versions: phase 3's atol on probabilities;
+# BERT: phase 5's bound on a logit
+CLUSTER_TOL = {"ncf": 1e-5, "bert": 1e-3}
+CLUSTER_STAGES = ("queue_wait", "decode", "batch_wait", "device", "respond",
+                  "e2e")
+
+
+def split_pair(x):
+    """The served NCF's preprocess, on the card inside each bucket
+    graph: one (B, 2) id pair → the net's (user, item) inputs."""
+    return x[:, :1], x[:, 1:]
+
+
+def cluster_records():
+    """The records every queue run serves: 4096 NCF (user, item) pairs,
+    drawn from ``generate_movielens_like(seed=0)``, and 64 BERT id rows."""
+    from analytics_zoo_tpu_torch.data import generate_movielens_like
+
+    u, i, _ = generate_movielens_like(seed=SEED)
+    pick = np.random.RandomState(SEED + 9).permutation(len(u))[:CLUSTER_NCF]
+    pairs = np.stack([u[pick], i[pick]], axis=1).astype(np.int32)
+    rs = np.random.RandomState(SEED + 10)
+    ids = rs.randint(0, BERT_BASE["vocab"],
+                     (CLUSTER_BERT, CLUSTER_L)).astype(np.int32)
+    return {"ncf": pairs, "bert": ids}
+
+
+def cluster_models(torch):
+    """int8 NCF at the ML-1M width (buckets 1, 8, 64, 256) and BERT-Base
+    f32 (buckets 1, 8, 32), from seeds, on the card."""
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    reset_name_scope()
+    ncf = NeuralCF(USERS, ITEMS, class_num=5, user_embed=20, item_embed=20,
+                   hidden_layers=(40, 20, 10), mf_embed=20, device="cuda")
+    load_jax_params(ncf.model, seeded_params(ncf.model, SEED))
+    reset_name_scope()
+    net = BERTClassifier(num_classes=2, bert_config=BERT_BASE,
+                         generator=torch.Generator().manual_seed(SEED))
+    return {"ncf": ncf.inference_model(weight_dtype="int8",
+                                       preprocess=split_pair,
+                                       batch_buckets=(1, 8, 64, 256)),
+            "bert": InferenceModel.from_keras_net(
+                net, device="cuda", batch_buckets=(1, 8, 32))}
+
+
+def cluster_cover(models, recs, cache_dir):
+    """A first process's work, here in the same one: every bucket of each
+    model through a top-2 replica and through ``predict`` (the sync
+    fallback's path), twice each (eager, then captured), so the compile
+    cache holds every signature the worker can run."""
+    from analytics_zoo_tpu_torch.deploy import CompileCache
+
+    cache = CompileCache(cache_dir)
+    for name, im in models.items():
+        im.attach_compile_cache(cache, name=name)
+        (rep,) = im.replica_forwards(1, top_n=CLUSTER_TOP_N)
+        for b in im.batch_buckets:
+            xs = [recs[name][:b]]
+            for _ in range(2):
+                rep.harvest(rep.dispatch(xs))
+                im.predict(xs[0])
+    return cache.stats()
+
+
+def cluster_reference(torch, models, recs):
+    """Every record's scores through the plain versions on the card."""
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    with dispatch.forced("reference"):
+        return {name: np.concatenate([
+            models[name].predict(recs[name][s:s + 256])
+            for s in range(0, len(recs[name]), 256)])
+            for name in models}
+
+
+def cluster_uris():
+    recs = cluster_records()
+    return [(name, f"{name}{r}", recs[name][r])
+            for r in range(max(CLUSTER_NCF, CLUSTER_BERT))
+            for name in ("ncf", "bert") if r < len(recs[name])]
+
+
+def serve_client(backend, address, out_path):
+    """The client process (``chip_smoke.py --serve-client BACKEND ADDRESS
+    OUT``): attaches to the worker's queue (a ShmQueue segment by name,
+    or a FileQueue root), pushes every record from one thread, then the
+    malformed and the 1 ms TTL records, while it reads the answers as
+    they come; writes them to ``OUT`` (npz) and prints one JSON line.  It
+    never touches CUDA."""
+    import torch
+
+    from analytics_zoo_tpu_torch.deploy import (FileQueue, InputQueue,
+                                                OutputQueue, ShmQueue)
+
+    q = (ShmQueue.attach(address, push_timeout_s=120.0) if backend == "shm"
+         else FileQueue(address))
+    iq, oq = InputQueue(q), OutputQueue(q)
+    todo = cluster_uris()
+    errors = []
+
+    def push():
+        try:
+            for name, uri, x in todo:
+                iq.enqueue(uri=uri, model=name,
+                           **{"x" if name == "ncf" else "ids": x})
+            q.push({"uri": "bad_fields", "ts": time.time(), "fmt": "tensor",
+                    "model": "ncf", "note": "no tensor field"})
+            iq.enqueue(uri="bad_ttl", model="ncf", ttl_ms=1.0,
+                       x=np.ones(2, np.int32))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    want = len(todo) + len(CLUSTER_BAD)
+    answers = {}
+    t0 = time.perf_counter()
+    pusher = threading.Thread(target=push)
+    pusher.start()
+    deadline = time.monotonic() + 300
+    while len(answers) < want and time.monotonic() < deadline:
+        answers.update(oq.dequeue(timeout=0.5))
+    wall = time.perf_counter() - t0
+    pusher.join(timeout=60)
+    out = {}
+    for name, n in (("ncf", CLUSTER_NCF), ("bert", CLUSTER_BERT)):
+        idx = np.full((n, CLUSTER_TOP_N), -1, np.int64)
+        val = np.full((n, CLUSTER_TOP_N), np.nan, np.float64)
+        for r in range(n):
+            a = answers.get(f"{name}{r}")
+            if isinstance(a, list) and len(a) == CLUSTER_TOP_N:
+                idx[r] = [p[0] for p in a]
+                val[r] = [p[1] for p in a]
+        out[f"{name}_idx"], out[f"{name}_val"] = idx, val
+    np.savez(out_path, **out)
+    if backend == "shm":
+        q.stop()
+    print(json.dumps({
+        "backend": backend, "records": len(todo), "answered": len(answers),
+        "wall_s": wall, "records_per_s": len(todo) / wall,
+        "errors": {k: answers.get(k) for k in CLUSTER_BAD},
+        "push_errors": errors,
+        "cuda_initialized": torch.cuda.is_initialized()}))
+    return 0 if len(answers) == want and not errors else 1
+
+
+def cluster_check(name, idx, val, ref):
+    """Served top-2 against the plain path's scores: each returned value
+    within the model's tolerance of the plain score at its index and of
+    the plain top-2 value at its rank; indices that differ from the plain
+    top-2 are counted, and allowed only where the plain scores tie within
+    the tolerance."""
+    tol = CLUSTER_TOL[name]
+    order = np.argsort(-ref, axis=1)[:, :CLUSTER_TOP_N]
+    top = np.take_along_axis(ref, order, 1)
+    ok = idx.min() >= 0
+    at = np.take_along_axis(ref, np.clip(idx, 0, ref.shape[1] - 1), 1)
+    err = float(max(np.abs(val - at).max(), np.abs(val - top).max()))
+    moved = int((idx != order).any(axis=1).sum())
+    return {"rows": len(idx), "max_abs_err": err, "tol": tol,
+            "index_mismatch_rows": moved,
+            "ok": bool(ok and np.isfinite(val).all() and err <= tol)}
+
+
+def stage_rollup(delta):
+    """Per model and stage: count, p50 and p99 in ms, from a metrics
+    window."""
+    out = {}
+    for series, h in delta["histograms"].items():
+        if not series.startswith("serving_stage_seconds{"):
+            continue
+        labels = dict(kv.split("=") for kv in series[len(
+            "serving_stage_seconds{"):-1].split(","))
+        m, st = labels["model"].strip('"'), labels["stage"].strip('"')
+        out.setdefault(m, {})[st] = {
+            "count": h["count"], "p50_ms": 1e3 * h["p50"],
+            "p99_ms": 1e3 * h["p99"]}
+    return out
+
+
+def device_busy(delta, wall_s):
+    """The card's busy share from a metrics window: the seconds the card
+    ran the bucket graphs of the flights harvested in it (CUDA events
+    that each graph records at its start and end, so no host time lies
+    between them: ``serving_device_busy_seconds_total``) over the
+    window's wall time.  ``torch.profiler`` sees no device time for the
+    graphs the executor's thread launches, so CUDA events time them."""
+    by_model = {}
+    for series, v in delta["counters"].items():
+        if series.startswith("serving_device_busy_seconds_total{"):
+            by_model[series.split('model="')[1].split('"')[0]] = v
+    busy = sum(by_model.values())
+    return {"wall_s": wall_s, "device_s": busy,
+            "device_busy_share": busy / wall_s, "device_s_by_model": by_model}
+
+
+SERVING_COUNTERS = ("replica_quarantined", "replica_rebuilt",
+                    "replica_restored", "batch_retries",
+                    "sync_fallback_batches", "device_batches",
+                    "harvest_abandoned", "stage_restarted", "decode_overlap",
+                    "device_idle_events", "batch_fuse_copies",
+                    "codec_tensor_copies", "shm_backpressure_waits")
+
+
+def cluster_run(torch, eb, dq, fa, models, recs, refs, backend, root,
+                cache_dir, crash):
+    """One worker on one queue: start (warm from the cache), the client
+    process pushes and reads, the answers are held against the plain
+    versions; returns the run's numbers."""
+    import gc
+    import os
+
+    from analytics_zoo_tpu_torch.core.profiling import TIMERS
+    from analytics_zoo_tpu_torch.deploy import (ClusterServing, FileQueue,
+                                                ServingConfig, ShmQueue)
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.robust import FaultInjector
+
+    cfg = ServingConfig(postprocess_top_n=CLUSTER_TOP_N, batch_size=256,
+                        max_batch_delay_ms=2.0, decode_workers=4,
+                        compile_cache_dir=cache_dir, supervise=True,
+                        breaker_threshold=1, breaker_cooldown_s=0.25,
+                        supervisor_interval_s=0.01)
+    if backend == "shm":
+        queue = ShmQueue(name="smoke", slots=1024, slot_bytes=1 << 12,
+                         result_slots=1024, result_slot_bytes=1 << 10)
+        address = queue.segment
+    else:
+        address = os.path.join(root, "spool")
+        queue = FileQueue(address)
+    out_path = os.path.join(root, f"answers_{backend}.npz")
+    fi = FaultInjector()
+    if crash:
+        # one dispatch of the run fails: its replica's breaker opens
+        fi.plan("serving.replica_crash", at=4,
+                exc=RuntimeError("injected replica crash"))
+    cs = ClusterServing(dict(models), queue, cfg)
+    try:
+        t0 = time.perf_counter()
+        cs.start()
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        counts0 = TIMERS.counts()
+        window = METRICS.snapshot()
+        reset_counts(eb, dq, fa)
+        with fi:
+            client = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--serve-client", backend, address, out_path],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            busy = None
+            if not crash:
+                # one second of the run, once answers flow (the client
+                # process needs seconds to import torch)
+                deadline = time.monotonic() + 60
+                while (cs.records_served < 200
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+                second = METRICS.snapshot()
+                t1 = time.perf_counter()
+                time.sleep(1.0)
+                busy = device_busy(METRICS.delta(second),
+                                   time.perf_counter() - t1)
+            try:
+                stdout, stderr = client.communicate(timeout=400)
+            finally:
+                if client.poll() is None:
+                    client.kill()
+                    client.communicate()
+        if crash:
+            # the slot comes back by the supervisor's rebuild or by the
+            # breaker's half-open probe, whichever comes first after the
+            # cooldown; wait for one of them if the traffic ended sooner
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline and not any(
+                    TIMERS.count(f"serving/{k}") - counts0.get(
+                        f"serving/{k}", 0)
+                    for k in ("replica_rebuilt", "replica_restored")):
+                time.sleep(0.05)
+        torch.cuda.synchronize()
+        launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                    "dequant_matmul": dq.LAUNCHES.value,
+                    "flash_attention_fwd": fa.LAUNCHES.value}
+        delta = METRICS.delta(window)
+        health = cs.health()
+        fired = dict(fi.fired)
+    finally:
+        cs.stop(timeout=30)
+        # the last records' views of the segment go with the worker and
+        # with the injected exception's traceback
+        del cs, fi
+        gc.collect()
+        if backend == "shm":
+            queue.stop()
+    if client.returncode != 0:
+        raise AssertionError(f"the {backend} client failed "
+                             f"(rc {client.returncode}): {stdout[-2000:]} "
+                             f"{stderr[-3000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    with np.load(out_path) as f:
+        got = dict(f)
+    checks = {name: cluster_check(name, got[f"{name}_idx"],
+                                  got[f"{name}_val"], refs[name])
+              for name in recs}
+    counters = {k: TIMERS.count(f"serving/{k}") - counts0.get(
+        f"serving/{k}", 0) for k in SERVING_COUNTERS}
+    out = {"backend": backend, "start_s": start_s, "client": summary,
+           "checks": checks, "launches": launches,
+           "compile_count": {m: im.compile_count for m, im in models.items()},
+           "warm_count": {m: im.warm_count for m, im in models.items()},
+           "stages_by_model": stage_rollup(delta),
+           "health_stages": {k: health["stages"].get(k) for k in
+                             CLUSTER_STAGES},
+           "records_served": health["records_served"],
+           "counters": counters,
+           "supervisor": {"checks": health.get("supervisor"),
+                          "replica_states": health.get("replica_states")},
+           "fault_fired": fired, "device_busy_one_second": busy,
+           "device_busy_run": device_busy(delta, summary["wall_s"])}
+    return out
+
+
+def cluster_serving_phase(torch, eb, dq, fa, card):
+    """Phase 9 (docstring item 9): int8 NCF and BERT-Base served together
+    by one ClusterServing worker, warmed from a compile cache, to a client
+    in another process over a ShmQueue and then a FileQueue."""
+    import gc
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="zoo_cluster_")
+    try:
+        recs = cluster_records()
+        cache_dir = f"{root}/compile_cache"
+        cold = cluster_models(torch)
+        t0 = time.perf_counter()
+        cache = cluster_cover(cold, recs, cache_dir)
+        cover_s = time.perf_counter() - t0
+        refs = cluster_reference(torch, cold, recs)
+        del cold
+        gc.collect()
+        torch.cuda.empty_cache()
+        models = cluster_models(torch)
+        runs = [cluster_run(torch, eb, dq, fa, models, recs, refs, backend,
+                            root, cache_dir, crash=backend == "shm")
+                for backend in ("shm", "file")]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"card": card, "cover_s": cover_s, "cache": cache,
+           "runs": runs}
+    log("cluster_serving", json.dumps(out))
+    summary = {"card": card}
+    for run in runs:
+        b = run["backend"]
+        summary[b] = {
+            "records_per_s": run["client"]["records_per_s"],
+            "e2e_ms": {m: {k: s["e2e"][k] for k in ("p50_ms", "p99_ms")}
+                       for m, s in run["stages_by_model"].items()},
+            "stages_ms": {k: (None if v is None else
+                              {"p50": v["p50_ms"], "p99": v["p99_ms"]})
+                          for k, v in run["health_stages"].items()},
+            "compile_count": run["compile_count"],
+            "launches": run["launches"],
+            "counters": {k: v for k, v in run["counters"].items() if v},
+            "errors": run["client"]["errors"],
+            "max_abs_err": {m: c["max_abs_err"]
+                            for m, c in run["checks"].items()},
+            "device_busy_share_run": run["device_busy_run"][
+                "device_busy_share"],
+            "device_busy_share_one_second": (
+                run["device_busy_one_second"] or {}).get(
+                    "device_busy_share")}
+    log("cluster_serving_summary", json.dumps(summary))
+    for run in runs:
+        b, c = run["backend"], run["counters"]
+        bad = [f"{m}: {v}" for m, v in run["checks"].items() if not v["ok"]]
+        for uri, codes in CLUSTER_BAD.items():
+            e = run["client"]["errors"].get(uri)
+            if not isinstance(e, dict) or e.get("code") not in codes:
+                bad.append(f"{uri} answered {e!r}")
+        if run["client"]["answered"] != (run["client"]["records"]
+                                         + len(CLUSTER_BAD)):
+            bad.append("records lost")
+        if run["client"]["cuda_initialized"]:
+            bad.append("the client process touched CUDA")
+        if any(run["compile_count"].values()):
+            bad.append(f"live captures after warm: {run['compile_count']}")
+        if not all(run["launches"].values()):
+            bad.append(f"a kernel of the path never ran: {run['launches']}")
+        if b == "shm" and not (
+                run["fault_fired"].get("serving.replica_crash") == 1
+                and c["replica_quarantined"] >= 1
+                and c["batch_retries"] + c["sync_fallback_batches"] >= 1
+                and c["replica_rebuilt"] + c["replica_restored"] >= 1):
+            bad.append(f"the crash was not recovered: {c} "
+                       f"{run['fault_fired']}")
+        if b == "shm" and c["codec_tensor_copies"]:
+            # the shared-memory path hands slot views to the bucket's
+            # staging copy (the file queue copies by design: its file is
+            # deleted once read)
+            bad.append(f"codec copies: {c['codec_tensor_copies']}")
+        if bad:
+            raise AssertionError(f"cluster serving over {b}: {bad}")
+    return {k: sum(run["launches"][k] for run in runs)
+            for k in runs[0]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2972,10 +3437,12 @@ def main() -> int:
     ft_bert_launches, ft_ncf = fault_tolerant_phase(torch, eb, dq, fa,
                                                     bert_f32, card)
     graphed_phase(torch, eb, fa, card)
+    cluster = cluster_serving_phase(torch, eb, dq, fa, card)
     fwd_by_path = {"serving": served["embedding_bag"],
                    "training": trained["embedding_bag_fwd"],
                    "bert_serving": bert["embedding_bag"],
-                   "fault_tolerant_ncf": ft_ncf["embedding_bag_fwd"]}
+                   "fault_tolerant_ncf": ft_ncf["embedding_bag_fwd"],
+                   "cluster_serving": cluster["embedding_bag_fwd"]}
     kernels = [
         headline(bag_cases, "embedding_bag_fwd", "cuda", BAG_SRC, BAG_TPU,
                  sum(fwd_by_path.values()),
@@ -2985,7 +3452,7 @@ def main() -> int:
                  + ft_ncf["embedding_bag_bwd"],
                  lambda c: c["vocab"] == USERS + 1),
         headline(dq_cases, "dequant_matmul", "cuda", DQ_SRC, DQ_TPU,
-                 served["dequant_matmul"],
+                 served["dequant_matmul"] + cluster["dequant_matmul"],
                  lambda c: c["m"] == 256 and c["bits"] == 8),
     ]
     kernels[0]["launches_by_path"] = fwd_by_path
@@ -2997,13 +3464,16 @@ def main() -> int:
     kernels[2]["max_rel_err"] = max(c["max_rel_err"] for c in dq_f32)
     kernels[2]["max_abs_err_half"] = max(c["max_abs_err"] for c in dq_cases
                                          if c["dtype"] != "float32")
-    kernels[2]["launches_by_path"] = {"serving": served["dequant_matmul"],
-                                      "training": trained["dequant_matmul"],
-                                      "bert_serving": bert["dequant_matmul"]}
+    kernels[2]["launches_by_path"] = {
+        "serving": served["dequant_matmul"],
+        "training": trained["dequant_matmul"],
+        "bert_serving": bert["dequant_matmul"],
+        "cluster_serving": cluster["dequant_matmul"]}
     fwd_paths = {"bert_serving": bert["flash_attention"],
                  "bert_training_no_grad": bert_eval["flash_attention_fwd"],
                  "fault_tolerant_no_grad": ft_bert_launches[
-                     "flash_attention_fwd"]}
+                     "flash_attention_fwd"],
+                 "cluster_serving": cluster["flash_attention_fwd"]}
     flash_rows = [
         (fl_cases, "flash_attention_fwd", FLASH_SRC, FLASH_TPU, fwd_paths,
          "bert_l128"),
@@ -3047,4 +3517,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-warm"]:
         sys.exit(serve_warm(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-client"]:
+        sys.exit(serve_client(*sys.argv[2:5]))
     sys.exit(main())

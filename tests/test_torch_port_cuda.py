@@ -1382,3 +1382,306 @@ def test_bert_bucket_graphs_match_eager_on_card(cuda_device):
         for b in (1, 8):
             np.testing.assert_array_equal(got[b],
                                           m.predict([ids[:b], seg[:b]]))
+
+
+def _pair_batches(x, rows, seed):
+    """Two different ``rows``-row (user, item) batches of ``x``'s pairs."""
+    rs = np.random.RandomState(seed)
+    pick = [rs.permutation(len(x[0]))[:rows] for _ in range(2)]
+    return [[a[p] for a in x] for p in pick]
+
+
+@pytest.mark.cuda
+def test_two_flights_of_one_bucket_keep_their_answers_on_card(cuda_device):
+    """int8 NCF replica: two different 8-row batches dispatched through
+    one captured bucket graph before either is harvested (the second
+    replay overwrites the graph's static outputs) each get their own
+    answers, the eager ones exactly."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+
+    net, x = _ncf_serving(cuda_device)
+    m = InferenceModel.from_keras_net(net, weight_dtype="int8",
+                                      batch_buckets=(1, 8),
+                                      device=cuda_device)
+    (rep,) = m.replica_forwards(1)
+    a, b = _pair_batches(x, 8, seed=5)
+    for _ in range(2):                  # eager warm-up, then the capture
+        rep.harvest(rep.dispatch(a))
+    (prog,) = m._programs.values()
+    assert prog.graph.captured
+    with graphs.disabled():
+        want_a, want_b = m.predict(a), m.predict(b)
+    assert not np.array_equal(want_a, want_b)
+    for _ in range(20):
+        fa, fb = rep.dispatch(a), rep.dispatch(b)
+        got_b, got_a = rep.harvest(fb), rep.harvest(fa)
+        np.testing.assert_array_equal(got_a[0], want_a)
+        np.testing.assert_array_equal(got_b[0], want_b)
+
+
+@pytest.mark.cuda
+def test_replica_rebuilt_beside_replays_captures_cleanly_on_card(
+        cuda_device):
+    """While a thread replays a BERT replica's bucket graph, fresh int8
+    NCF models are built (hot reload) and served: each new model's first
+    run is eager and its second captures, alone under its gate, beside
+    the BERT replays; then its slot's replica is rebuilt (the
+    supervisor's rebuild), which replays the program already captured.
+    Every answer of both models equals the eager one exactly, and no
+    thread raises."""
+    import threading
+
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    net, x = _ncf_serving(cuda_device)
+
+    def ncf_model():
+        return InferenceModel.from_keras_net(net, weight_dtype="int8",
+                                             batch_buckets=(1, 8),
+                                             device=cuda_device)
+
+    reset_name_scope()
+    bert = InferenceModel.from_keras_net(
+        BERTClassifier(2, bert_config=dict(vocab=500, n_block=2)),
+        batch_buckets=(8,), device=cuda_device)
+    ids, _, _ = _small_bert(rows=8)
+    (brep,) = bert.replica_forwards(1, top_n=2)
+    for _ in range(2):
+        brep.harvest(brep.dispatch([ids]))
+    a, _ = _pair_batches(x, 8, seed=6)
+    with graphs.disabled():
+        want_bert = brep.harvest(brep.dispatch([ids]))
+        want_ncf = ncf_model().predict(a)
+    stop, errors, replays = threading.Event(), [], []
+
+    def replay_bert():
+        try:
+            while not stop.is_set():
+                got = brep.harvest(brep.dispatch([ids]))
+                for g, w in zip(got, want_bert):
+                    np.testing.assert_array_equal(g, w)
+                replays.append(1)
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=replay_bert)
+    t.start()
+    try:
+        for _ in range(3):                 # three reloads
+            ncf = ncf_model()
+            (rep,) = ncf.replica_forwards(1)
+            for _ in range(3):             # eager, capture, replay
+                np.testing.assert_array_equal(
+                    rep.harvest(rep.dispatch(a))[0], want_ncf)
+            (prog,) = ncf._programs.values()
+            shared = torch.cuda.graph.default_capture_stream   # fit's
+            assert prog.graph.captured and (
+                shared is None
+                or prog.capture_stream.cuda_stream != shared.cuda_stream)
+            replays0 = prog.graph.replays
+            (rep,) = ncf.replica_forwards(1)   # the slot's rebuild
+            np.testing.assert_array_equal(
+                rep.harvest(rep.dispatch(a))[0], want_ncf)
+            assert len(ncf._programs) == 1
+            assert prog.graph.replays == replays0 + 1
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    assert replays
+
+
+@pytest.mark.cuda
+def test_serving_launch_waits_for_the_callers_stream_on_card(cuda_device):
+    """A replica's launch goes on the serving stream after the work the
+    caller's stream holds: the card is kept busy on the default stream,
+    the served weights are then halved there, and the launch that follows
+    at once answers with the halved weights (the eager answer after a
+    synchronize), for a captured graph and for the eager warm-up."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+
+    net, x = _ncf_serving(cuda_device)
+    m = InferenceModel.from_keras_net(net, batch_buckets=(8, 64),
+                                      device=cuda_device)
+    (rep,) = m.replica_forwards(1)
+    a, _ = _pair_batches(x, 8, seed=9)
+    for _ in range(2):                     # the 8-row graph is captured
+        rep.harvest(rep.dispatch(a))
+    for xs in (a, x):                      # replay; the 64-row warm-up
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)     # about 0.1 s on the card
+        with torch.no_grad():
+            for p in m._net.parameters():
+                p.mul_(0.5)
+        got = rep.harvest(rep.dispatch(xs))[0]
+        torch.cuda.synchronize()
+        with graphs.disabled():
+            want = m.predict(xs)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_recommender_recommends_right_after_fit_on_card(cuda_device):
+    """An int8 Recommender on the card recommends, fits two graphed
+    steps, and recommends again at once: the second answer is the
+    trained weights' (the rebuilt serving model, launched on the serving
+    stream right after the training replays on the default stream),
+    equal to the eager answer of a serving model built from them after a
+    synchronize, and differs from the first."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    reset_name_scope()
+    ncf = NeuralCF(200, 150, device=cuda_device)
+    rs = np.random.RandomState(11)
+    load_jax_params(ncf.model, {
+        layer: {leaf: (rs.randn(*v.shape) * 0.1).astype(np.float32)
+                for leaf, v in sub.items()}
+        for layer, sub in export_params(ncf.model).items()})
+    ncf.compile("adam", "sparse_categorical_crossentropy")
+    items = np.arange(1, 151)
+    ncf.inference_model(weight_dtype="int8")
+    for _ in range(2):                     # the 256-row graph is captured
+        first = ncf.recommend_for_user(3, items, max_items=150)
+    u = rs.randint(1, 201, (64, 1)).astype(np.int32)
+    i = rs.randint(1, 151, (64, 1)).astype(np.int32)
+    y = rs.randint(0, 5, 64).astype(np.int32)
+    ncf.fit([u, i], y, batch_size=32, nb_epoch=1, verbose=False)
+    second = ncf.recommend_for_user(3, items, max_items=150)
+    torch.cuda.synchronize()
+    with graphs.disabled():
+        im = InferenceModel.from_keras_net(ncf.model, weight_dtype="int8",
+                                           device=cuda_device)
+        probs = im.predict([np.full((150, 1), 3, np.int32),
+                            items.reshape(-1, 1).astype(np.int32)])
+    assert second == ncf._ranked(items, probs, 150)
+    assert [s for _, s in second] != [s for _, s in first]
+
+
+@pytest.mark.cuda
+def test_serving_beside_fit_matches_eager_on_card(cuda_device):
+    """BERT bucket graphs replay on the serving stream in one thread
+    while the main thread fits NCF through its step graphs on the
+    default stream; both capture on the main thread, on different capture
+    streams, so they share no library workspace.  Every BERT answer
+    equals the eager one exactly and the fit's losses are finite."""
+    import threading
+
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    reset_name_scope()
+    bert = InferenceModel.from_keras_net(
+        BERTClassifier(2, bert_config=dict(vocab=500, n_block=2)),
+        batch_buckets=(32,), device=cuda_device)
+    ids, _, _ = _small_bert(rows=32)
+    (brep,) = bert.replica_forwards(1, top_n=2)
+    for _ in range(2):
+        brep.harvest(brep.dispatch([ids]))
+    with graphs.disabled():
+        want = brep.harvest(brep.dispatch([ids]))
+    reset_name_scope()
+    ncf = NeuralCF(200, 150, hidden_layers=(256, 256, 128),
+                   device=cuda_device)
+    ncf.compile("adam", "sparse_categorical_crossentropy")
+    rs = np.random.RandomState(12)
+    u = rs.randint(1, 201, (4096, 1)).astype(np.int32)
+    i = rs.randint(1, 151, (4096, 1)).astype(np.int32)
+    y = rs.randint(0, 5, 4096).astype(np.int32)
+    stop, errors, replays = threading.Event(), [], []
+
+    def serve():
+        try:
+            while not stop.is_set():
+                got = brep.harvest(brep.dispatch([ids]))
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w)
+                replays.append(1)
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=serve)
+    t.start()
+    try:
+        hist = ncf.fit([u, i], y, batch_size=128, epochs=4, verbose=False)
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    assert replays and np.isfinite([h["loss"] for h in hist]).all()
+
+
+@pytest.mark.cuda
+def test_top_n_on_card_equals_reference_top_n(cuda_device):
+    """The top-2 fused into the bucket graph (int32 indices, values)
+    against the top-2 of the plain path's scores (``forced("reference")``)
+    on tie-free rows: equal indices, values within 1e-6."""
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    net, x = _ncf_serving(cuda_device)
+    m = InferenceModel.from_keras_net(net, weight_dtype="int8",
+                                      batch_buckets=(8, 64),
+                                      device=cuda_device)
+    (rep,) = m.replica_forwards(1, top_n=2)
+    for _ in range(2):
+        idx, vals = rep.harvest(rep.dispatch(x))
+    with dispatch.forced("reference"):
+        probs = m.predict(x)
+    top = np.argsort(-probs, axis=1)[:, :2]
+    srt = np.sort(probs, axis=1)
+    assert np.all(srt[:, -1] - srt[:, -2] > 1e-5), "inputs hold a tie"
+    assert idx.dtype == np.int32 and idx.shape == (64, 2)
+    np.testing.assert_array_equal(idx, top)
+    np.testing.assert_allclose(vals, np.take_along_axis(probs, top, 1),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_two_models_flights_in_flight_match_eager_on_card(cuda_device):
+    """int8 NCF and BERT replicas (top-2 fused), their bucket graphs
+    captured by one thread: 40 flights of both models dispatched back to
+    back before any is harvested, then harvested in turn, each equal to
+    the eager answer.  Graphs captured on one stream share cuBLAS's
+    workspace, so their replays must not overlap; the serving stream
+    orders them."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    net, x = _ncf_serving(cuda_device)
+    ncf = InferenceModel.from_keras_net(net, weight_dtype="int8",
+                                        batch_buckets=(8,),
+                                        device=cuda_device)
+    reset_name_scope()
+    bert = InferenceModel.from_keras_net(
+        BERTClassifier(2, bert_config=dict(vocab=500, n_block=2)),
+        batch_buckets=(8,), device=cuda_device)
+    ids, _, _ = _small_bert(rows=16)
+    (nrep,) = ncf.replica_forwards(1, top_n=2)
+    (brep,) = bert.replica_forwards(1, top_n=2)
+    a, b = _pair_batches(x, 8, seed=7)
+    work = [(nrep, a), (brep, [ids[:8]]), (nrep, b), (brep, [ids[8:]])]
+    for rep, xs in work:
+        for _ in range(2):                 # eager, then the capture
+            rep.harvest(rep.dispatch(xs))
+    with graphs.disabled():
+        want = [rep.harvest(rep.dispatch(xs)) for rep, xs in work]
+    flights = [(k % 4, rep.dispatch(xs))
+               for k, (rep, xs) in enumerate(work * 10)]
+    for k, f in flights:
+        got = work[k][0].harvest(f)
+        for g, w in zip(got, want[k]):
+            np.testing.assert_array_equal(g, w)

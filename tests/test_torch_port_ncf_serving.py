@@ -365,8 +365,9 @@ def test_graph_and_sequential_build_shapes():
 
 
 def test_port_imports_no_jax():
-    """Training and serving NCF, and serving BERTClassifier, through the
-    port load neither jax nor the JAX package."""
+    """Training and serving NCF, serving BERTClassifier, ClusterServing
+    and the bf16 codec, through the port, load neither jax, ml_dtypes nor
+    the JAX package."""
     code = (
         "import sys, numpy as np\n"
         "import analytics_zoo_tpu_torch.train.estimator\n"
@@ -389,8 +390,21 @@ def test_port_imports_no_jax():
         "bm = InferenceModel.from_keras_net(bert, device='cpu')\n"
         "ids = np.ones((3, 8), np.int32)\n"
         "assert bm.predict([ids, 0 * ids, ids]).shape == (3, 2)\n"
+        "import analytics_zoo_tpu_torch.deploy.autoscale\n"
+        "from analytics_zoo_tpu_torch.deploy import (ClusterServing,"
+        " MemoryQueue, InputQueue, OutputQueue, ServingConfig, codec)\n"
+        "q = MemoryQueue()\n"
+        "cs = ClusterServing(bm, q, ServingConfig(postprocess_top_n=1))"
+        ".start()\n"
+        "r = OutputQueue(q).query(InputQueue(q).enqueue(ids=ids[0]),"
+        " timeout=60)\n"
+        "cs.stop()\n"
+        "assert len(r) == 1, r\n"
+        "codec.unpack_record(codec.pack_record({'x': codec.torch_to_bf16("
+        "bm._net.bert.leaf('word_embed')[:2].bfloat16())}))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')]\n"
+        " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')"
+        " or m == 'ml_dtypes']\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -406,6 +420,7 @@ def test_port_sources_name_no_jax():
     assert len(files) > 10
     for f in files:
         text = f.read_text()
-        for bad in ("import jax", "from jax", "analytics_zoo_tpu."):
+        for bad in ("import jax", "from jax", "analytics_zoo_tpu.",
+                    "import ml_dtypes"):
             assert bad not in text.replace("analytics_zoo_tpu_torch", ""), (
                 f, bad)
