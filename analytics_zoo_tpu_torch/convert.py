@@ -7,14 +7,20 @@ flat layers, deeper for the attention layers (``{"enc0": {"attn": {"q":
 {"kernel", "bias"}}}}``), a stacked ``blocks`` sub-tree whose leaves carry
 a leading ``n_block`` dim, and entries that are not layers (BERTClassifier's
 ``"head"``).  A quantized ``{"q"|"q4", "scale"}`` dict is a leaf wherever
-it sits."""
+it sits.
+
+State trees (BatchNormalization's moving statistics, ``{layer_name:
+{"moving_mean", "moving_var"}}``) load and export the same way, beside
+the parameters; sub-trees without leaves (stateless layers, listed by
+the JAX package as ``{}``) are left out on both sides before they are
+compared."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from analytics_zoo_tpu_torch.nn.module import is_qleaf
+from analytics_zoo_tpu_torch.nn.module import has_leaves, is_qleaf, prune
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -57,7 +63,8 @@ def _float_shape(qleaf: dict) -> tuple:
     return tuple(qleaf["q"].shape)
 
 
-def _stage(have: dict, given, path: tuple, staged: list) -> None:
+def _stage(have: dict, given, path: tuple, staged: list,
+           what: str = "parameter") -> None:
     """Check ``given`` against the model's tree ``have`` under ``path``
     and append ``(key path, value)`` for each leaf."""
     where = ".".join(path)
@@ -68,7 +75,7 @@ def _stage(have: dict, given, path: tuple, staged: list) -> None:
     missing = sorted(set(have) - set(given))
     if extra or missing:
         if not path:
-            raise ValueError(f"parameter tree does not match the model: "
+            raise ValueError(f"{what} tree does not match the model: "
                              f"missing layers {missing}, extra layers "
                              f"{extra}")
         raise ValueError(f"{where}: missing leaves {missing}, extra leaves "
@@ -76,7 +83,7 @@ def _stage(have: dict, given, path: tuple, staged: list) -> None:
     for key, cur in have.items():
         sub, value = path + (key,), given[key]
         if _is_subtree(cur):
-            _stage(cur, value, sub, staged)
+            _stage(cur, value, sub, staged, what)
             continue
         where = ".".join(sub)
         want = _float_shape(cur) if is_qleaf(cur) else tuple(cur.shape)
@@ -95,19 +102,32 @@ def _stage(have: dict, given, path: tuple, staged: list) -> None:
         staged.append((sub, t))
 
 
-def load_jax_params(model, params) -> None:
+def load_jax_params(model, params, state=None) -> None:
     """Fill ``model`` (a port ``KerasNet``, or any layer) from ``params``,
     a JAX-package tree of numpy arrays or tensors, float leaves or
-    quantized ``{"q"|"q4", "scale"}`` leaves.
+    quantized ``{"q"|"q4", "scale"}`` leaves, and from ``state`` (the
+    JAX state tree) when it is given.
 
     Raises on a missing or extra key or a leaf whose shape does not fit,
-    naming its full path; nothing is changed before every leaf has been
-    checked.  A float leaf of the live parameter's shape and dtype is
-    copied into that parameter's storage, which a captured training step
-    (``core/graphs.py``) may hold; other leaves replace theirs.
+    naming its full path; nothing is changed before every leaf of both
+    trees has been checked.  A float leaf of the live parameter's shape
+    and dtype is copied into that parameter's storage, which a captured
+    training step (``core/graphs.py``) may hold; other leaves replace
+    theirs.  State leaves are always copied into the live buffers, cast
+    to their dtype.
     """
     staged: list = []
     _stage(model.params(), params, (), staged)
+    staged_state: list = []
+    if state is not None:
+        _stage(prune(model.state()), prune(state), (), staged_state,
+               "state")
+        for path, value in staged_state:
+            if is_qleaf(value):
+                raise ValueError(f"{'.'.join(path)}: a state leaf cannot "
+                                 f"be quantized")
+    for path, value in staged_state:
+        model.set_state(path, value)
     for path, value in staged:
         live = _live_parameter(model, path)
         if (live is not None and not is_qleaf(value)
@@ -150,15 +170,22 @@ def export_params(model) -> dict:
     return host(model.params())
 
 
-def _has_leaves(tree) -> bool:
-    return not _is_subtree(tree) or any(_has_leaves(v)
-                                        for v in tree.values())
+def export_state(model) -> dict:
+    """``model``'s state as the JAX package's tree on the host (copies)."""
+    def host(t):
+        if _is_subtree(t):
+            return {k: host(v) for k, v in t.items()}
+        return t.detach().cpu().numpy().copy()
+
+    return host(model.state())
 
 
-def load_archive_params(model, params) -> None:
-    """``load_jax_params`` for a tree read from an archive
+def load_archive_params(model, params, state=None) -> None:
+    """``load_jax_params`` for trees read from an archive
     (``train.checkpoint.load_pytree``), which holds no entry for a sub-tree
-    without leaves (a weightless layer): those are taken from the model."""
+    without leaves (a weightless layer): those are taken from the model.
+    ``state`` None (an archive without state leaves) leaves the model's
+    state as it is."""
     def fill(have, given):
         if not (_is_subtree(have) and _is_subtree(given)):
             return given
@@ -166,8 +193,8 @@ def load_archive_params(model, params) -> None:
         for key, sub in have.items():
             if key in out:
                 out[key] = fill(sub, out[key])
-            elif not _has_leaves(sub):
+            elif not has_leaves(sub):
                 out[key] = sub
         return out
 
-    load_jax_params(model, fill(model.params(), params))
+    load_jax_params(model, fill(model.params(), params), state)

@@ -4,8 +4,8 @@ mesh replicas, image records and foreign loaders: ROADMAP A4, A8, A9)."""
 
 from analytics_zoo_tpu_torch.deploy.inference import (  # noqa: F401
     LONG_DOC_TOKENS, BatchRequest, DynamicBatcher, InferenceModel,
-    ModelReplica, bucket_class, dequantize_pytree, plan_buckets,
-    quantize_pytree, scatter_batch_results)
+    ModelReplica, bucket_class, dequantize_pytree, imagenet_preprocess,
+    plan_buckets, quantize_pytree, scatter_batch_results)
 from analytics_zoo_tpu_torch.deploy.autoscale import (  # noqa: F401
     AutoscalePolicy, Autoscaler)
 from analytics_zoo_tpu_torch.deploy.compile_cache import (  # noqa: F401

@@ -46,7 +46,14 @@
   (``nn.module.Layer.leaf``).  That is the JAX package's
   ``_dequant_for_forward`` rule; it needs no tree transform here, and no
   ``_dense_layer_names``, because each layer owns its leaves and reads
-  them in the form it can use.
+  them in the form it can use.  Layer state (BatchNormalization's moving
+  statistics) is never quantized; every bucket program runs the net in
+  eval mode, so it normalizes with them.
+- bf16 inference: a ``preprocess`` that emits bf16 (``imagenet_preprocess``,
+  uint8 wire images normalized on the card) selects it, as the JAX
+  package's ``_match_compute_dtype`` does: inside the bucket program the
+  float parameters and state are cast to the input's dtype (the buffers
+  of quantized leaves stay as stored) and the outputs come back as f32.
 """
 
 from __future__ import annotations
@@ -68,12 +75,12 @@ import torch
 
 from analytics_zoo_tpu_torch.core import graphs
 from analytics_zoo_tpu_torch.core.context import resolve_device
-from analytics_zoo_tpu_torch.nn.module import is_qleaf
+from analytics_zoo_tpu_torch.nn.module import cast_floats, is_qleaf, prune
 
 __all__ = ["InferenceModel", "DynamicBatcher", "BatchRequest",
            "ModelReplica", "scatter_batch_results", "quantize_pytree",
            "dequantize_pytree", "plan_buckets", "bucket_class",
-           "LONG_DOC_TOKENS", "DEFAULT_MODEL"]
+           "imagenet_preprocess", "LONG_DOC_TOKENS", "DEFAULT_MODEL"]
 
 # the implicit model name for single-model serving paths; multi-model
 # callers (ClusterServing with a dict of models) use their own names
@@ -83,6 +90,37 @@ WEIGHT_DTYPES = ("float32", "int8", "int4")
 
 def _as_tuple(x):
     return tuple(x) if isinstance(x, (list, tuple)) else (x,)
+
+
+def imagenet_preprocess(scale: float = 1.0 / 127.5, offset: float = -1.0,
+                        dtype=torch.bfloat16) -> Callable:
+    """On-device normalizer for the uint8 image wire format: clients send
+    raw uint8 HWC images (a quarter of float32's bytes over the link),
+    and the bucket program casts them to ``dtype`` and applies ``x *
+    scale + offset`` (default [0, 255] to [-1, 1]), in that dtype.  A bf16
+    result selects bf16 inference.  ``scale`` and ``offset`` are rounded
+    to ``dtype`` first, as the JAX package's weakly typed constants are,
+    so the two give the same bits."""
+    scale = float(torch.tensor(scale, dtype=dtype))
+    offset = float(torch.tensor(offset, dtype=dtype))
+
+    def fn(x):
+        return x.to(dtype) * scale + offset
+
+    return fn
+
+
+def _net_forward(net, xs):
+    """``net`` on the preprocessed inputs at their float dtype: when that
+    is a 16-bit float, over copies of the float parameters and state cast
+    to it (the JAX package's ``_match_compute_dtype``)."""
+    floats = [x.dtype for x in xs if x.is_floating_point()]
+    cd = floats[0] if floats else torch.float32
+    for d in floats[1:]:
+        cd = torch.promote_types(cd, d)
+    if cd not in (torch.bfloat16, torch.float16):
+        return net(*xs)
+    return torch.func.functional_call(net, cast_floats(net, cd), xs)
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -344,7 +382,7 @@ class _BucketProgram:
                 xs = inputs
                 if preprocess is not None:
                     xs = _as_tuple(preprocess(*xs))
-                out = net(*xs)
+                out = _net_forward(net, xs)
                 multi = isinstance(out, (list, tuple))
                 outs = [o.float() if o.is_floating_point() else o
                         for o in (out if multi else [out])]
@@ -563,6 +601,7 @@ class InferenceModel:
 
         if self._net is not None:
             walk(self._net.params(), ())
+            walk(prune(self._net.state()), ("__state__",))
         self._fingerprint = h.hexdigest()[:16]
         return self._fingerprint
 
@@ -689,36 +728,41 @@ class InferenceModel:
 
         if not os.path.exists(os.path.join(path, "weights.npz")):
             raise FileNotFoundError(f"{path} has no weights.npz")
-        zm = ZooModel.load_model(path, device="cpu")
+        zm = ZooModel.load_model(path, device="cpu")    # weights and state
         return cls.from_keras_net(zm.model, int8=int8,
                                   weight_dtype=weight_dtype, device=device,
                                   **kw)
 
     @classmethod
-    def from_keras_net(cls, net, params=None, int8: bool = False,
+    def from_keras_net(cls, net, params=None, state=None, int8: bool = False,
                        weight_dtype: Optional[str] = None, device=None,
                        preprocess: Optional[Callable] = None,
                        **kw) -> "InferenceModel":
         """Wrap a built net as a serving model on ``device`` (default
-        ``cuda``; raises when there is none).
+        ``cuda``; raises when there is none).  The JAX signature: the
+        net, its params and its state, in that order.
 
         The net is copied, so the caller's stays as it is.  ``params``
         (a JAX-layout tree of numpy arrays or tensors, plain or already
-        quantized) replaces its weights by layer and leaf name.
+        quantized) replaces its weights by layer and leaf name, and
+        ``state`` (the JAX state tree: BatchNormalization's moving
+        statistics) its state; the state is never quantized.
         ``weight_dtype``: "float32", "int8" or "int4"; ``None`` resolves
         the legacy ``int8`` flag, then the ``serving_weight_dtype`` knob.
         ``preprocess``: a torch function of the raw inputs giving the
         net's inputs, run on the device inside each bucket program (so a
         client can send one (B, 2) id pair where the net takes two (B, 1)
-        inputs, or compact wire dtypes cast on the card).
+        inputs, or compact wire dtypes cast on the card; a bf16 result,
+        as ``imagenet_preprocess`` gives, selects bf16 inference).
         """
         from analytics_zoo_tpu_torch.convert import load_jax_params
 
         device = resolve_device(device)
         weight_dtype = cls._resolve_weight_dtype(weight_dtype, int8)
         net = copy.deepcopy(net).cpu()
-        if params is not None:
-            load_jax_params(net, params)
+        if params is not None or state is not None:
+            load_jax_params(net, net.params() if params is None else params,
+                            state)
         if weight_dtype != "float32":
             load_jax_params(net, quantize_pytree(
                 net.params(), bits=4 if weight_dtype == "int4" else 8))

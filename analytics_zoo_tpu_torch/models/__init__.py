@@ -3,3 +3,4 @@ from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: F401
     NeuralCF,
     Recommender,
 )
+from analytics_zoo_tpu_torch.models.image import ImageClassifier  # noqa: F401

@@ -93,7 +93,8 @@ class ZooModel:
             {"class": type(self).__name__, "config": self.config()},
             indent=2))
         save_pytree(os.path.join(path, "weights.npz"),
-                    {"params": self.model.params(), "state": {}})
+                    {"params": self.model.params(),
+                     "state": self.model.state()})
 
     @classmethod
     def load_model(cls, path: str, device=None) -> "ZooModel":
@@ -111,5 +112,6 @@ class ZooModel:
         inst = model_cls(**blob["config"], device=device)
         wpath = os.path.join(path, "weights.npz")
         if os.path.exists(wpath):
-            load_archive_params(inst.model, load_pytree(wpath)["params"])
+            tree = load_pytree(wpath)
+            load_archive_params(inst.model, tree["params"], tree.get("state"))
         return inst

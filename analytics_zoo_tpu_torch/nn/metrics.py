@@ -6,7 +6,7 @@ device batch by batch and reads them back once:
     update(y_true, y_pred) -> {name: tensor}   (summable across batches)
     finalize(stats)        -> scalar tensor
 
-``AUC`` and ``Top5Accuracy`` are not ported yet.
+``AUC`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -77,6 +77,29 @@ class SparseCategoricalAccuracy(Accuracy):
     name = "sparse_categorical_accuracy"
 
 
+class Top5Accuracy(Metric):
+    """Share of rows whose label is among the five highest scores
+    (ImageNet's metric); 1-based labels with ``zero_based_label=False``."""
+
+    name = "top5_accuracy"
+
+    def __init__(self, zero_based_label: bool = True):
+        self.zero_based = zero_based_label
+
+    def update(self, y_true, y_pred):
+        y_true = _tensor(y_true, y_pred)
+        labels = y_true.to(torch.int64).reshape(y_true.shape[0], -1)[:, 0]
+        if not self.zero_based:
+            labels = labels - 1
+        top5 = torch.topk(y_pred, 5, dim=-1).indices
+        hit = torch.any(top5 == labels[:, None], dim=-1)
+        return {"correct": torch.sum(hit.to(torch.float32)),
+                "total": _count(labels.shape[0], y_pred)}
+
+    def finalize(self, stats):
+        return stats["correct"] / torch.clamp(stats["total"], min=1.0)
+
+
 class MAE(Metric):
     name = "mae"
 
@@ -115,6 +138,8 @@ _REGISTRY: Dict[str, Callable[[], Metric]] = {
     "binary_accuracy": BinaryAccuracy,
     "categorical_accuracy": CategoricalAccuracy,
     "sparse_categorical_accuracy": SparseCategoricalAccuracy,
+    "top5accuracy": Top5Accuracy,
+    "top5_accuracy": Top5Accuracy,
     "mae": MAE,
 }
 

@@ -22,6 +22,18 @@ then returns it dequantized to f32, in the forward; a layer that can use
 the packed form directly (``Dense`` and its fused dequantize-matmul) reads
 ``qleaf()`` instead.
 
+A layer may hold *state*: values the training forward computes but no
+gradient moves (BatchNormalization's moving statistics), the JAX
+package's ``state`` tree.  They are registered buffers named as in that
+tree (``set_state``), so ``state()`` nests as it does (``{"stem_bn":
+{"moving_mean", "moving_var"}}``); they are not in ``params()``, so never
+in the optimizer's vector and never quantized.  A training forward hands
+its new values to ``update_state``: inside ``collect_state_updates()``
+(the Estimator's step) they are collected, to be committed once the
+loss is known (``commit_state``: kept only on a finite step, as the JAX
+step keeps the old state on a non-finite one); outside it they are
+written at once.
+
 Calling a layer on autograd ``Variable``s builds the model graph; calling
 it on tensors runs ``forward``.
 """
@@ -29,8 +41,9 @@ it on tensors runs ``forward``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,6 +74,75 @@ def reset_name_scope() -> None:
     _counters().clear()
 
 
+# where a training forward's new state goes: a list per thread while a
+# step collects it, else None (written at once)
+_STATE_SINK = threading.local()
+
+
+@contextlib.contextmanager
+def collect_state_updates() -> Iterator[List[tuple]]:
+    """Collect the ``(layer, name, new value)`` of every ``update_state``
+    the calling thread makes inside the block, instead of writing them."""
+    prev = getattr(_STATE_SINK, "updates", None)
+    updates: List[tuple] = []
+    _STATE_SINK.updates = updates
+    try:
+        yield updates
+    finally:
+        _STATE_SINK.updates = prev
+
+
+def commit_state(updates: List[tuple], ok=None) -> None:
+    """Write collected state updates into the live buffers, in place (a
+    captured step holds them), each cast to its buffer's dtype: where
+    the device scalar ``ok`` is False the old value stays.  A buffer
+    updated twice (a layer shared in the graph) takes the last value."""
+    if not updates:
+        return
+    with torch.no_grad():
+        live = [layer._buffers[name] for layer, name, _ in updates]
+        new = [v.to(t.dtype) for t, (_, _, v) in zip(live, updates)]
+        if ok is not None:
+            new = [torch.where(ok, n, t) for n, t in zip(new, live)]
+        torch._foreach_copy_(live, new)
+
+
+def state_buffer_names(module: nn.Module) -> set:
+    """The qualified names (as ``named_buffers`` gives them) of every
+    state leaf in ``module`` — not the quantized leaves' buffers."""
+    return {f"{prefix}.{n}" if prefix else n
+            for prefix, m in module.named_modules()
+            for n in getattr(m, "_state_names", ())}
+
+
+def cast_floats(module: nn.Module, dtype) -> Dict[str, torch.Tensor]:
+    """``module``'s float parameters and float state leaves cast to
+    ``dtype``, by qualified name, for ``torch.func.functional_call`` (the
+    JAX package's ``_cast_floats`` over its params and state trees); the
+    buffers of quantized leaves are left as they are."""
+    out = {n: p.to(dtype) if p.is_floating_point() else p
+           for n, p in module.named_parameters()}
+    names = state_buffer_names(module)
+    out.update({n: b.to(dtype) for n, b in module.named_buffers()
+                if n in names and b.is_floating_point()})
+    return out
+
+
+def has_leaves(tree) -> bool:
+    """Whether a (nested dict) tree holds any leaf."""
+    if isinstance(tree, dict) and not is_qleaf(tree):
+        return any(has_leaves(v) for v in tree.values())
+    return True
+
+
+def prune(tree):
+    """``tree`` without its sub-trees that hold no leaf (weightless or
+    stateless layers, which the two packages' trees list differently)."""
+    if isinstance(tree, dict) and not is_qleaf(tree):
+        return {k: prune(v) for k, v in tree.items() if has_leaves(v)}
+    return tree
+
+
 def is_qleaf(x) -> bool:
     return (isinstance(x, dict)
             and set(x) in ({"q", "scale"}, {"q4", "scale"}))
@@ -77,6 +159,7 @@ class Layer(nn.Module):
         self.input_shape = (tuple(input_shape) if input_shape is not None
                             else None)
         self._leaf_names: list = []
+        self._state_names: list = []
         self._qkinds: Dict[str, str] = {}
         # sub-layers by tree key (their params() nest under the key)
         self._tree = nn.ModuleDict()
@@ -155,6 +238,53 @@ class Layer(nn.Module):
                    else self._parameters[n].detach())
                for n in self._leaf_names}
         out.update({k: sub.params() for k, sub in self._tree.items()})
+        return out
+
+    # -- state -------------------------------------------------------------
+    def set_state(self, name, value) -> None:
+        """Install state leaf ``name`` (a name or a key path through
+        sub-trees).  A live leaf of the same shape is overwritten in
+        place, cast to its dtype, since a captured step holds it; else
+        the value becomes a buffer on the device of the leaf it
+        replaces."""
+        path = (name,) if isinstance(name, str) else tuple(name)
+        if len(path) > 1:
+            self.subtree(path[0]).set_state(path[1:], value)
+            return
+        name = path[0]
+        t = torch.as_tensor(value)
+        live = self._buffers.get(name) if name in self._state_names else None
+        if live is not None and live.shape == t.shape:
+            with torch.no_grad():
+                live.copy_(t.to(live.dtype))
+            return
+        dev = live.device if live is not None else torch.device("cpu")
+        self.register_buffer(name, t.detach().to(dev).clone())
+        if name not in self._state_names:
+            self._state_names.append(name)
+
+    def state_leaf(self, name: str) -> torch.Tensor:
+        """State leaf ``name`` as the forward sees it."""
+        return self._buffers[name]
+
+    def update_state(self, name: str, value: torch.Tensor) -> None:
+        """A training forward's new value of state leaf ``name``:
+        collected when a step collects (``collect_state_updates``), else
+        written at once."""
+        sink = getattr(_STATE_SINK, "updates", None)
+        if sink is not None:
+            sink.append((self, name, value))
+        else:
+            commit_state([(self, name, value)])
+
+    def state(self) -> Dict[str, object]:
+        """This layer's state leaves by name, and its sub-layers' state
+        trees by key (those that hold any)."""
+        out = {n: self._buffers[n].detach() for n in self._state_names}
+        for k, sub in self._tree.items():
+            st = sub.state()
+            if has_leaves(st):
+                out[k] = st
         return out
 
     # -- symbolic application (autograd DSL) ------------------------------

@@ -4,7 +4,9 @@
 Freezing marks top-level layers whose parameters stop moving: the
 Estimator zeroes their part of every update while their optimizer
 moments go on updating, as the JAX step does, and reads the frozen set
-at every ``fit``, so a change between fits takes effect.  Cutting a
+at every ``fit``, so a change between fits takes effect.  A frozen
+layer's state (BatchNormalization's moving statistics) goes on moving,
+as in the JAX step.  Cutting a
 sub-graph (``new_graph``) is not ported yet.
 """
 

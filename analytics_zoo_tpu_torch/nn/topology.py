@@ -2,7 +2,9 @@
 
 Both own their layers as submodules, keyed by layer name, so
 ``params()`` returns the JAX package's tree layout
-(``{layer_name: {leaf: tensor}}``, empty dicts for weightless layers).
+(``{layer_name: {leaf: tensor}}``, empty dicts for weightless layers),
+and ``state()`` its state tree (``{layer_name: {leaf: tensor}}``, empty
+dicts for stateless layers).
 ``compile`` / ``fit`` / ``evaluate`` / ``predict`` are thin facades over
 ``train.Estimator``, as in the JAX package.
 """
@@ -44,6 +46,13 @@ class KerasNet(Layer):
         (a task head that is not a layer, as BERTClassifier's)."""
         out = {layer.name: layer.params() for layer in self.layers}
         out.update(super().params())
+        return out
+
+    def state(self) -> Dict[str, Dict[str, object]]:
+        """``{layer_name: layer state tree}`` (BatchNormalization's moving
+        statistics), plus the net's own sub-trees' state."""
+        out = {layer.name: layer.state() for layer in self.layers}
+        out.update(super().state())
         return out
 
     def subtree(self, key: str) -> Layer:
@@ -91,22 +100,23 @@ class KerasNet(Layer):
                                     metrics=metrics, device=device,
                                     compute_dtype=compute_dtype,
                                     grad_accum_steps=grad_accum_steps)
-        carried = prev._initial_weights if prev is not None else None
+        carried = prev._initial if prev is not None else None
         if self._pending_init is not None:
             carried, self._pending_init = self._pending_init, None
         if carried is not None:
-            self._estimator.set_initial_weights(carried)
+            self._estimator.set_initial_weights(*carried)
         if self._ckpt_dir is not None:
             self._estimator.set_checkpoint(self._ckpt_dir)
         return self
 
     def set_initial_weights(self, params, state=None):
-        """Seed weights by layer name (``{layer: {leaf: array}}``) before
-        or after ``compile``; uncovered layers warn at build."""
+        """Seed weights, and state, by layer name (``{layer: {leaf:
+        array}}``) before or after ``compile``; uncovered layers warn at
+        build and keep theirs."""
         if self._estimator is not None:
             self._estimator.set_initial_weights(params, state)
         else:
-            self._pending_init = params
+            self._pending_init = (params, state)
         return self
 
     @property
@@ -127,17 +137,19 @@ class KerasNet(Layer):
     # -- persistence ------------------------------------------------------
     def save_weights(self, path: str, params=None, state=None) -> None:
         """``{"params", "state"}`` in the JAX package's archive format
-        (``train/checkpoint.py``); ``params`` defaults to this net's
-        weights."""
+        (``train/checkpoint.py``); ``params`` and ``state`` default to
+        this net's."""
         from analytics_zoo_tpu_torch.train.checkpoint import save_pytree
 
-        save_pytree(path, {"params": self.params() if params is None
-                           else params, "state": state or {}})
+        save_pytree(path, {
+            "params": self.params() if params is None else params,
+            "state": self.state() if state is None else state})
 
     def load_weights(self, path: str):
         """Load an archive written by ``save_weights`` (of either package)
-        into this net, by key path, building it first from its declared
-        input shapes if need be; returns its ``(params, state)``."""
+        into this net, weights and state, by key path, building it first
+        from its declared input shapes if need be; returns its
+        ``(params, state)``."""
         from analytics_zoo_tpu_torch.convert import load_archive_params
         from analytics_zoo_tpu_torch.core.context import get_zoo_context
         from analytics_zoo_tpu_torch.train.checkpoint import load_pytree
@@ -146,7 +158,7 @@ class KerasNet(Layer):
         if getattr(self, "_output_shape", None) is None:
             self.build(torch.Generator().manual_seed(
                 get_zoo_context().config.seed))
-        load_archive_params(self, tree["params"])
+        load_archive_params(self, tree["params"], tree.get("state"))
         return tree["params"], tree.get("state", {})
 
     def fit(self, x, y=None, batch_size: int = 32,
@@ -244,6 +256,31 @@ class Model(KerasNet):
     @property
     def layers(self) -> List[Layer]:
         return list(self._layer_map.values())
+
+    def __getstate__(self):
+        """The graph as a flat list in topological order, each node naming
+        its parents by position: a copy (``copy.deepcopy``, pickle) of a
+        deep graph (ResNet-50's 170-odd nodes) then never recurses
+        through the chain of parents."""
+        state = super().__getstate__()
+        index = {v.id: i for i, v in enumerate(self.order)}
+        state["order"] = [(v.kind, tuple(index[p.id] for p in v.parents),
+                           v.layer, v.fn, v.shape, v.name, v.dtype)
+                          for v in self.order]
+        state["inputs"] = [index[v.id] for v in self.inputs]
+        state["outputs"] = [index[v.id] for v in self.outputs]
+        return state
+
+    def __setstate__(self, state):
+        nodes: List[Variable] = []
+        for kind, parents, layer, fn, shape, name, dtype in state["order"]:
+            nodes.append(Variable(kind, [nodes[i] for i in parents],
+                                  layer=layer, fn=fn, shape=shape, name=name,
+                                  dtype=dtype))
+        state = dict(state, order=nodes,
+                     inputs=[nodes[i] for i in state["inputs"]],
+                     outputs=[nodes[i] for i in state["outputs"]])
+        super().__setstate__(state)
 
     def _shapes(self, input_shapes, generator=None):
         """Thread shapes through the DAG, building each layer once when a

@@ -21,10 +21,19 @@ What carries over from the JAX design:
   permutation and gathers run there (``device_resident``); a
   ``FeatureSet`` takes one of the two by its cache level and
   ``ZooConfig.data_device_budget_bytes``.
+- **Layer state** (BatchNormalization's moving statistics,
+  ``nn/module.py``): the training forward hands its new values to the
+  step, which commits them into the live buffers after the loss is
+  known, with ``torch.where`` on the guard's verdict, so a non-finite
+  step keeps the old state as the JAX step's ``keep_if_finite`` does.
+  State is not in the flat vector, so freezing a layer stops its
+  parameters and not its statistics, as in the JAX step.  ``evaluate``
+  and ``predict`` read the moving statistics.
 - **Mixed precision.** ``compute_dtype="bfloat16"`` runs the forward and
-  backward on bf16 copies of every float parameter and float input
-  (``torch.func.functional_call``), LayerNorm, GELU and softmax included,
-  as the JAX package casts its tree; the f32 master vector and the
+  backward on bf16 copies of every float parameter, float state leaf and
+  float input (``torch.func.functional_call``), LayerNorm, GELU and
+  softmax included, as the JAX package casts its trees; the new state is
+  cast back to f32 when committed; the f32 master vector and the
   optimizer state stay f32, the predictions come back to f32 for the
   loss, and the regularizers read the f32 masters.  Not ``autocast``,
   which would keep LayerNorm and softmax in f32.
@@ -60,8 +69,8 @@ What carries over from the JAX design:
   capture into one memory pool, since they never replay at once.  On
   the CPU the same static-buffer code runs eagerly.
 - **Checkpoints and resume** (``set_checkpoint``, ``fit(resume=True)``,
-  ``train/checkpoint.py``): a snapshot holds the parameters (the JAX
-  tree), the flat optimizer state, and ``meta`` — the step and epoch
+  ``train/checkpoint.py``): a snapshot holds the parameters and the
+  state (the JAX trees), the flat optimizer state, and ``meta`` — the step and epoch
   counters, ``lr_scale``, the pickled host ``RandomState`` at the
   snapshot and at its epoch's start, the dropout generator's state
   (``torch_rng``) and the epoch's loss and guard accumulators.  A
@@ -99,6 +108,7 @@ from analytics_zoo_tpu_torch.core.profiling import TIMERS
 from analytics_zoo_tpu_torch.core.triggers import (EveryEpoch, Trigger,
                                                    TriggerState)
 from analytics_zoo_tpu_torch.nn import metrics as metrics_lib
+from analytics_zoo_tpu_torch.nn import module as module_lib
 from analytics_zoo_tpu_torch.nn import objectives
 from analytics_zoo_tpu_torch.observe import metrics as obs
 from analytics_zoo_tpu_torch.robust import (RetryPolicy, TrainingPreempted,
@@ -148,6 +158,12 @@ def _to_f32(preds):
     if isinstance(preds, (list, tuple)):
         return type(preds)(_to_f32(p) for p in preds)
     return preds.float() if preds.is_floating_point() else preds
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
 
 
 def _has_float(arrays) -> bool:
@@ -294,7 +310,7 @@ class Estimator:
         self.last_data_path: Optional[str] = None
         self.last_data_path_reason: Optional[str] = None
 
-        self._initial_weights = None
+        self._initial = None            # (params, state) for the build
         self._built = False
         self._state_numel = 0
         self._host_rng = np.random.RandomState(self.ctx.config.seed)
@@ -361,12 +377,12 @@ class Estimator:
     # weights
     # ------------------------------------------------------------------
     def set_initial_weights(self, params, state=None):
-        """Weights applied by layer name at the first build instead of the
-        random ones (applied at once, with a fresh optimizer state, when
-        already built).  ``params`` is the JAX layout
-        ``{layer: {leaf: array}}``; ``state`` is accepted for the JAX
-        signature (the port's layers keep no state)."""
-        self._initial_weights = params
+        """Weights, and state, applied by layer name at the first build
+        instead of the built ones (applied at once, with a fresh optimizer
+        state, when already built).  ``params`` and ``state`` are the JAX
+        layout ``{layer: {leaf: array}}``; a layer ``state`` does not
+        name keeps its state."""
+        self._initial = (params, state)
         if self._built:
             self._load_initial()
             self._init_opt_state()
@@ -375,7 +391,7 @@ class Estimator:
     def _load_initial(self):
         from analytics_zoo_tpu_torch.convert import load_jax_params
 
-        given, self._initial_weights = self._initial_weights, None
+        (given, given_state), self._initial = self._initial, None
         current = self.model.params()
         missing = sorted(set(current) - set(given))
         if missing:
@@ -383,8 +399,11 @@ class Estimator:
                            "their RANDOM init: %s",
                            len(current) - len(missing), len(current),
                            missing)
+        state = self.model.state()
         load_jax_params(self.model, {k: given.get(k, v)
-                                     for k, v in current.items()})
+                                     for k, v in current.items()},
+                        {k: (given_state or {}).get(k, v)
+                         for k, v in state.items()})
         self.model.to(self.device)
 
     def _ensure_built(self, inputs):
@@ -394,7 +413,7 @@ class Estimator:
                 self.model.build(torch.Generator().manual_seed(
                     self.ctx.config.seed), *shapes)
             self.model.to(self.device)
-            if self._initial_weights is not None:
+            if self._initial is not None:
                 self._load_initial()
             self._dropout_gen = torch.Generator(
                 device=self.device).manual_seed(self.ctx.config.seed)
@@ -445,14 +464,13 @@ class Estimator:
     # ------------------------------------------------------------------
     def _forward_fn(self) -> Callable:
         """The model's forward at ``compute_dtype``: over cast copies of
-        every float parameter and float input, answering in f32; the
-        model itself at f32.  The copies are taken now: call it again
-        after the parameters change."""
+        every float parameter, float state leaf and float input,
+        answering in f32; the model itself at f32.  The copies are taken
+        now: call it again after the parameters change."""
         cd = self.compute_dtype
         if cd is None:
             return self.model
-        cast = {n: p.to(cd) if p.is_floating_point() else p
-                for n, p in self.model.named_parameters()}
+        cast = module_lib.cast_floats(self.model, cd)
 
         def run(*xs):
             xs = tuple(x.to(cd) if x.is_floating_point() else x for x in xs)
@@ -479,8 +497,10 @@ class Estimator:
         zero where ``mask`` is False.  A non-finite loss keeps every
         parameter and every optimizer-state tensor as it was;
         ``nan_scale``, a device scalar, multiplies the loss: 1, or NaN for
-        the ``estimator.step`` fault on a batch without float arrays."""
-        loss = self._objective(xs, y) * nan_scale
+        the ``estimator.step`` fault on a batch without float arrays.
+        The new layer state is committed after the loss, where finite."""
+        with module_lib.collect_state_updates() as layer_state:
+            loss = self._objective(xs, y) * nan_scale
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         g = self._flat([gr if gr is not None else torch.zeros_like(p)
                         for gr, p in zip(grads, params)])
@@ -500,6 +520,7 @@ class Estimator:
                 v.view_as(q) for v, q in zip(
                     torch.split(p_new, [q.numel() for q in params]),
                     params)])
+            module_lib.commit_state(layer_state, ok)
             bad = (~ok).to(torch.int32)
             consec = (self._guard[1] + 1) * bad
             self._guard.copy_(torch.stack([
@@ -538,6 +559,7 @@ class Estimator:
         no longer the live ones (called at each epoch's start)."""
         key = (tuple(p.data_ptr() for p in params),
                tuple(t.data_ptr() for t in self.opt_state),
+               tuple(t.data_ptr() for t in _leaves(self.model.state())),
                None if mask is None else mask.data_ptr(),
                self._loss_acc.data_ptr(), self._guard.data_ptr(),
                self._lr_scale_t.data_ptr(), self._generators,
@@ -1153,7 +1175,7 @@ class Estimator:
         if in_epoch_step:
             meta["loss_acc"] = self._loss_acc
             meta["guard"] = self._guard
-        return {"params": self.model.params(), "state": {},
+        return {"params": self.model.params(), "state": self.model.state(),
                 "opt_state": list(self.opt_state), "meta": meta}
 
     def _save_checkpoint(self):
@@ -1179,7 +1201,7 @@ class Estimator:
                 f"{[tuple(a.shape) for a in opt]}, not this estimator's "
                 f"({numel} trainable parameters)")
         # into the live tensors, which captured steps hold
-        load_archive_params(self.model, tree["params"])
+        load_archive_params(self.model, tree["params"], tree.get("state"))
         self.model.to(self.device)
         with torch.no_grad():
             for live, saved in zip(self.opt_state, opt):

@@ -257,7 +257,41 @@
    one second of the file-queue run and over each run, with the card's
    name and power limit (``cluster_serving`` and
    ``cluster_serving_summary`` lines).
-10. Prints the kernels JSON line and, last, the ok line.
+10. Image phase (ResNet-50, BASELINE config #2).  ResNet-50 at
+   ImageNet's width (``resnet50(1000, (224, 224, 3))``: 25,557,032
+   parameters, 53,120 BN state values) trains as bench.py's
+   ``bench_resnet50`` sets it: bf16 compute, Adam 1e-3, batch 256,
+   ``sparse_categorical_crossentropy_with_logits``, on 1,024 seeded
+   uint8 images scaled by 1/255 (device-resident), one epoch of 4 steps
+   with each dispatch timed (the first eager, the second captures), two
+   more timed (ms per step on the host's clock, imgs/s, peak memory), one
+   more under ``torch.profiler`` (device ms per step, busy share, the
+   heaviest kernels); the loss must be finite.  Then a graphed and an
+   eager run from the same init, both with cuDNN's deterministic
+   algorithms, must agree on the parameters and the BN state within
+   ``GRAPHED_REL`` of their movement (L2; bit-equality printed).  Then
+   bench.py's ``bench_resnet_accuracy`` recipe with the scenes drawn by
+   numpy (4,096 at 32x32, 90% trained 3 epochs at batch 256,
+   ``bn_momentum=0.3``, Adam 3e-4, bf16, ``steps_per_execution=4``): the
+   held-out accuracy, through the moving statistics, must reach 0.9.
+   ``SpaceToDepthStemConv`` and the plain 7x7/s2 convolution are timed
+   on one leaf (forward and backward at batch 256 in bf16, forward at
+   batch 64 in f32) and held together.  The trained net is then served through
+   ``DynamicBatcher`` (buckets 1, 8, 32, 64) in f32, int8 and int4
+   weights and over the uint8 wire (``imagenet_preprocess``, bf16): per
+   form a first model covers every bucket into a ``CompileCache``, a
+   second warms from it and serves 48 single images from 8 threads and
+   8 requests of 8 from 2; ``compile_count`` must stay 0, kernel 3 must
+   launch in int8 and int4 (its counts zeroed just before and read just
+   after) and nowhere else, and the answers are held against the plain
+   f32 eval forward on the card (``forced("reference")``): f32 and
+   int8 / int4 (against the dequantized tree) within ``SERVE_F32_REL``
+   of the largest logit, bf16 within ``SERVE_BF16_REL`` of it with the
+   same top-1 wherever the plain top-1 leads by more than twice that.  The kernel phase adds
+   kernel 3 at the ResNet-50 head's shape (M = 1, 8, 64, 256; K = 2048;
+   N = 1000; int8 and int4; f32 and bf16 x).  ``resnet50_*`` lines carry
+   the numbers, with the card's name and power limit.
+11. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -3224,6 +3258,518 @@ def cluster_serving_phase(torch, eb, dq, fa, card):
 
 
 # ---------------------------------------------------------------------------
+# image phase (ResNet-50)
+
+
+# ResNet-50 as bench.py's bench_resnet50 trains it: ImageNet's width, bf16
+# compute, Adam 1e-3, batch 256, 224x224 uint8 images scaled by 1/255
+RESNET_TRAIN = dict(rows=1024, batch=256, epochs=2, lr=1e-3)
+# bench.py's bench_resnet_accuracy: the scene task, held-out accuracy
+RESNET_ACC = dict(n=4096, size=32, epochs=3, batch=256, lr=3e-4,
+                  bn_momentum=0.3, k=4, floor=0.9)
+IMAGE_BUCKETS = (1, 8, 32, 64)
+# Graphed against eager, 8 bf16 Adam steps from one init, cuDNN's
+# deterministic algorithms on both sides: the two runs take the same
+# kernels in the same order on the same inputs, so they should be equal
+# bit for bit; what is held is the L2 distance of the parameters (and of
+# the moving statistics) within 1e-3 of how far the graphed run moved
+# them, which a single bf16 step taken differently (a relative 2^-8 on
+# some element's gradient, which Adam may turn into a learning rate's
+# move) would still pass, and a stale or skipped captured step would not.
+GRAPHED_REL = 1e-3
+# Served answers against the plain f32 eval forward: 1e-4 of the largest
+# |logit| for f32 weights (53 layers of f32 sums, and cuDNN's algorithm
+# for another batch size sums in another order) and for int8 / int4
+# weights against the dequantized tree (the same f32 weights; kernel 3's
+# f32 x takes three bf16 products per product, within 1e-4 of its plain
+# version); the uint8 wire in bf16 against the f32 forward on the same
+# normalized images: logits within 0.1 of the largest (every layer rounds
+# to bf16, a relative 2^-8, through 53 layers: 0.47-0.55% measured on
+# an H100) and the same top-1 on every image whose plain top-1 leads its
+# second by more than twice that tolerance (the smoke's net, 12 steps on
+# random labels, has logits within about 0.44 and most top-2 margins
+# far below one bf16 step of them, where the top-1 is a coin toss; the
+# agreement over all images is printed beside).
+SERVE_F32_REL = 1e-4
+SERVE_BF16_REL = 2.0 ** -5
+
+
+# a ResNet step's kernels by kind, from their names (the first match)
+KERNEL_KINDS = (
+    ("batch_norm", ("batch_norm",)),
+    ("convolution", ("cudnn", "cutlass", "xmma", "conv", "sm90_", "sm80_",
+                     "implicit", "wgrad", "dgrad", "gemm")),
+    ("pooling", ("pool",)),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "foreach", "copy", "fill")),
+)
+
+
+def scene_images(n, size, seed):
+    """bench.py's scene task drawn with numpy: noise, then a warm disc
+    (label 1) or a cool bar (label 0) of random place, size and colour;
+    float32 in [0, 1]."""
+    rs = np.random.RandomState(seed)
+    y = rs.randint(0, 2, n).astype(np.int32)
+    rows, cols = np.mgrid[:size, :size]
+    x = np.empty((n, size, size, 3), np.float32)
+    for i, kind in enumerate(y):
+        img = (rs.rand(size, size, 3) * 60).astype(np.uint8)
+        cx, cy = rs.randint(6, size - 6, 2)
+        if kind:
+            color = (rs.randint(0, 80), rs.randint(60, 140),
+                     rs.randint(170, 255))
+            r = rs.randint(4, size // 4)
+            img[(cols - cx) ** 2 + (rows - cy) ** 2 <= r * r] = color
+        else:
+            color = (rs.randint(170, 255), rs.randint(60, 140),
+                     rs.randint(0, 80))
+            img[cy:min(size - 1, cy + 5) + 1,
+                cx:min(size - 1, cx + 12) + 1] = color
+        x[i] = img.astype(np.float32) / 255.0
+    return x, y
+
+
+def resnet_leg(torch, init, x, y, graphed, deterministic=False):
+    """ResNet-50 at ImageNet's width from ``init`` (params, state) trained
+    ``RESNET_TRAIN`` epochs on device-resident ``x``, ``y``, graphed or
+    eager; the first epoch's dispatches are timed one by one (the first
+    is eager, the second captures), the second epoch's wall time is the
+    step time; one more epoch runs under ``torch.profiler``."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.convert import (export_params, export_state,
+                                                 load_jax_params)
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.models.image import resnet50
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = RESNET_TRAIN
+    torch.backends.cudnn.deterministic = deterministic
+    reset_name_scope()
+    net = resnet50(1000, (224, 224, 3))
+    load_jax_params(net, *init)
+    net.compile(Adam(lr=cfg["lr"]),
+                "sparse_categorical_crossentropy_with_logits",
+                device="cuda", compute_dtype="bfloat16")
+    est = net.estimator
+    steps = cfg["rows"] // cfg["batch"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = contextlib.nullcontext() if graphed else graphs.disabled()
+    dispatch_s = []
+    plain_dispatch = est._dispatch
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        plain_dispatch(*a, **kw)
+        torch.cuda.synchronize()
+        dispatch_s.append(time.perf_counter() - t0)
+
+    with ctx:
+        est._dispatch = timed
+        net.fit(x, y, batch_size=cfg["batch"], epochs=1, verbose=False)
+        est._dispatch = plain_dispatch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = net.fit(x, y, batch_size=cfg["batch"], epochs=cfg["epochs"],
+                       verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        params, state = export_params(net), export_state(net)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            net.fit(x, y, batch_size=cfg["batch"],
+                    epochs=cfg["epochs"] + 1, verbose=False)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t1
+    torch.backends.cudnn.deterministic = False
+    events = kernel_events(torch, prof)
+    busy = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:10]
+    by_kind = {}
+    for e in events:
+        kind = next((k for k, words in KERNEL_KINDS if any(
+            w in e.key.lower() for w in words)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + device_us(e) / 1e3 / steps
+    ms = 1e3 * wall / steps
+    out = {"graphed": graphed, "cudnn_deterministic": deterministic,
+           "ms_per_step_wall": ms,
+           "imgs_per_s": cfg["batch"] / (ms / 1e3),
+           "ms_per_step_device": busy / steps,
+           "device_busy_share": busy / (1e3 * prof_wall),
+           "first_epoch_dispatch_s": dispatch_s,
+           "eager_first_step_s": dispatch_s[0],
+           "peak_allocated_gib": peak,
+           "epoch_loss": [h["loss"] for h in est.history],
+           "programs": programs_of(est._programs),
+           "launches": graph_launches(prof),
+           "device_ms_per_step_by_kind": by_kind,
+           "top_device_ms_per_step": {e.key[:60]: device_us(e) / 1e3 / steps
+                                      for e in top}}
+    del hist
+    return net, out, params, state
+
+
+def free_card(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def resnet_training(torch):
+    """Full-width ResNet-50 trained graphed and timed; then a graphed and
+    an eager run from the same init with cuDNN's deterministic
+    algorithms, held together."""
+    from analytics_zoo_tpu_torch.convert import export_params, export_state
+    from analytics_zoo_tpu_torch.models.image import resnet50
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    cfg = RESNET_TRAIN
+    reset_name_scope()
+    net = resnet50(1000, (224, 224, 3))
+    n_params = sum(p.numel() for p in net.parameters())
+    n_state = sum(t.numel() for s in net.state().values()
+                  for t in s.values())
+    init = (export_params(net), export_state(net))
+    del net
+    rs = np.random.RandomState(SEED)
+    x = torch.from_numpy(rs.randint(0, 256, (cfg["rows"], 224, 224, 3))
+                         .astype(np.uint8)).cuda().float() / 255.0
+    y = torch.from_numpy(rs.randint(0, 1000, cfg["rows"]).astype(
+        np.int64)).cuda()
+    net, timed, params, state = resnet_leg(torch, init, x, y, graphed=True)
+    trained = (params, state)
+    del net
+    free_card(torch)
+    _, graphed, gp, gs = resnet_leg(torch, init, x, y, graphed=True,
+                                    deterministic=True)
+    free_card(torch)
+    _, eager, ep, es = resnet_leg(torch, init, x, y, graphed=False,
+                                  deterministic=True)
+    free_card(torch)
+    (p_diff, p_equal), (s_diff, s_equal) = tree_diff(gp, ep), tree_diff(gs,
+                                                                       es)
+    compare = {
+        "params_l2_rel": l2(gp, ep) / max(l2(gp, init[0]), 1e-30),
+        "state_l2_rel": l2(gs, es) / max(l2(gs, init[1]), 1e-30),
+        "params_max_abs_diff": p_diff, "state_max_abs_diff": s_diff,
+        "bit_equal": p_equal and s_equal, "tolerance_l2_rel": GRAPHED_REL}
+    out = {"parameters": n_params, "state_values": n_state,
+           "rows": cfg["rows"], "batch": cfg["batch"],
+           "timed": timed,
+           "graphed_deterministic": graphed,
+           "eager_deterministic": eager, "graphed_vs_eager": compare}
+    log("resnet50_training", json.dumps(out))
+    losses = timed["epoch_loss"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet-50 training loss not finite: {losses}")
+    if (compare["params_l2_rel"] > GRAPHED_REL
+            or compare["state_l2_rel"] > GRAPHED_REL):
+        raise AssertionError(f"graphed ResNet-50 left the eager run: "
+                             f"{compare}")
+    if not timed["programs"]:
+        raise AssertionError("the graphed ResNet-50 run captured no step "
+                             "program")
+    del x, y
+    free_card(torch)
+    return out, trained
+
+
+def resnet_accuracy(torch):
+    """bench.py's accuracy leg: a cold ResNet-50 (2 classes, 32x32,
+    ``bn_momentum=0.3``) trained on 90% of the scene task in bf16 with
+    ``steps_per_execution=4`` and evaluated on the rest through the
+    moving statistics."""
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models.image import resnet50
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = RESNET_ACC
+    x, y = scene_images(cfg["n"], cfg["size"], SEED)
+    split = int(0.9 * cfg["n"])
+    init_zoo_context(compute_dtype="bfloat16", steps_per_execution=cfg["k"])
+    try:
+        reset_name_scope()
+        net = resnet50(2, (cfg["size"], cfg["size"], 3),
+                       bn_momentum=cfg["bn_momentum"])
+        net.compile(Adam(lr=cfg["lr"]),
+                    "sparse_categorical_crossentropy_with_logits",
+                    metrics=["accuracy"], device="cuda")
+        t0 = time.perf_counter()
+        hist = net.fit(x[:split], y[:split], batch_size=cfg["batch"],
+                       epochs=cfg["epochs"], verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res = net.evaluate(x[split:], y[split:], batch_size=512)
+        programs = programs_of(net.estimator._programs)
+    finally:
+        init_zoo_context()
+    out = {"val_accuracy": res["accuracy"], "val_loss": res["loss"],
+           "floor": cfg["floor"], "epochs": cfg["epochs"],
+           "train_rows": split, "val_rows": cfg["n"] - split,
+           "epoch_loss": [h["loss"] for h in hist],
+           "train_imgs_per_s_with_capture": split * cfg["epochs"] / dt,
+           "programs": programs}
+    log("resnet50_accuracy", json.dumps(out))
+    if not res["accuracy"] >= cfg["floor"]:
+        raise AssertionError(f"ResNet-50 validation accuracy "
+                             f"{res['accuracy']} < {cfg['floor']}")
+    del net
+    free_card(torch)
+    return out
+
+
+def stem_routes(torch):
+    """ResNet-50's stem both ways on one leaf: ``SpaceToDepthStemConv``
+    (the JAX package's space-to-depth computation, the builder's stem)
+    and the plain ``Convolution2D(64, 7, 7, subsample=2,
+    border_mode="same")``: the training step's forward and backward at
+    batch 256 in bf16 (ms per call from a host loop, timed by CUDA
+    events: a backward does not capture beside the leaves' earlier
+    autograd nodes), and the serving forward at batch 64 in f32 (device
+    ms, captured); outputs held together (f32 within 1e-4 of the
+    largest, bf16 within 2^-7)."""
+    from analytics_zoo_tpu_torch.nn.layers import (Convolution2D,
+                                                   SpaceToDepthStemConv)
+
+    out = {}
+    for dtype, b, train in ((torch.bfloat16, 256, True),
+                            (torch.float32, 64, False)):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.rand(b, 224, 224, 3, device="cuda", generator=g).to(dtype)
+        x.requires_grad_(train)
+        shape = (b, 224, 224, 3)
+        layers = {"space_to_depth": SpaceToDepthStemConv(64, bias=False),
+                  "plain": Convolution2D(64, 7, 7, subsample=2,
+                                         border_mode="same", bias=False)}
+        outs, times = {}, {}
+        kernel = None
+        for route, layer in layers.items():
+            layer.build(torch.Generator().manual_seed(SEED), shape)
+            if kernel is None:
+                kernel = layer.leaf("kernel").detach()
+            layer.set_leaf("kernel", kernel)
+            layer = layer.cuda().to(dtype)
+            outs[route] = layer(x).float().detach()
+            if train:
+                w = layer.leaf("kernel")
+
+                def fn(layer=layer, w=w):
+                    torch.autograd.grad(layer(x).float().sum(), [w, x])
+            else:
+                def fn(layer=layer):
+                    with torch.no_grad():
+                        layer(x)
+            times[route] = (call_ms if train else device_ms)(torch, fn, 10)
+        diff = float((outs["plain"] - outs["space_to_depth"]).abs().max())
+        top = float(outs["plain"].abs().max())
+        tol = 2.0 ** -7 * top if dtype == torch.bfloat16 else 1e-4 * top
+        key = f"{'train_fwd_bwd' if train else 'serve_fwd'}_" \
+              f"{str(dtype).replace('torch.', '')}_b{b}"
+        out[key] = {"ms": times, "max_abs_diff": diff,
+                    "faster": min(times, key=times.get)}
+        if diff > tol:
+            raise AssertionError(f"stem routes disagree: {key} {diff}")
+        del x, layers, outs
+    log("resnet50_stem_routes", json.dumps(out))
+    free_card(torch)
+    return out
+
+
+def image_requests(n, seed):
+    return np.random.RandomState(seed).randint(
+        0, 256, (n, 224, 224, 3)).astype(np.uint8)
+
+
+def served_reference(torch, net, xs, weights=None):
+    """The plain f32 eval forward on the card (every kernel routed to its
+    plain version) of ``net`` with ``weights`` (a params tree) if given,
+    on float images, in chunks of 64."""
+    import copy
+
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    ref = copy.deepcopy(net).cuda().eval()
+    if weights is not None:
+        load_jax_params(ref, weights)
+    outs = []
+    with torch.no_grad(), dispatch.forced("reference"):
+        for s in range(0, len(xs), 64):
+            outs.append(ref(torch.from_numpy(xs[s:s + 64]).cuda()).cpu()
+                        .numpy())
+    del ref
+    return np.concatenate(outs)
+
+
+def resnet_serving(torch, dq, net, root):
+    """The trained full-width net served through ``DynamicBatcher``
+    (buckets 1, 8, 32, 64) in f32, int8 and int4 weights and over the
+    uint8 wire (``imagenet_preprocess``, bf16).  For each form a first
+    model covers every bucket into a ``CompileCache``; a second one warms
+    from it and serves 48 single images from 8 threads and 8 requests
+    of 8 images from 2, kernel-3 launches zeroed just before and read
+    just after."""
+    import os
+
+    from analytics_zoo_tpu_torch.deploy import (CompileCache, DynamicBatcher,
+                                                InferenceModel,
+                                                imagenet_preprocess)
+    from analytics_zoo_tpu_torch.deploy.inference import (dequantize_pytree,
+                                                          quantize_pytree)
+
+    u8 = image_requests(112, SEED + 7)
+    f32 = u8.astype(np.float32) / 127.5 - 1.0
+    plain = served_reference(torch, net, f32)
+    forms = (("float32", {}), ("int8", {"weight_dtype": "int8"}),
+             ("int4", {"weight_dtype": "int4"}),
+             ("uint8_bf16", {"preprocess": imagenet_preprocess()}))
+    out = {}
+    total_dq = 0
+    for form, kw in forms:
+        wire = u8 if form == "uint8_bf16" else f32
+        if form in ("int8", "int4"):
+            deq = dequantize_pytree(quantize_pytree(
+                net.params(), bits=4 if form == "int4" else 8))
+            want = served_reference(torch, net, f32, deq)
+        else:
+            want = plain
+        cache = CompileCache(os.path.join(root, f"resnet_{form}"))
+
+        def model():
+            return InferenceModel.from_keras_net(
+                net, device="cuda", batch_buckets=IMAGE_BUCKETS,
+                name=f"resnet50_{form}", **kw)
+
+        cover = model().attach_compile_cache(cache)
+        t0 = time.perf_counter()
+        for b in IMAGE_BUCKETS:
+            for _ in range(2):          # eager, then captured
+                cover.predict(wire[:b])
+        torch.cuda.synchronize()
+        cover_s = time.perf_counter() - t0
+        captured = cover.compile_count
+        del cover
+        free_card(torch)
+        im = model().attach_compile_cache(cache)
+        warmed = im.warm()
+        dq.LAUNCHES.reset()
+        batcher = DynamicBatcher(im, max_batch=64, max_latency_ms=2.0)
+        t0 = time.perf_counter()
+        single, lat1 = serve_rows(batcher, [wire[i:i + 1]
+                                            for i in range(48)], 8)
+        eight, lat8 = serve_rows(batcher, [wire[48 + 8 * i:56 + 8 * i]
+                                           for i in range(8)], 2)
+        wall = time.perf_counter() - t0
+        batcher.close()
+        launches = dq.LAUNCHES.value
+        total_dq += launches
+        got = np.concatenate([single, eight])
+        ref = want[:112]
+        err = float(np.abs(got - ref).max())
+        top = float(np.abs(ref).max())
+        agree = float(np.mean(got.argmax(-1) == ref.argmax(-1)))
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        decided = top2[:, 1] - top2[:, 0] > 2 * SERVE_BF16_REL * top
+        agree_decided = bool(np.all(got.argmax(-1)[decided]
+                                    == ref.argmax(-1)[decided]))
+        rec = {"p50_ms": {"1": float(np.percentile(lat1, 50)),
+                          "8": float(np.percentile(lat8, 50))},
+               "p99_ms": {"1": float(np.percentile(lat1, 99)),
+                          "8": float(np.percentile(lat8, 99))},
+               "images": 112, "wall_s": wall, "imgs_per_s": 112 / wall,
+               "compile_count": im.compile_count, "warmed": warmed,
+               "captured_cold": captured, "cover_s": cover_s,
+               "dequant_matmul_launches": launches,
+               "max_abs_err": err, "largest": top, "top1_agreement": agree,
+               "top1_decided_images": int(decided.sum()),
+               "top1_agree_where_decided": agree_decided,
+               "weight_bytes": im.weight_nbytes(),
+               "programs": programs_of(im._programs)}
+        out[form] = rec
+        log("resnet50_serving", form, json.dumps(rec))
+        bad = (im.compile_count != 0 or warmed != len(IMAGE_BUCKETS)
+               or not np.all(np.isfinite(got)) or got.shape != (112, 1000))
+        if form == "uint8_bf16":
+            bad = bad or err > SERVE_BF16_REL * top or not agree_decided
+        else:
+            bad = bad or err > SERVE_F32_REL * top
+        if form in ("int8", "int4"):
+            bad = bad or launches == 0
+        elif launches:
+            bad = True
+        if bad:
+            raise AssertionError(f"ResNet-50 serving ({form}) failed: {rec}")
+        del im
+        free_card(torch)
+    return out, total_dq
+
+
+def resnet_head_cases(torch, dq):
+    """Kernel 3 at the ResNet-50 head's shape (K = 2048, N = 1000): the
+    serving buckets' rows and the training batch, int8 and int4, f32 and
+    bf16 x."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for bits in (8, 4):
+            for m in (1, 8, 64, 256):
+                cases.append(dq_case(torch, dq, "resnet_head", m, 2048, 1000,
+                                     bits, dtype=dtype))
+    for c in cases:
+        log("kernel_case", json.dumps(c))
+    return cases
+
+
+def image_phase(torch, dq, card):
+    """Phase 10: ResNet-50 (BASELINE config #2) trained, held to
+    accuracy, served, and its stem timed against the plain convolution."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.models.image import resnet50
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    t0 = time.perf_counter()
+    training, (params, state) = resnet_training(torch)
+    accuracy = resnet_accuracy(torch)
+    stem = stem_routes(torch)
+    reset_name_scope()
+    net = resnet50(1000, (224, 224, 3))
+    load_jax_params(net, params, state)
+    net = net.cuda().eval()
+    root = tempfile.mkdtemp(prefix="zoo_resnet_")
+    try:
+        serving, dq_launches = resnet_serving(torch, dq, net, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del net
+    free_card(torch)
+    summary = {"card": card, "seconds": time.perf_counter() - t0,
+               "train_imgs_per_s": training["timed"]["imgs_per_s"],
+               "train_ms_per_step_wall": training["timed"][
+                   "ms_per_step_wall"],
+               "train_ms_per_step_device": training["timed"][
+                   "ms_per_step_device"],
+               "val_accuracy": accuracy["val_accuracy"],
+               "serving_imgs_per_s": {k: v["imgs_per_s"]
+                                      for k, v in serving.items()},
+               "stem_ms": {k: v["ms"] for k, v in stem.items()}}
+    log("resnet50_summary", json.dumps(summary))
+    return {"training": training, "accuracy": accuracy, "stem": stem,
+            "serving": serving, "dequant_matmul": dq_launches}
+
+
+# ---------------------------------------------------------------------------
 
 
 # The flash kernels' templates <T, DMAX, warps, m-tiles, tile rows / 8,
@@ -3424,6 +3970,7 @@ def main() -> int:
         json.dumps(bag_sass(_build, libs["embedding_bag"])))
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
+    dq_cases += resnet_head_cases(torch, dq)
     fl_cases = flash_cases(torch, fa)
     lse_cases, bwd_dq_cases, bwd_dkv_cases = flash_train_cases(torch, fa)
     for c in fl_cases + lse_cases + bwd_dq_cases + bwd_dkv_cases:
@@ -3438,6 +3985,8 @@ def main() -> int:
                                                     bert_f32, card)
     graphed_phase(torch, eb, fa, card)
     cluster = cluster_serving_phase(torch, eb, dq, fa, card)
+    reset_counts(eb, dq, fa)
+    image = image_phase(torch, dq, card)
     fwd_by_path = {"serving": served["embedding_bag"],
                    "training": trained["embedding_bag_fwd"],
                    "bert_serving": bert["embedding_bag"],
@@ -3452,7 +4001,8 @@ def main() -> int:
                  + ft_ncf["embedding_bag_bwd"],
                  lambda c: c["vocab"] == USERS + 1),
         headline(dq_cases, "dequant_matmul", "cuda", DQ_SRC, DQ_TPU,
-                 served["dequant_matmul"] + cluster["dequant_matmul"],
+                 served["dequant_matmul"] + cluster["dequant_matmul"]
+                 + image["dequant_matmul"],
                  lambda c: c["m"] == 256 and c["bits"] == 8),
     ]
     kernels[0]["launches_by_path"] = fwd_by_path
@@ -3468,7 +4018,8 @@ def main() -> int:
         "serving": served["dequant_matmul"],
         "training": trained["dequant_matmul"],
         "bert_serving": bert["dequant_matmul"],
-        "cluster_serving": cluster["dequant_matmul"]}
+        "cluster_serving": cluster["dequant_matmul"],
+        "resnet50_serving": image["dequant_matmul"]}
     fwd_paths = {"bert_serving": bert["flash_attention"],
                  "bert_training_no_grad": bert_eval["flash_attention_fwd"],
                  "fault_tolerant_no_grad": ft_bert_launches[

@@ -1685,3 +1685,146 @@ def test_two_models_flights_in_flight_match_eager_on_card(cuda_device):
         got = work[k][0].harvest(f)
         for g, w in zip(got, want[k]):
             np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the image slice: conv, pooling, BatchNormalization, ResNet-50
+
+
+def _image_layer_cases():
+    from analytics_zoo_tpu_torch.nn.layers import (AveragePooling2D,
+                                                   BatchNormalization,
+                                                   Convolution2D,
+                                                   MaxPooling2D,
+                                                   SeparableConvolution2D,
+                                                   SpaceToDepthStemConv)
+
+    return [
+        ("stem_plain", lambda: Convolution2D(64, 7, 7, subsample=2,
+                                             border_mode="same"),
+         (4, 224, 224, 3)),
+        ("stem_s2d", lambda: SpaceToDepthStemConv(64), (4, 224, 224, 3)),
+        ("conv3x3_s2_th", lambda: Convolution2D(
+            32, 3, 3, subsample=2, border_mode="same", dim_ordering="th"),
+         (4, 16, 15, 15)),
+        ("conv1x1_s2", lambda: Convolution2D(64, 1, 1, subsample=2,
+                                             border_mode="same"),
+         (4, 28, 28, 32)),
+        ("separable", lambda: SeparableConvolution2D(
+            24, 3, 3, subsample=2, border_mode="same"), (4, 17, 17, 16)),
+        ("maxpool_same", lambda: MaxPooling2D((3, 3), strides=(2, 2),
+                                              border_mode="same"),
+         (4, 112, 112, 8)),
+        ("avgpool_same", lambda: AveragePooling2D((3, 3), strides=(2, 2),
+                                                  border_mode="same"),
+         (4, 15, 15, 8)),
+        ("bn", lambda: BatchNormalization(), (8, 7, 7, 64)),
+        ("bn_ghost_th", lambda: BatchNormalization(
+            dim_ordering="th", stats_fraction=0.5), (8, 64, 7, 7)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    "stem_plain", "stem_s2d", "conv3x3_s2_th", "conv1x1_s2", "separable",
+    "maxpool_same", "avgpool_same", "bn", "bn_ghost_th"])
+def test_image_layers_on_card_match_cpu(cuda_device, case, dtype):
+    """Each image layer on the card (cuDNN / ATen's CUDA kernels, TF32
+    off) against the same layer's plain f32 form on the CPU, on the same
+    inputs (rounded to bf16 first in the bf16 case): the training
+    forward, the gradient of a seeded projection of it, (BN) the new
+    moving statistics, and the eval forward.  f32 within 1e-5 of the
+    largest |value| (sums in another order); bf16 within 2^-6 of it (the
+    card rounds each result to bf16, a relative 2^-8, over f32 sums)."""
+    import copy
+
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    torch.backends.cudnn.allow_tf32 = False
+    make, shape = {c[0]: (c[1], c[2]) for c in _image_layer_cases()}[case]
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -6
+    reset_name_scope()
+    cpu = make()
+    cpu.build(torch.Generator().manual_seed(0), shape)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dt)
+    proj = torch.from_numpy(rs.randn(*cpu.output_shape(shape)).astype(
+        np.float32))
+
+    def run(layer, x, training):
+        layer.train(training)
+        x = x.clone().requires_grad_(training)
+        out = layer(x)
+        grads = (torch.autograd.grad((out.float() * proj.to(x.device))
+                                     .sum(), [x])[0]
+                 if training else None)
+        return out.detach(), grads
+
+    def close(got, want, what):
+        want = want.float().cpu()
+        top = max(float(want.abs().max()), 1e-6)
+        err = float((got.float().cpu() - want).abs().max())
+        assert err <= tol * top, (case, dtype, what, err, top)
+
+    for training in (True, False):
+        got, g_got = run(card, x.to(cuda_device), training)
+        want, g_want = run(cpu, x.float(), training)
+        assert got.dtype == dt
+        close(got, want, f"forward training={training}")
+        if training:
+            close(g_got, g_want, "input gradient")
+            for k, v in cpu.state().items():
+                close(card.state()[k], v, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_resnet_fit_graphed_matches_eager_on_card(cuda_device,
+                                                  compute_dtype):
+    """ResNet-50 (10 classes, 32x32) for two epochs of 2 steps, one graph
+    replay per step, against graphs off, both with cuDNN's deterministic
+    algorithms: losses, every leaf and every moving statistic within
+    1e-6 relative (the same kernels on the same inputs); the BN state
+    moved and stayed f32."""
+    from analytics_zoo_tpu_torch.convert import (export_params, export_state,
+                                                 load_jax_params)
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.models.image import resnet50
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.rand(32, 32, 32, 3).astype(np.float32)).to(
+        cuda_device)
+    y = torch.from_numpy(rs.randint(0, 10, 32)).to(cuda_device)
+    reset_name_scope()
+    net = resnet50(10, (32, 32, 3))
+    init = (export_params(net), export_state(net))
+
+    def run():
+        reset_name_scope()
+        net = resnet50(10, (32, 32, 3))
+        load_jax_params(net, *init)
+        net.compile("adam", "sparse_categorical_crossentropy_with_logits",
+                    device=cuda_device, compute_dtype=compute_dtype)
+        hist = net.fit(x, y, batch_size=16, epochs=2, verbose=False)
+        return ([h["loss"] for h in hist], export_params(net),
+                export_state(net), net)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss, got_p, got_s, net = run()
+        assert net.estimator._programs and all(
+            p.graph.captured for p in net.estimator._programs.values())
+        assert all(t.dtype == torch.float32 for s in net.state().values()
+                   for t in s.values())
+        with graphs.disabled():
+            eager_loss, want_p, want_s, _ = run()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    np.testing.assert_allclose(loss, eager_loss, rtol=1e-6)
+    assert _tree_rel_diff(got_p, want_p) <= 1e-6
+    assert _tree_rel_diff(got_s, want_s) <= 1e-6
+    assert _tree_rel_diff(got_s, init[1]) > 1e-3

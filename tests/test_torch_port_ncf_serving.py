@@ -402,6 +402,13 @@ def test_port_imports_no_jax():
         "assert len(r) == 1, r\n"
         "codec.unpack_record(codec.pack_record({'x': codec.torch_to_bf16("
         "bm._net.bert.leaf('word_embed')[:2].bfloat16())}))\n"
+        "from analytics_zoo_tpu_torch.models.image import mobilenet\n"
+        "from analytics_zoo_tpu_torch.deploy import imagenet_preprocess\n"
+        "net = mobilenet(3, (32, 32, 3), alpha=0.25)\n"
+        "im = InferenceModel.from_keras_net(net, net.params(), net.state(),"
+        " device='cpu', preprocess=imagenet_preprocess())\n"
+        "out = im.predict(np.zeros((2, 32, 32, 3), np.uint8))\n"
+        "assert out.shape == (2, 3) and out.dtype == np.float32\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')"
         " or m == 'ml_dtypes']\n"
