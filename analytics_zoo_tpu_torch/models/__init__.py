@@ -2,5 +2,7 @@ from analytics_zoo_tpu_torch.models.common import ZooModel, register_model  # no
 from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: F401
     NeuralCF,
     Recommender,
+    SessionRecommender,
+    WideAndDeep,
 )
 from analytics_zoo_tpu_torch.models.image import ImageClassifier  # noqa: F401

@@ -70,6 +70,31 @@ def _uniform(scale: float):
     return init
 
 
+def _orthogonal(scale: float = 1.0, column_axis: int = -1):
+    """``jax.nn.initializers.orthogonal``'s law: the Q of the QR
+    decomposition of a standard normal draw, its columns signed by R's
+    diagonal, over the (prod(other dims), shape[column_axis]) matrix;
+    orthonormal rows where there are fewer rows than columns."""
+    def init(generator, shape, dtype=torch.float32):
+        if len(shape) < 2:
+            raise ValueError("orthogonal initializer requires at least a "
+                             "2D shape")
+        n_cols = shape[column_axis]
+        n_rows = math.prod(shape) // n_cols
+        tall = (max(n_rows, n_cols), min(n_rows, n_cols))
+        a = torch.empty(tall, dtype=torch.float32).normal_(
+            generator=generator)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        if n_rows < n_cols:
+            q = q.T
+        axis = column_axis % len(shape)
+        rest = tuple(d for i, d in enumerate(shape) if i != axis)
+        q = q.reshape(rest + (n_cols,)).movedim(-1, axis)
+        return (scale * q).contiguous().to(dtype)
+    return init
+
+
 _REGISTRY = {
     "glorot_uniform": _variance_scaling(1.0, "fan_avg", "uniform"),
     "glorot_normal": _variance_scaling(1.0, "fan_avg", "truncated_normal"),
@@ -84,6 +109,7 @@ _REGISTRY = {
     "ones": _constant(1.0),
     "normal": _normal(0.05),
     "uniform": _uniform(0.05),
+    "orthogonal": _orthogonal(),
 }
 
 

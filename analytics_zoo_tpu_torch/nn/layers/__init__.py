@@ -42,3 +42,13 @@ from analytics_zoo_tpu_torch.nn.layers.attention import (  # noqa: F401
     TransformerBlock,
     TransformerLayer,
 )
+from analytics_zoo_tpu_torch.nn.layers.recurrent import (  # noqa: F401
+    GRU,
+    LSTM,
+    Bidirectional,
+    ConvLSTM2D,
+    ConvLSTM3D,
+    Highway,
+    SimpleRNN,
+    TimeDistributed,
+)

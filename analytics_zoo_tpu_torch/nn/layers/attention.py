@@ -19,7 +19,7 @@ the explicit generator that the Estimator installs on every ``Dropout``
 module for the length of ``fit``; it is the identity at inference.  The
 masks follow the JAX layers' law, not ``jax.random``'s bits.
 
-Not in this slice, and raising ``NotImplementedError`` (ROADMAP A7):
+Not in this slice, and raising ``NotImplementedError`` (ROADMAP A9):
 ring attention over ``seq_shards`` > 1 devices, and the sequence-parallel
 and pipeline regimes (``compile(sharding="sp"|"pp")``).
 """
@@ -138,7 +138,7 @@ class MultiHeadAttention(Layer):
             if ways > 1:
                 raise NotImplementedError(
                     f"seq_shards={ways}: ring attention over a sequence "
-                    f"mesh needs the multi-GPU slice (ROADMAP A7); set "
+                    f"mesh needs the multi-GPU slice (ROADMAP A9); set "
                     f"seq_shards to 0 to attend on one device")
         out = dot_product_attention(q, k, v, mask=mask, causal=self.causal,
                                     dropout_rate=rate, dropout_generator=gen)

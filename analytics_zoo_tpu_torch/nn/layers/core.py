@@ -60,7 +60,13 @@ class Dense(Layer):
             else:
                 y = dequant_matmul(x, q["q"], q["scale"])
         else:
-            y = torch.matmul(x, self.leaf("kernel"))
+            w = self.leaf("kernel")
+            if w.dtype != x.dtype:
+                # jnp's promotion: an f32 input (a recurrent layer's f32
+                # carry under bf16 compute) meets a bf16 kernel at f32
+                dt = torch.promote_types(x.dtype, w.dtype)
+                x, w = x.to(dt), w.to(dt)
+            y = torch.matmul(x, w)
         if self.use_bias:
             y = y + self.leaf("bias")
         if self.activation is not None:

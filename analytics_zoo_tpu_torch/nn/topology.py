@@ -93,7 +93,7 @@ class KerasNet(Layer):
             raise NotImplementedError(
                 f"sharding={sharding!r} (the sequence-parallel, pipeline and "
                 f"model-parallel regimes) needs the multi-GPU slice "
-                f"(ROADMAP A7); the port trains on one device")
+                f"(ROADMAP A9); the port trains on one device")
 
         prev = self._estimator
         self._estimator = Estimator(self, optimizer=optimizer, loss=loss,

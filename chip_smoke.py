@@ -291,7 +291,38 @@
    kernel 3 at the ResNet-50 head's shape (M = 1, 8, 64, 256; K = 2048;
    N = 1000; int8 and int4; f32 and bf16 x).  ``resnet50_*`` lines carry
    the numbers, with the card's name and power limit.
-11. Prints the kernels JSON line and, last, the ok line.
+11. Recommender phase.  WideAndDeep (BASELINE config #4) at bench.py's
+   census shape (``WND_CONFIG``: wide 1000 + 1000, embed 5000 / 1000 to
+   64 / 64, 11 continuous columns, hidden 100-75-50-25) trains as
+   bench.py's ``bench_wide_and_deep`` sets it (bf16, Adam 1e-3, batch
+   8192, K = 32 steps per graph) on 32 x 8192 device-resident rows
+   labelled by a numpy rule on the wide ids and the first continuous
+   column; SessionRecommender at the JAX defaults with both towers over
+   37,483 items (``SESSION_CONFIG``) trains in bf16 at batch 1024 on
+   65,536 Markov sessions (the example's rule).  Each: untimed graphed
+   epochs, timed epochs with the bag kernels' counts zeroed just before
+   and read just after (samples/s, ms per step wall), one more epoch
+   under ``torch.profiler`` (device ms per step, busy share); the loss
+   must fall and the accuracy reach its floor (WideAndDeep on held-out
+   rows, the session model's top-5 on its sessions); a graphed and an
+   eager run of two epochs from one init agree within
+   ``REC_GRAPHED_REL`` of their movement (L2).  The trained model is
+   served in f32, int8 and int4 from bucket graphs (1, 8, 64, 256)
+   warmed from a ``CompileCache`` that a first model filled
+   (``compile_count`` 0): 256 one-row requests from 8 threads through
+   ``DynamicBatcher`` (WideAndDeep's with three inputs: wide and embed
+   int32, continuous f32) and, for the session model,
+   ``recommend_for_session`` over the same 256 sessions; the answers
+   within ``REC_SERVE_REL`` of each row's largest probability of the
+   plain f32 forward on the card (int8 / int4 against the dequantized
+   tree), kernel 3 launching in int8 / int4 and in no f32 form.  The
+   kernel phase adds kernels 1 and 2 at the wide tower's (2000, 2)
+   table (8-byte f32 and 4-byte bf16 rows), the deep columns and the
+   session and history gathers, and kernel 3 at the session head (K =
+   40, N = 37,484, M = 1 ... 256), WideAndDeep's Dense layers and N = 2.
+   ``wide_and_deep_*``, ``session_*`` and ``recommender_summary`` lines
+   carry the numbers, with the card's name and power limit.
+12. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -3770,6 +3801,427 @@ def image_phase(torch, dq, card):
 
 
 # ---------------------------------------------------------------------------
+# recommender phase (WideAndDeep, BASELINE config #4; SessionRecommender)
+
+# WideAndDeep as bench.py's bench_wide_and_deep sets it (census-shaped
+# features after the reference WideAndDeepExample.scala): bf16 compute,
+# Adam 1e-3, batch 8192, K = 32 steps per graph, 32 x 8192 device-resident
+# rows; ``epochs`` graphed epochs in all, the last ``timed`` of them timed
+WND_CONFIG = dict(class_num=2, wide_base_dims=(1000, 1000),
+                  embed_in_dims=(5000, 1000), embed_out_dims=(64, 64),
+                  continuous_cols=11, hidden_layers=(100, 75, 50, 25))
+WND_TRAIN = dict(rows=32 * 8192, batch=8192, k=32, lr=1e-3, epochs=24,
+                 timed=8, eval_rows=32768, metric="accuracy", floor=0.9)
+# SessionRecommender at the JAX package's defaults, both towers, over the
+# 37,483 items of the filtered YooChoose clicks (Hidasi et al., ICLR
+# 2016, Table 1); bf16, batch 1024 (this smoke's choice), K = 16
+SESSION_CONFIG = dict(item_count=37483, item_embed=100,
+                      rnn_hidden_layers=(40, 20), session_length=10,
+                      include_history=True, mlp_hidden_layers=(40, 20),
+                      history_length=5)
+SESSION_TRAIN = dict(rows=64 * 1024, batch=1024, k=16, lr=3e-3, epochs=40,
+                     timed=4, eval_rows=8192, metric="top5_accuracy",
+                     floor=0.2)
+REC_BUCKETS = (1, 8, 64, 256)
+# a recommender step's kernels by kind, from their names (the first match)
+REC_KERNEL_KINDS = (
+    ("embedding_bag", ("bag_fwd", "bag_bwd")),
+    ("softmax", ("softmax",)),
+    ("gemm", ("gemm", "cutlass", "cublas", "splitk", "xmma", "sm90_",
+              "sm80_")),
+    ("gather_scatter", ("index", "gather", "scatter")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "foreach", "copy", "fill", "cat")),
+)
+# Graphed against eager: the bag backward adds a table's duplicate ids
+# with f32 atomics in a free order, so two runs of the same steps differ
+# in the last bits of those rows' gradients; in bf16 such a sum may round
+# one bf16 step apart, which Adam passes on as a change of up to 2^-8 of
+# that element's update.  The parameters' L2 distance is held within
+# REC_GRAPHED_REL of how far the graphed run moved them from the init (a
+# stale or skipped captured step moves them by its whole update).
+REC_GRAPHED_REL = 1e-3
+# Served answers against the plain f32 forward on the card: within
+# REC_SERVE_REL of each row's largest probability (kernel 3's f32 x takes
+# three bf16 products per product, within 1e-4 of its plain version;
+# int8 / int4 against the dequantized tree)
+REC_SERVE_REL = 1e-4
+
+
+def wnd_data(rows, seed):
+    """bench.py's census-shaped rows (wide ids in [0, 1000) and [1000,
+    2000), embed ids in [0, 5000) and [0, 1000), 11 standard normal
+    columns), labelled by a rule the model can learn: a fixed random
+    sign per wide id, both summed with the first continuous column."""
+    rs = np.random.RandomState(seed)
+    wide = rs.randint(0, 1000, (rows, 2)).astype(np.int32)
+    wide[:, 1] += 1000
+    emb = np.stack([rs.randint(0, 5000, rows), rs.randint(0, 1000, rows)],
+                   axis=-1).astype(np.int32)
+    cont = rs.randn(rows, 11).astype(np.float32)
+    sign = np.random.RandomState(SEED + 99).choice([-1.0, 1.0], 2000)
+    y = (sign[wide[:, 0]] + sign[wide[:, 1]] + cont[:, 0] > 0).astype(
+        np.int32)
+    return [wide, emb, cont], y
+
+
+def session_data(rows, seed):
+    """The Markov sessions of examples/recommendation/
+    session_recommender_example.py (item i's preferred successor is (7i +
+    3) % n + 1, taken with probability 0.8), vectorised, with a random
+    5-item history per row; the target is the item after the session."""
+    n = SESSION_CONFIG["item_count"]
+    length = SESSION_CONFIG["session_length"]
+    rs = np.random.RandomState(seed)
+    nxt = (np.arange(n + 1) * 7 + 3) % n + 1
+    sessions = np.zeros((rows, length), np.int32)
+    cur = rs.randint(1, n + 1, rows)
+    for t in range(length):
+        sessions[:, t] = cur
+        cur = np.where(rs.rand(rows) < 0.8, nxt[cur],
+                       rs.randint(1, n + 1, rows))
+    hist = rs.randint(1, n + 1, (rows, SESSION_CONFIG["history_length"]))
+    return [sessions, hist.astype(np.int32)], cur.astype(np.int32)
+
+
+def rec_model(kind, init=None):
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.models import SessionRecommender, WideAndDeep
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    reset_name_scope()
+    m = (WideAndDeep(**WND_CONFIG, device="cuda") if kind == "wnd"
+         else SessionRecommender(**SESSION_CONFIG, device="cuda"))
+    if init is not None:
+        load_jax_params(m.model, init)
+    return m
+
+
+def rec_leg(torch, eb, kind, init, xs, y, epochs, graphed, timed=0):
+    """``kind`` ("wnd" or "session") from ``init`` trained ``epochs``
+    epochs on device-resident ``xs``, ``y`` at its configuration (bf16,
+    K steps per dispatch), graphed or eager.  With ``timed``, the last
+    ``timed`` epochs are timed, the bag kernels' counts zeroed just
+    before them and read just after, and one more epoch runs under
+    ``torch.profiler``."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = WND_TRAIN if kind == "wnd" else SESSION_TRAIN
+    init_zoo_context(steps_per_execution=cfg["k"])
+    m = rec_model(kind, init)
+    m.compile(Adam(lr=cfg["lr"]), "sparse_categorical_crossentropy",
+              metrics=[cfg["metric"]], compute_dtype="bfloat16")
+    steps = cfg["rows"] // cfg["batch"]
+    out = {"graphed": graphed}
+    ctx = contextlib.nullcontext() if graphed else graphs.disabled()
+    try:
+        with ctx:
+            t0 = time.perf_counter()
+            m.fit(xs, y, batch_size=cfg["batch"], epochs=epochs - timed,
+                  verbose=False)
+            torch.cuda.synchronize()
+            out["untimed_s"] = time.perf_counter() - t0
+            if timed:
+                eb.LAUNCHES.reset()
+                eb.BWD_LAUNCHES.reset()
+                t0 = time.perf_counter()
+                m.fit(xs, y, batch_size=cfg["batch"], epochs=epochs,
+                      verbose=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                out["launches"] = {
+                    "embedding_bag_fwd": eb.LAUNCHES.value,
+                    "embedding_bag_bwd": eb.BWD_LAUNCHES.value}
+                out["launches_per_step"] = {
+                    k: v / (timed * steps)
+                    for k, v in out["launches"].items()}
+                ms = 1e3 * wall / (timed * steps)
+                out.update({"ms_per_step_wall": ms,
+                            "samples_per_s": cfg["batch"] / (ms / 1e3)})
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    m.fit(xs, y, batch_size=cfg["batch"],
+                          epochs=epochs + 1, verbose=False)
+                    torch.cuda.synchronize()
+                    prof_wall = time.perf_counter() - t1
+                events = kernel_events(torch, prof)
+                busy = sum(device_us(e) for e in events) / 1e3
+                top = sorted(events, key=device_us, reverse=True)[:8]
+                by_kind = {}
+                for e in events:
+                    kind_of = next((k for k, words in REC_KERNEL_KINDS
+                                    if any(w in e.key.lower()
+                                           for w in words)), "other")
+                    by_kind[kind_of] = (by_kind.get(kind_of, 0.0)
+                                        + device_us(e) / 1e3 / steps)
+                out.update({
+                    "ms_per_step_device": busy / steps,
+                    "device_ms_per_step_by_kind": by_kind,
+                    "kernels_per_step": sum(e.count for e in events) / steps,
+                    "device_busy_share": busy / (1e3 * prof_wall),
+                    "graph_and_kernel_launches": graph_launches(prof),
+                    "top_device_ms_per_step": {
+                        e.key[:60]: device_us(e) / 1e3 / steps
+                        for e in top}})
+    finally:
+        init_zoo_context()
+    out["epoch_loss"] = [h["loss"] for h in m.estimator.history]
+    out["programs"] = programs_of(m.estimator._programs)
+    return m, out, export_params(m.model)
+
+
+def rec_training(torch, eb, kind, seed):
+    """A timed graphed run of ``kind`` that must lower its loss and
+    reach its accuracy floor, then a graphed and an eager run from the
+    same init of two epochs, held together."""
+    from analytics_zoo_tpu_torch.convert import export_params
+
+    cfg = WND_TRAIN if kind == "wnd" else SESSION_TRAIN
+    make = wnd_data if kind == "wnd" else session_data
+    xs, y = make(cfg["rows"], seed)
+    dev = [torch.from_numpy(a).cuda() for a in xs]
+    yd = torch.from_numpy(y).cuda()
+    init = export_params(rec_model(kind).model)
+    m, timed, trained = rec_leg(torch, eb, kind, init, dev, yd,
+                                cfg["epochs"], True, timed=cfg["timed"])
+    n = cfg["eval_rows"]
+    res = m.evaluate([a[:n] for a in xs], y[:n], batch_size=cfg["batch"])
+    acc = res[cfg["metric"]]
+    # the same rule on rows it never saw: reported, not held to a floor
+    # (WideAndDeep's deep embeddings memorise the trained rows long before
+    # Adam at 1e-3 moves the zero-initialised wide table far)
+    held = m.evaluate(*(wnd_data if kind == "wnd" else session_data)(
+        n, seed + 1), batch_size=cfg["batch"])
+    _, graphed, gp = rec_leg(torch, eb, kind, init, dev, yd, 2, True)
+    _, eager, ep = rec_leg(torch, eb, kind, init, dev, yd, 2, False)
+    compare = {"params_l2_rel": l2(gp, ep) / max(l2(gp, init), 1e-30),
+               "params_max_abs_diff": tree_diff(gp, ep)[0],
+               "bit_equal": tree_diff(gp, ep)[1],
+               "tolerance_l2_rel": REC_GRAPHED_REL,
+               "graphed_epoch_loss": graphed["epoch_loss"],
+               "eager_epoch_loss": eager["epoch_loss"]}
+    losses = timed["epoch_loss"]
+    out = {"config": WND_CONFIG if kind == "wnd" else SESSION_CONFIG,
+           "train": {k: v for k, v in cfg.items()},
+           "parameters": sum(p.numel() for p in m.model.parameters()),
+           "timed": timed, "accuracy": acc,
+           "accuracy_of": f"{cfg['metric']} on {n} trained rows",
+           "accuracy_floor": cfg["floor"], "eval_loss": res["loss"],
+           "held_out": held,
+           "graphed_vs_eager": compare}
+    log(f"{'wide_and_deep' if kind == 'wnd' else 'session'}_training",
+        json.dumps(out))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{kind}: the loss did not fall: {losses}")
+    if not acc >= cfg["floor"]:
+        raise AssertionError(f"{kind}: accuracy {acc} < {cfg['floor']}")
+    if compare["params_l2_rel"] > REC_GRAPHED_REL:
+        raise AssertionError(f"{kind}: graphed left the eager run: "
+                             f"{compare}")
+    if not timed["programs"]:
+        raise AssertionError(f"{kind}: the graphed run captured no step "
+                             "program")
+    if not all(timed["launches"].values()):
+        raise AssertionError(f"{kind}: a bag kernel never launched in "
+                             f"training: {timed['launches']}")
+    del m, dev, yd
+    free_card(torch)
+    return out, trained
+
+
+def rec_reference(torch, net, xs, weights=None):
+    """The plain f32 eval forward on the card (every kernel routed to its
+    plain version) of ``net`` with ``weights`` if given."""
+    import copy
+
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    ref = copy.deepcopy(net).cuda().eval()
+    if weights is not None:
+        load_jax_params(ref, weights)
+    with torch.no_grad(), dispatch.forced("reference"):
+        out = ref(*[torch.from_numpy(a).cuda() for a in xs]).cpu().numpy()
+    del ref
+    return out
+
+
+def rec_serving(torch, eb, dq, kind, trained, root):
+    """The trained model served in f32, int8 and int4 from the bucket
+    graphs of a model warmed from a ``CompileCache`` that a first model
+    filled: WideAndDeep's requests (three inputs, one row each) through
+    ``DynamicBatcher`` from 8 threads, the SessionRecommender's through
+    ``recommend_for_session`` (256 sessions) and ``DynamicBatcher``;
+    the kernels' counts zeroed just before and read just after."""
+    import os
+
+    from analytics_zoo_tpu_torch.deploy import CompileCache, DynamicBatcher
+    from analytics_zoo_tpu_torch.deploy.inference import (dequantize_pytree,
+                                                          quantize_pytree)
+
+    m = rec_model(kind, trained)
+    n = 256
+    xs, _ = (wnd_data if kind == "wnd" else session_data)(n, SEED + 5)
+    plain = rec_reference(torch, m.model, xs)
+    out = {}
+    total = {"embedding_bag_fwd": 0, "dequant_matmul": 0}
+    for wd in ("float32", "int8", "int4"):
+        want = plain
+        if wd != "float32":
+            want = rec_reference(torch, m.model, xs, dequantize_pytree(
+                quantize_pytree(m.model.params(),
+                                bits=4 if wd == "int4" else 8)))
+        cache = CompileCache(os.path.join(root, f"{kind}_{wd}"))
+        cover = m.inference_model(weight_dtype=wd, batch_buckets=REC_BUCKETS,
+                                  name=f"{kind}_{wd}")
+        cover.attach_compile_cache(cache)
+        t0 = time.perf_counter()
+        for b in REC_BUCKETS:
+            for _ in range(2):          # eager, then captured
+                cover.predict([a[:b] for a in xs])
+        torch.cuda.synchronize()
+        cover_s = time.perf_counter() - t0
+        im = m.inference_model(weight_dtype=wd, batch_buckets=REC_BUCKETS,
+                               name=f"{kind}_{wd}")
+        im.attach_compile_cache(cache)
+        warmed = im.warm()
+        eb.LAUNCHES.reset()
+        dq.LAUNCHES.reset()
+        batcher = DynamicBatcher(im, max_batch=64, max_latency_ms=2.0)
+        t0 = time.perf_counter()
+        try:
+            got, lat = serve_requests(
+                batcher, [[a[r:r + 1] for a in xs] for r in range(n)], 8)
+        finally:
+            batcher.close()
+        wall = time.perf_counter() - t0
+        rec = None
+        if kind == "session":
+            t1 = time.perf_counter()
+            rec = m.recommend_for_session(xs, max_items=10)
+            rec_s = time.perf_counter() - t1
+        launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                    "dequant_matmul": dq.LAUNCHES.value}
+        for k in total:
+            total[k] += launches[k]
+        row_top = want.max(-1, keepdims=True)
+        err = float((np.abs(got - want) / row_top).max())
+        r = {"p50_ms": float(np.percentile(lat, 50)),
+             "p99_ms": float(np.percentile(lat, 99)),
+             "rows": n, "wall_s": wall, "rows_per_s": n / wall,
+             "compile_count": im.compile_count, "warmed": warmed,
+             "captured_cold": cover.compile_count, "cover_s": cover_s,
+             "launches": launches, "max_err_rel_row_top": err,
+             "tolerance": REC_SERVE_REL,
+             "top1_agreement": float(np.mean(got.argmax(-1)
+                                             == want.argmax(-1))),
+             "weight_bytes": im.weight_nbytes(),
+             "programs": programs_of(im._programs)}
+        bad = (im.compile_count != 0 or warmed != len(REC_BUCKETS)
+               or got.shape != want.shape or not np.all(np.isfinite(got))
+               or err > REC_SERVE_REL or not launches["embedding_bag_fwd"]
+               or bool(launches["dequant_matmul"]) != (wd != "float32"))
+        if rec is not None:
+            # the helper's top-10 are the plain forward's highest
+            tenth = np.sort(want, axis=-1)[:, -10]
+            r["recommend_for_session_s"] = rec_s
+            r["recommend_top10_ok"] = all(
+                len(row) == 10 and all(
+                    want[i, item] >= tenth[i] - REC_SERVE_REL * row_top[i, 0]
+                    for item, _ in row) for i, row in enumerate(rec))
+            bad = bad or not r["recommend_top10_ok"]
+        out[wd] = r
+        log(f"{'wide_and_deep' if kind == 'wnd' else 'session'}_serving",
+            wd, json.dumps(r))
+        if bad:
+            raise AssertionError(f"{kind} serving ({wd}) failed: {r}")
+        del cover, im
+        free_card(torch)
+    return out, total
+
+
+def recommender_kernel_cases(torch, eb, dq):
+    """Kernels 1-3 at the recommenders' shapes: the wide tower's (2000, 2)
+    table (f32, and bf16 as the bf16 step casts it) with 8192 bags of 2,
+    the deep columns, the session and history gathers; the backward at
+    the training shapes; the dequantize-matmul at the session head (K =
+    40, N = 37,484) per serving bucket, WideAndDeep's Dense layers and N
+    = 2."""
+    bag, bwd, dqc = [], [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        bag.append(bag_case(torch, eb, "wide_tower", 2000, 2, 8192, 2,
+                            "sum", None, dtype=dtype))
+    for vocab in (5001, 1001):
+        bag.append(bag_case(torch, eb, "wnd_deep_column", vocab, 64, 8192, 1,
+                            "sum", None))
+    bag.append(bag_case(torch, eb, "session_gather", 37484, 100, 10240, 1,
+                        "sum", None))
+    bag.append(bag_case(torch, eb, "history_gather", 37484, 100, 5120, 1,
+                        "sum", None))
+    bwd.append(bag_bwd_case(torch, eb, "wide_tower", 2000, 2, 8192, 2,
+                            "sum", None))
+    bwd.append(bag_bwd_case(torch, eb, "wnd_deep_column", 5001, 64, 8192, 1,
+                            "sum", None))
+    bwd.append(bag_bwd_case(torch, eb, "session_gather", 37484, 100, 10240,
+                            1, "sum", None))
+    for bits in (8, 4):
+        for m in REC_BUCKETS:
+            dqc.append(dq_case(torch, dq, "session_head", m, 40, 37484, bits,
+                               iters=50))
+    for k, n, bits in ((139, 100, 8), (100, 75, 4), (75, 50, 8),
+                       (50, 25, 4), (25, 2, 8), (26, 2, 4), (500, 40, 4)):
+        dqc.append(dq_case(torch, dq, "recommender_dense", 256, k, n, bits))
+    for c in bag + bwd + dqc:
+        log("kernel_case", json.dumps(c))
+    return bag, bwd, dqc
+
+
+def recommender_phase(torch, eb, dq, card):
+    """Phase 11: WideAndDeep (BASELINE config #4) and SessionRecommender
+    trained on the card (bf16, graphed) and served in three weight
+    forms."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="zoo_rec_")
+    paths = {}
+    summary = {"card": card}
+    try:
+        for kind, name, seed in (("wnd", "wide_and_deep", SEED + 11),
+                                 ("session", "session", SEED + 13)):
+            training, trained = rec_training(torch, eb, kind, seed)
+            serving, served = rec_serving(torch, eb, dq, kind, trained, root)
+            paths[f"{name}_training"] = training["timed"]["launches"]
+            paths[f"{name}_serving"] = served
+            summary[name] = {
+                "samples_per_s": training["timed"]["samples_per_s"],
+                "ms_per_step_device": training["timed"][
+                    "ms_per_step_device"],
+                "device_busy_share": training["timed"][
+                    "device_busy_share"],
+                "accuracy": training["accuracy"],
+                "graphed_vs_eager_l2_rel": training["graphed_vs_eager"][
+                    "params_l2_rel"],
+                "served_p50_ms": {k: v["p50_ms"] for k, v in serving.items()},
+                "served_rows_per_s": {k: v["rows_per_s"]
+                                      for k, v in serving.items()}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t0
+    log("recommender_summary", json.dumps(summary))
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 # The flash kernels' templates <T, DMAX, warps, m-tiles, tile rows / 8,
@@ -3971,6 +4423,10 @@ def main() -> int:
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
     dq_cases += resnet_head_cases(torch, dq)
+    rec_bag, rec_bwd, rec_dq = recommender_kernel_cases(torch, eb, dq)
+    bag_cases += rec_bag
+    bwd_cases += rec_bwd
+    dq_cases += rec_dq
     fl_cases = flash_cases(torch, fa)
     lse_cases, bwd_dq_cases, bwd_dkv_cases = flash_train_cases(torch, fa)
     for c in fl_cases + lse_cases + bwd_dq_cases + bwd_dkv_cases:
@@ -3987,39 +4443,46 @@ def main() -> int:
     cluster = cluster_serving_phase(torch, eb, dq, fa, card)
     reset_counts(eb, dq, fa)
     image = image_phase(torch, dq, card)
+    reset_counts(eb, dq, fa)
+    rec = recommender_phase(torch, eb, dq, card)
+    rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
+                 "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
                    "training": trained["embedding_bag_fwd"],
                    "bert_serving": bert["embedding_bag"],
                    "fault_tolerant_ncf": ft_ncf["embedding_bag_fwd"],
-                   "cluster_serving": cluster["embedding_bag_fwd"]}
+                   "cluster_serving": cluster["embedding_bag_fwd"],
+                   **{p: rec[p]["embedding_bag_fwd"] for p in rec_paths}}
+    bwd_by_path = {"training": trained["embedding_bag_bwd"],
+                   "fault_tolerant_ncf": ft_ncf["embedding_bag_bwd"],
+                   **{p: rec[p]["embedding_bag_bwd"] for p in rec_paths
+                      if p.endswith("_training")}}
+    dq_by_path = {"serving": served["dequant_matmul"],
+                  "training": trained["dequant_matmul"],
+                  "bert_serving": bert["dequant_matmul"],
+                  "cluster_serving": cluster["dequant_matmul"],
+                  "resnet50_serving": image["dequant_matmul"],
+                  **{p: rec[p]["dequant_matmul"] for p in rec_paths
+                     if p.endswith("_serving")}}
     kernels = [
         headline(bag_cases, "embedding_bag_fwd", "cuda", BAG_SRC, BAG_TPU,
                  sum(fwd_by_path.values()),
                  lambda c: c["vocab"] == USERS + 1 and c["bags"] == 256),
         headline(bwd_cases, "embedding_bag_bwd", "cuda", BAG_SRC,
-                 BAG_BWD_TPU, trained["embedding_bag_bwd"]
-                 + ft_ncf["embedding_bag_bwd"],
+                 BAG_BWD_TPU, sum(bwd_by_path.values()),
                  lambda c: c["vocab"] == USERS + 1),
         headline(dq_cases, "dequant_matmul", "cuda", DQ_SRC, DQ_TPU,
-                 served["dequant_matmul"] + cluster["dequant_matmul"]
-                 + image["dequant_matmul"],
+                 sum(dq_by_path.values()),
                  lambda c: c["m"] == 256 and c["bits"] == 8),
     ]
     kernels[0]["launches_by_path"] = fwd_by_path
-    kernels[1]["launches_by_path"] = {
-        "training": trained["embedding_bag_bwd"],
-        "fault_tolerant_ncf": ft_ncf["embedding_bag_bwd"]}
+    kernels[1]["launches_by_path"] = bwd_by_path
     dq_f32 = [c for c in dq_cases if c["dtype"] == "float32"]
     kernels[2]["max_abs_err"] = max(c["max_abs_err"] for c in dq_f32)
     kernels[2]["max_rel_err"] = max(c["max_rel_err"] for c in dq_f32)
     kernels[2]["max_abs_err_half"] = max(c["max_abs_err"] for c in dq_cases
                                          if c["dtype"] != "float32")
-    kernels[2]["launches_by_path"] = {
-        "serving": served["dequant_matmul"],
-        "training": trained["dequant_matmul"],
-        "bert_serving": bert["dequant_matmul"],
-        "cluster_serving": cluster["dequant_matmul"],
-        "resnet50_serving": image["dequant_matmul"]}
+    kernels[2]["launches_by_path"] = dq_by_path
     fwd_paths = {"bert_serving": bert["flash_attention"],
                  "bert_training_no_grad": bert_eval["flash_attention_fwd"],
                  "fault_tolerant_no_grad": ft_bert_launches[

@@ -494,17 +494,17 @@ def test_unported_branches_raise():
     x = torch.zeros(1, 4, 8)
     mha = MultiHeadAttention(2, 8, seq_shards=2, name="mha_ring")
     mha.build(torch.Generator(), (1, 4, 8))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A9"):
         mha.eval()(x)
     context.init_zoo_context(seq_shards=4)
     mha = MultiHeadAttention(2, 8, name="mha_knob")
     mha.build(torch.Generator(), (1, 4, 8))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A9"):
         mha.eval()(x)
     reset_name_scope()
     net = BERTClassifier(2, bert_config=dict(vocab=20, n_block=1))
     for sharding in ("sp", "pp"):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="A9"):
             net.compile("adam", "sparse_categorical_crossentropy",
                         device="cpu", sharding=sharding)
 

@@ -1828,3 +1828,199 @@ def test_resnet_fit_graphed_matches_eager_on_card(cuda_device,
     assert _tree_rel_diff(got_p, want_p) <= 1e-6
     assert _tree_rel_diff(got_s, want_s) <= 1e-6
     assert _tree_rel_diff(got_s, init[1]) > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the other recommenders: WideAndDeep and SessionRecommender
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bag_kernels_at_the_wide_tower_shape_on_card(cuda_device, dtype):
+    """WideAndDeep's wide tower: a (2000, 2) table, 8192 bags of 2 ids,
+    no pad id.  Its rows are 8 bytes (f32) or 4 (bf16), the narrowest
+    lane layout the forward has: one piece per row.  Forward within
+    1e-5 (f32) or 2^-7 of |plain| (bf16: one rounding of an f32 sum on
+    each side); the backward's 16,384 contributions to 2000 rows within
+    1e-6 + 1e-5 of their summed magnitude (f32 atomics in a free
+    order)."""
+    dt = getattr(torch, dtype)
+    table, ids = _bag_inputs(2000, 2, 8192, 2, None, seed=11)
+    t = torch.from_numpy(table).to(cuda_device).to(dt)
+    i = torch.from_numpy(ids).to(cuda_device)
+    assert teb.piece_bytes(t.element_size(), 2, t.data_ptr()) == (
+        8 if dtype == "float32" else 4)
+    n0 = teb.LAUNCHES.value
+    got = teb.embedding_bag(t, i, "sum", None)
+    torch.cuda.synchronize()
+    assert teb.LAUNCHES.value == n0 + 1 and got.dtype == dt
+    want = teb.embedding_bag_reference(t, i, "sum", None)
+    err = (got.double() - want.double()).abs()
+    rtol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    assert bool(torch.all(err <= 1e-5 + rtol * want.double().abs()))
+    g = torch.randn(8192, 2, device=cuda_device)
+    b0 = teb.BWD_LAUNCHES.value
+    dtab = teb.embedding_bag_backward(2000, i, g, "sum", None)
+    torch.cuda.synchronize()
+    assert teb.BWD_LAUNCHES.value == b0 + 1
+    ref = teb.embedding_bag_backward_reference(2000, i, g, "sum", None)
+    mass = teb.embedding_bag_backward_reference(2000, i, g.abs(), "sum",
+                                                None)
+    assert bool(torch.all((dtab - ref).abs() <= 1e-6 + 1e-5 * mass))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bits", [
+    (64, 40, 37484, 8), (64, 40, 37484, 4), (1, 40, 37484, 8),
+    (64, 25, 2, 8), (64, 26, 2, 4), (256, 139, 100, 8), (256, 100, 75, 4)])
+def test_dq_kernel_at_the_recommender_shapes_on_card(cuda_device, m, k, n,
+                                                     bits):
+    """Kernel 3 at the session head (K = 40, N = 37,484: ``dq_wgmma`` at
+    M = 64, K under one wgmma K tile), at N = 2 (under any tile) and at
+    WideAndDeep's first two Dense layers (K = 139 and 100), against its
+    plain version within 1e-4 of the largest |plain| (K-long f32 sums in
+    another order)."""
+    x, q, s = _dq_inputs(cuda_device, m, k, n, bits, torch.float32,
+                         seed=m + k + n)
+    n0 = tdq.LAUNCHES.value
+    got = tdq.dequant_matmul(x, q, s, bits=bits, rows=k)
+    torch.cuda.synchronize()
+    assert tdq.LAUNCHES.value == n0 + 1
+    want = tdq.dequant_matmul_reference(x, q, s, bits=bits, rows=k)
+    top = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * top
+
+
+def _recurrent_cases():
+    from analytics_zoo_tpu_torch.nn.layers import core, recurrent as r
+
+    return {
+        "gru_seq": (lambda: r.GRU(40, return_sequences=True), (64, 10, 100)),
+        "gru_last": (lambda: r.GRU(20), (64, 10, 40)),
+        "lstm_back": (lambda: r.LSTM(32, go_backwards=True), (16, 8, 24)),
+        "simple_rnn": (lambda: r.SimpleRNN(16, return_sequences=True),
+                       (16, 8, 24)),
+        "bidirectional": (lambda: r.Bidirectional(
+            r.GRU(16, return_sequences=True)), (16, 8, 24)),
+        "highway": (lambda: r.Highway(), (32, 48)),
+        "time_distributed": (lambda: r.TimeDistributed(core.Dense(12)),
+                             (16, 8, 24)),
+        "convlstm2d": (lambda: r.ConvLSTM2D(8, 3, return_sequences=True),
+                       (4, 5, 9, 9, 3)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["gru_seq", "gru_last", "lstm_back",
+                                  "simple_rnn", "bidirectional", "highway",
+                                  "time_distributed", "convlstm2d"])
+def test_recurrent_layers_on_card_match_cpu(cuda_device, case, dtype):
+    """Each recurrent layer on the card against its f32 form on the CPU,
+    on the same inputs (rounded to bf16 first in the bf16 case, with the
+    weights cast to bf16 as ``compute_dtype="bfloat16"`` casts them):
+    the forward and the input gradient of a seeded projection.  f32
+    within 1e-5 of the largest |value| (sums in another order).  bf16:
+    the forward within 2^-6 of it (the hoisted projection rounds to bf16
+    once, the carry stays f32); the input gradient within 2^-4 of it
+    (the backward rounds the projection's gradient to bf16 and sums G·H
+    products of bf16 factors into each element, with cancellation:
+    2.1% of the largest |value| seen for the GRU on an H100)."""
+    import copy
+
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.nn.module import cast_floats
+
+    torch.backends.cudnn.allow_tf32 = False
+    make, shape = _recurrent_cases()[case]
+    dt = getattr(torch, dtype)
+    tols = ((1e-5, 1e-5) if dtype == "float32"
+            else (2.0 ** -6, 2.0 ** -4))
+    reset_name_scope()
+    cpu = make()
+    cpu.build(torch.Generator().manual_seed(0), shape)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dt)
+    proj = torch.from_numpy(rs.randn(*cpu.output_shape(shape)).astype(
+        np.float32))
+
+    def run(layer, x, cast):
+        x = x.clone().requires_grad_(True)
+        weights = cast_floats(layer, cast) if cast is not None else None
+        out = (torch.func.functional_call(layer, weights, (x,))
+               if weights is not None else layer(x))
+        (gx,) = torch.autograd.grad((out.float() * proj.to(x.device))
+                                    .sum(), [x])
+        return out.detach(), gx
+
+    got, g_got = run(card, x.to(cuda_device),
+                     dt if dtype == "bfloat16" else None)
+    want, g_want = run(cpu, x.float(), None)
+    for a, b, what, tol in ((got, want, "forward", tols[0]),
+                            (g_got, g_want, "grad", tols[1])):
+        b = b.float()
+        top = max(float(b.abs().max()), 1e-6)
+        err = float((a.float().cpu() - b).abs().max())
+        print(f"{case} {dtype} {what}: {err / top:.3e} of the largest")
+        assert err <= tol * top, (case, dtype, what, err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_wide_and_deep_fit_graphed_matches_eager_on_card(cuda_device,
+                                                         compute_dtype):
+    """A census-shaped WideAndDeep (narrow deep tower) trained from a
+    device-resident FeatureSet, K = 4 steps per graph replay, for two
+    epochs of 8 steps, against graphs off: losses and every leaf within
+    1e-6 relative (the bag backward's atomics add the wide table's
+    duplicate ids in a free order: 8,192 contributions to 2,000 rows per
+    step).  Each step launches the bag forward and backward three times:
+    the wide bag and the two embed columns."""
+    from analytics_zoo_tpu_torch.convert import export_params, load_jax_params
+    from analytics_zoo_tpu_torch.core import context, graphs
+    from analytics_zoo_tpu_torch.data import CacheLevel, FeatureSet
+    from analytics_zoo_tpu_torch.models import WideAndDeep
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    kw = dict(class_num=2, wide_base_dims=(1000, 1000),
+              embed_in_dims=(5000, 1000), embed_out_dims=(16, 16),
+              continuous_cols=11, hidden_layers=(32, 16), device=cuda_device)
+    rs = np.random.RandomState(0)
+    n = 4096
+    wide = np.stack([rs.randint(0, 1000, n), rs.randint(1000, 2000, n)],
+                    1).astype(np.int32)
+    embed = np.stack([rs.randint(0, 5001, n), rs.randint(0, 1001, n)],
+                     1).astype(np.int32)
+    cont = rs.randn(n, 11).astype(np.float32)
+    y = ((wide[:, 0] + wide[:, 1]) % 2).astype(np.int32)
+    fs = FeatureSet.from_ndarrays([wide, embed, cont], y).cache(
+        CacheLevel.DEVICE)
+    reset_name_scope()
+    init = export_params(WideAndDeep(**kw).model)
+
+    def run():
+        reset_name_scope()
+        m = WideAndDeep(**kw)
+        load_jax_params(m.model, init)
+        m.compile("adam", "sparse_categorical_crossentropy",
+                  compute_dtype=compute_dtype)
+        hist = m.fit(fs, batch_size=512, epochs=2, verbose=False)
+        return [h["loss"] for h in hist], export_params(m.model), m.estimator
+
+    context.init_zoo_context(steps_per_execution=4)
+    try:
+        f0, b0 = teb.LAUNCHES.value, teb.BWD_LAUNCHES.value
+        loss, got, est = run()
+        assert est.last_data_path == "device_resident"
+        assert teb.LAUNCHES.value - f0 == 3 * 16
+        assert teb.BWD_LAUNCHES.value - b0 == 3 * 16
+        assert est._programs and all(p.graph.captured
+                                     for p in est._programs.values())
+        with graphs.disabled():
+            eager_loss, want, _ = run()
+    finally:
+        context.set_zoo_context(None)
+    np.testing.assert_allclose(loss, eager_loss, rtol=1e-6)
+    assert loss[1] < loss[0]
+    assert _tree_rel_diff(got, want) <= 1e-6

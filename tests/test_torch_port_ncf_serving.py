@@ -366,7 +366,8 @@ def test_graph_and_sequential_build_shapes():
 
 def test_port_imports_no_jax():
     """Training and serving NCF, serving BERTClassifier, ClusterServing
-    and the bf16 codec, through the port, load neither jax, ml_dtypes nor
+    and the bf16 codec, and training and serving a small WideAndDeep and
+    SessionRecommender, through the port, load neither jax, ml_dtypes nor
     the JAX package."""
     code = (
         "import sys, numpy as np\n"
@@ -409,6 +410,25 @@ def test_port_imports_no_jax():
         " device='cpu', preprocess=imagenet_preprocess())\n"
         "out = im.predict(np.zeros((2, 32, 32, 3), np.uint8))\n"
         "assert out.shape == (2, 3) and out.dtype == np.float32\n"
+        "from analytics_zoo_tpu_torch.models import (SessionRecommender,"
+        " WideAndDeep)\n"
+        "wnd = WideAndDeep(2, wide_base_dims=(5, 5), embed_in_dims=(9,),"
+        " embed_out_dims=(4,), continuous_cols=2, hidden_layers=(8,),"
+        " device='cpu')\n"
+        "wx = [np.ones((8, 2), np.int32), np.ones((8, 1), np.int32),"
+        " np.ones((8, 2), np.float32)]\n"
+        "wnd.compile('adam', 'sparse_categorical_crossentropy')\n"
+        "wnd.fit(wx, np.ones(8, np.int32), batch_size=8, epochs=1,"
+        " verbose=False)\n"
+        "assert wnd.inference_model(weight_dtype='int8').predict(wx)"
+        ".shape == (8, 2)\n"
+        "sr = SessionRecommender(30, item_embed=8, rnn_hidden_layers=(6,),"
+        " session_length=3, device='cpu')\n"
+        "sx = np.ones((8, 3), np.int32)\n"
+        "sr.compile('adam', 'sparse_categorical_crossentropy')\n"
+        "sr.fit(sx, np.ones(8, np.int32), batch_size=8, epochs=1,"
+        " verbose=False)\n"
+        "assert len(sr.recommend_for_session(sx[:2], max_items=3)[1]) == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')"
         " or m == 'ml_dtypes']\n"
