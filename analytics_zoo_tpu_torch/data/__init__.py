@@ -1,12 +1,19 @@
-"""Host datasets: ``FeatureSet`` with HOST / DEVICE cache levels and the
-MovieLens readers."""
+"""Host datasets: ``FeatureSet`` with HOST / DEVICE cache levels, the
+MovieLens and text-corpus readers and the text pipeline (``TextSet``)."""
 
 from analytics_zoo_tpu_torch.data.datasets import (  # noqa: F401
     generate_movielens_like,
+    generate_text_classification,
     movielens_featureset,
     read_movielens_1m,
+    read_text_folder,
 )
 from analytics_zoo_tpu_torch.data.featureset import (  # noqa: F401
     CacheLevel,
     FeatureSet,
+)
+from analytics_zoo_tpu_torch.data.text import (  # noqa: F401
+    TextFeature,
+    TextSet,
+    load_glove_embeddings,
 )

@@ -1,17 +1,19 @@
-"""MovieLens readers, copied from the JAX package's ``data/datasets.py``
-(numpy only): the ml-1m ``ratings.dat`` parser, its MovieLens-1M-shaped
-synthetic stand-in, and both as an Estimator-ready ``FeatureSet``.
+"""Readers copied from the JAX package's ``data/datasets.py`` (numpy
+only): the ml-1m ``ratings.dat`` parser, its MovieLens-1M-shaped
+synthetic stand-in, and both as an Estimator-ready ``FeatureSet``; the
+folder-per-class text corpus reader and its synthetic stand-in.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 __all__ = ["read_movielens_1m", "generate_movielens_like",
-           "movielens_featureset"]
+           "movielens_featureset", "read_text_folder",
+           "generate_text_classification"]
 
 
 def read_movielens_1m(path: str) -> Tuple[np.ndarray, np.ndarray,
@@ -67,3 +69,43 @@ def movielens_featureset(path: Optional[str] = None,
     return FeatureSet.from_ndarrays(
         [users[:, None].astype(np.int32), items[:, None].astype(np.int32)],
         ratings, cache_level=cache_level)
+
+
+def read_text_folder(path: str, encoding: str = "utf-8"
+                     ) -> Tuple[List[str], np.ndarray, Dict[str, int]]:
+    """Folder-per-class corpus -> (texts, labels (0-based), class_map)."""
+    classes = sorted(d for d in os.listdir(path)
+                     if os.path.isdir(os.path.join(path, d)))
+    class_map = {c: i for i, c in enumerate(classes)}
+    texts, labels = [], []
+    for c in classes:
+        cdir = os.path.join(path, c)
+        for fn in sorted(os.listdir(cdir)):
+            fp = os.path.join(cdir, fn)
+            if not os.path.isfile(fp):
+                continue
+            with open(fp, encoding=encoding, errors="replace") as f:
+                texts.append(f.read())
+            labels.append(class_map[c])
+    return texts, np.asarray(labels, np.int64), class_map
+
+
+def generate_text_classification(n_classes: int = 4, per_class: int = 50,
+                                 seed: int = 0
+                                 ) -> Tuple[List[str], np.ndarray]:
+    """Synthetic folder-corpus stand-in: each class has a distinctive
+    keyword vocabulary, so classifiers can actually learn."""
+    rs = np.random.RandomState(seed)
+    common = ["the", "a", "of", "and", "to", "in", "it", "is"]
+    themes = [[f"w{c}_{k}" for k in range(12)] for c in range(n_classes)]
+    texts, labels = [], []
+    for c in range(n_classes):
+        for _ in range(per_class):
+            n = rs.randint(12, 30)
+            words = [
+                themes[c][rs.randint(len(themes[c]))]
+                if rs.rand() < 0.55 else common[rs.randint(len(common))]
+                for _ in range(n)]
+            texts.append(" ".join(words))
+            labels.append(c)
+    return texts, np.asarray(labels, np.int64)

@@ -3,6 +3,14 @@ from analytics_zoo_tpu_torch.nn.layers.core import (  # noqa: F401
     Dense,
     Dropout,
     Flatten,
+    GaussianSampler,
+    InputLayer,
+    Lambda,
+    Masking,
+    MaxoutDense,
+    Permute,
+    RepeatVector,
+    Reshape,
 )
 from analytics_zoo_tpu_torch.nn.layers.convolutional import (  # noqa: F401
     AtrousConvolution1D,

@@ -5,6 +5,7 @@ the batch, with the same clips (1e-7) and label handling.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Union
 
 import torch
@@ -143,14 +144,42 @@ def squared_hinge(y_true, y_pred):
                                                min=0.0)))
 
 
-def rank_hinge(y_true, y_pred, margin: float = 1.0):
-    """Pairwise ranking hinge over (pos, neg) interleaved rows."""
-    per_pair = torch.clamp(margin - y_pred[0::2] + y_pred[1::2], min=0.0)
-    return torch.mean(per_pair)
+def _pairs(rows: torch.Tensor) -> tuple:
+    """The (even, odd) rows of the complete pairs: an odd last row has no
+    partner and is in neither."""
+    n = 2 * (rows.shape[0] // 2)
+    return rows[0:n:2], rows[1:n:2]
+
+
+def _pair_mask(mask) -> torch.Tensor:
+    """1 for each complete pair whose two rows are both real."""
+    a, b = _pairs(torch.as_tensor(mask))
+    return a * b
+
+
+def rank_hinge(y_true, y_pred, margin: float = 1.0, mask=None):
+    """Pairwise ranking hinge over (pos, neg) interleaved rows.
+
+    ``mask`` is a per-row validity vector (B,): a pair counts only when
+    both its rows are real, so the rows past the end of a short last
+    batch are left out exactly, as in the JAX package.  An odd last row
+    has no partner and never counts."""
+    pos, neg = _pairs(y_pred)
+    per_pair = torch.clamp(margin - pos + neg, min=0.0)
+    if mask is None:
+        return torch.mean(per_pair)
+    pair_mask = _pair_mask(mask).to(per_pair.dtype).reshape(
+        (-1,) + (1,) * (per_pair.ndim - 1))
+    denom = torch.clamp(torch.sum(pair_mask), min=1.0) * math.prod(
+        per_pair.shape[1:])
+    return torch.sum(per_pair * pair_mask) / denom
 
 
 # couples rows across the batch: shuffles keep (pos, neg) pairs together
 rank_hinge.batch_structured = True
+# takes mask=; its unit of aggregation is the pair
+rank_hinge.supports_mask = True
+rank_hinge.mask_count = lambda mask: torch.sum(_pair_mask(mask))
 
 
 _REGISTRY = {

@@ -693,7 +693,8 @@ class Estimator:
         ``TrainingPreempted``.
         """
         from analytics_zoo_tpu_torch.data.featureset import FeatureSet
-        from analytics_zoo_tpu_torch.nn.layers.core import Dropout
+        from analytics_zoo_tpu_torch.nn.layers.core import (Dropout,
+                                                            GaussianSampler)
 
         cfg = self.ctx.config
         if cfg.nan_policy not in NAN_POLICIES:
@@ -706,7 +707,9 @@ class Estimator:
             self._host_rng = np.random.RandomState(cfg.seed)
             self._pending_resume = None
         self._preempt.clear()
-        dropouts = [m for m in self.model.modules() if isinstance(m, Dropout)]
+        # the layers that draw from the fit's generator
+        dropouts = [m for m in self.model.modules()
+                    if isinstance(m, (Dropout, GaussianSampler))]
         restore_sig = self._install_preempt_handler()
         try:
             if isinstance(x, FeatureSet):
@@ -1238,6 +1241,23 @@ class Estimator:
             return a[sl].to(self.device)
         return self._to_device(np.asarray(a)[sl])
 
+    def _loss_stats(self, y, preds, rows: int) -> dict:
+        """One batch's loss sum and its count of units.  A loss that
+        couples rows and takes a mask (``rank_hinge``) is weighted by its
+        own unit count (pairs), and a pair it cannot complete in the batch
+        counts for nothing, as the JAX package's masked evaluation counts
+        it; any other loss by its rows."""
+        fn = self.loss_fn
+        if getattr(fn, "batch_structured", False) and getattr(
+                fn, "supports_mask", False):
+            mask = torch.ones((rows,), dtype=torch.float32,
+                              device=self.device)
+            count = (fn.mask_count(mask) if getattr(fn, "mask_count", None)
+                     else torch.sum(mask))
+            return {"sum": fn(y, preds, mask=mask) * count, "count": count}
+        return {"sum": fn(y, preds) * rows,
+                "count": torch.full((), float(rows), device=self.device)}
+
     def evaluate(self, x, y=None, batch_size: int = 32) -> Dict[str, float]:
         """Loss and metrics over every row (the last batch may be short);
         statistics sum on the device and are read back once."""
@@ -1252,10 +1272,8 @@ class Estimator:
                 sl = slice(s * batch_size, min((s + 1) * batch_size, n))
                 preds = forward(*[self._rows(a, sl) for a in xs])
                 by = self._rows(y, sl)
-                rows = sl.stop - sl.start
-                stats = {"loss": {"sum": self.loss_fn(by, preds) * rows,
-                                  "count": torch.full((), float(rows),
-                                                      device=self.device)}}
+                stats = {"loss": self._loss_stats(by, preds,
+                                                  sl.stop - sl.start)}
                 for m in self.metrics:
                     stats[m.name] = m.update(by, preds)
                 agg = stats if agg is None else {

@@ -322,7 +322,49 @@
    40, N = 37,484, M = 1 ... 256), WideAndDeep's Dense layers and N = 2.
    ``wide_and_deep_*``, ``session_*`` and ``recommender_summary`` lines
    carry the numbers, with the card's name and power limit.
-12. Prints the kernels JSON line and, last, the ok line.
+12. Text phase.  TextClassifier at the JAX defaults, which follow the
+   reference TextClassifier.scala (``TEXT_CONFIG``: a 5001 x 200 table,
+   T = 500, 256 filters of width 5, 20 classes as 20 Newsgroups), trains
+   as the reference example does (batch 128; Adam 1e-3 as the JAX
+   example; bf16, K = 8 steps per graph) on the smoke's corpus
+   (``TEXT_CORPUS``, the smoke's choice: 16,384 documents of 100-500 Zipf
+   word ids with per-class theme words, front-padded to 500 with id 0, a
+   held-out eighth): untimed epochs, timed epochs with the bag kernels'
+   counts read around them, one profiled epoch; the loss must fall, the
+   held-out accuracy reach 0.9; a graphed and an eager f32 run of 24
+   steps from one init agree within ``TEXT_GRAPHED_REL`` of their
+   movement (L2; kernel 2's atomics on the padding row have no fixed
+   order, so they are not bit-equal), and of two epochs, f32 and bf16,
+   in their last epoch's loss within ``TEXT_GRAPHED_LOSS_REL``.  The
+   LSTM and GRU encoders at the same widths train graphed in bf16 over
+   T = 500 on 2,048 rows (``TEXT_RNN_TRAIN``, the smoke's choice), the
+   second of two epochs timed, one eager step profiled for its kernels.
+   All three are served in f32, int8 and int4 from bucket graphs (1, 8,
+   64, 128) warmed from a ``CompileCache`` (``compile_count`` 0): 256
+   one-row requests from 8 threads through ``DynamicBatcher``, each
+   answer within
+   ``TEXT_SERVE_REL`` of the row's largest |logit| of the plain f32
+   forward on the card (int8 / int4 against the dequantized tree), kernel
+   1 launching in every form and kernel 3 in int8 / int4 only; then the
+   int8 CNN behind ``ClusterServing`` over a ``ShmQueue`` with int32 id
+   records, every record answered within ``CLUSTER_TOL``.  KNRM at the
+   reference qaranker example's lengths (``KNRM_CONFIG``; vocabulary the
+   smoke's choice) trains with rank_hinge on synthetic (pos, neg) pairs;
+   ``Ranker`` NDCG@3 and MAP on held-out lists must reach 0.9, and
+   ``evaluate`` on 1,001 rows equal the masked rule.  Seq2seq (the
+   smoke's widths, ``SEQ2SEQ_CONFIG``) trains on the JAX test's copy
+   task; greedy and beam decoding (beam 4, stop sign, length penalty 0.6)
+   from graphs give the plain versions' tokens and scores within
+   ``SEQ2SEQ_SCORE_TOL``; greedy decoding from int8 weights runs kernel 3
+   at every step.  AnomalyDetector at the JAX defaults trains on a sine
+   series and flags the spikes of a held-out continuation.  The kernel
+   phase adds kernel 1 at the classifier's gather (f32 and bf16 tables),
+   kernel 2 at its backward (front-padded, and Zipf without padding) and
+   kernel 3 at ``tc_fc``, ``tc_out`` and the Seq2seq generator (M = 1,
+   8, 64, 128).  ``text_*``, ``knrm``, ``seq2seq``, ``anomaly`` and
+   ``text_summary`` lines carry the numbers, with the card's name and
+   power limit.
+13. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -506,11 +548,13 @@ def kernel_events(torch, prof):
 
 
 def bag_case(torch, eb, label, vocab, dim, bags, nnz, combiner, pad_id,
-             clip=False, iters=200, dtype=None, zipf=False, offset=0):
+             clip=False, iters=200, dtype=None, zipf=False, offset=0,
+             ids=None):
     """The bag forward kernel against its plain version.  ``dtype`` is
     the table's (f32 by default); ``zipf`` draws the ids from
-    ``zipf_ids``; ``offset`` places the table that many elements into its
-    buffer (rows off 16 bytes: narrower pieces).  Tolerance: f32 rtol
+    ``zipf_ids``; ``ids`` (a (bags, nnz) int32 CUDA tensor) gives them;
+    ``offset`` places the table that many elements into its buffer (rows
+    off 16 bytes: narrower pieces).  Tolerance: f32 rtol
     1e-5 / atol 1e-5 elementwise; bf16 and f16 2^-7 or 2^-10 of |plain|
     (both sides round an f32 sum once into the table's type, and may land
     one unit apart) plus 1e-5 of the summed magnitude of the terms.  The
@@ -525,9 +569,10 @@ def bag_case(torch, eb, label, vocab, dim, bags, nnz, combiner, pad_id,
     def make_table():
         return buf.to(dtype).clone()[offset:].view(vocab, dim)
     table = make_table()
-    if zipf:
+    ids_given = ids is not None
+    if not ids_given and zipf:
         ids = zipf_ids(torch, g, vocab, (bags, nnz))
-    else:
+    elif not ids_given:
         lo, hi = (-vocab // 8, vocab + vocab // 8) if clip else (0, vocab)
         ids = torch.randint(lo, hi, (bags, nnz), device="cuda", generator=g,
                             dtype=torch.int32)
@@ -559,7 +604,8 @@ def bag_case(torch, eb, label, vocab, dim, bags, nnz, combiner, pad_id,
     case = {
         "case": label, "vocab": vocab, "dim": dim, "bags": bags,
         "nnz": nnz, "combiner": combiner, "pad_id": pad_id, "clip": clip,
-        "zipf": zipf, "dtype": str(dtype).replace("torch.", ""),
+        "zipf": zipf, "given_ids": ids_given,
+        "dtype": str(dtype).replace("torch.", ""),
         "piece_bytes": eb.piece_bytes(elem, dim, table.data_ptr()),
         "distinct_rows": rows,
         "max_abs_err": float(err.max()),
@@ -600,15 +646,16 @@ def zipf_ids(torch, gen, vocab, shape, s=1.0):
 
 
 def bag_bwd_case(torch, eb, label, vocab, dim, bags, nnz, combiner,
-                 pad_id, clip=False, zipf=False, iters=200):
-    """The backward kernel against its plain version.  A table of 2^31
-    elements or more also gets ids at both of its ends and at the first
-    row past 2^31 elements; its 8 GiB buffers are freed before the
-    timings."""
+                 pad_id, clip=False, zipf=False, iters=200, ids=None):
+    """The backward kernel against its plain version (``ids``, a (bags,
+    nnz) int32 CUDA tensor, gives the ids).  A table of 2^31 elements or
+    more also gets ids at both of its ends and at the first row past
+    2^31 elements; its 8 GiB buffers are freed before the timings."""
     g_ = torch.Generator(device="cuda").manual_seed(SEED + 7 * vocab + nnz)
-    if zipf:
+    ids_given = ids is not None
+    if not ids_given and zipf:
         ids = zipf_ids(torch, g_, vocab, (bags, nnz))
-    else:
+    elif not ids_given:
         lo, hi = (-vocab // 8, vocab + vocab // 8) if clip else (0, vocab)
         ids = torch.randint(lo, hi, (bags, nnz), device="cuda",
                             generator=g_, dtype=torch.int32)
@@ -647,7 +694,8 @@ def bag_bwd_case(torch, eb, label, vocab, dim, bags, nnz, combiner,
     case = {
         "case": label, "vocab": vocab, "dim": dim, "bags": bags,
         "nnz": nnz, "combiner": combiner, "pad_id": pad_id, "clip": clip,
-        "zipf": zipf, "live_slots": n_live, "distinct_rows": rows,
+        "zipf": zipf, "given_ids": ids_given, "live_slots": n_live,
+        "distinct_rows": rows,
         "table_elements": vocab * dim,
         "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
         **bound(4 * (vocab * dim + bags * dim + bags * nnz),
@@ -2879,8 +2927,10 @@ CLUSTER_NCF, CLUSTER_BERT, CLUSTER_L, CLUSTER_TOP_N = 4096, 64, 128, 2
 CLUSTER_BAD = {"bad_fields": ("malformed",),
                "bad_ttl": ("expired", "overloaded")}
 # NCF answers against the plain versions: phase 3's atol on probabilities;
-# BERT: phase 5's bound on a logit
-CLUSTER_TOL = {"ncf": 1e-5, "bert": 1e-3}
+# BERT: phase 5's bound on a logit; the text phase's int8 TextClassifier:
+# on a logit (kernel 3 against its plain version, 1e-4 of logits of up to
+# about 10)
+CLUSTER_TOL = {"ncf": 1e-5, "bert": 1e-3, "text": 1e-3}
 CLUSTER_STAGES = ("queue_wait", "decode", "batch_wait", "device", "respond",
                   "e2e")
 
@@ -3900,10 +3950,22 @@ def rec_model(kind, init=None):
 def rec_leg(torch, eb, kind, init, xs, y, epochs, graphed, timed=0):
     """``kind`` ("wnd" or "session") from ``init`` trained ``epochs``
     epochs on device-resident ``xs``, ``y`` at its configuration (bf16,
-    K steps per dispatch), graphed or eager.  With ``timed``, the last
-    ``timed`` epochs are timed, the bag kernels' counts zeroed just
-    before them and read just after, and one more epoch runs under
-    ``torch.profiler``."""
+    K steps per dispatch), graphed or eager (``fit_leg``)."""
+    cfg = WND_TRAIN if kind == "wnd" else SESSION_TRAIN
+    return fit_leg(torch, eb, rec_model(kind, init), cfg,
+                   "sparse_categorical_crossentropy", [cfg["metric"]], xs, y,
+                   epochs, graphed, timed=timed)
+
+
+def fit_leg(torch, eb, m, cfg, loss, metrics, xs, y, epochs, graphed,
+            timed=0, compute_dtype="bfloat16", profile_epoch=True):
+    """The model ``m`` trained ``epochs`` epochs on ``xs``, ``y`` at
+    ``cfg``'s batch, learning rate (Adam) and K steps per dispatch,
+    graphed or eager.  With ``timed``, the last ``timed`` epochs are
+    timed, the bag kernels' counts zeroed just before them and read just
+    after, and (``profile_epoch``) one more epoch runs under
+    ``torch.profiler``.  Returns the model, the leg's numbers and its
+    trained weights."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -3913,12 +3975,10 @@ def rec_leg(torch, eb, kind, init, xs, y, epochs, graphed, timed=0):
     from analytics_zoo_tpu_torch.core.context import init_zoo_context
     from analytics_zoo_tpu_torch.train.optimizers import Adam
 
-    cfg = WND_TRAIN if kind == "wnd" else SESSION_TRAIN
     init_zoo_context(steps_per_execution=cfg["k"])
-    m = rec_model(kind, init)
-    m.compile(Adam(lr=cfg["lr"]), "sparse_categorical_crossentropy",
-              metrics=[cfg["metric"]], compute_dtype="bfloat16")
-    steps = cfg["rows"] // cfg["batch"]
+    m.compile(Adam(lr=cfg["lr"]), loss, metrics=metrics,
+              compute_dtype=compute_dtype)
+    steps = int(xs[0].shape[0]) // cfg["batch"]
     out = {"graphed": graphed}
     ctx = contextlib.nullcontext() if graphed else graphs.disabled()
     try:
@@ -3945,6 +4005,7 @@ def rec_leg(torch, eb, kind, init, xs, y, epochs, graphed, timed=0):
                 ms = 1e3 * wall / (timed * steps)
                 out.update({"ms_per_step_wall": ms,
                             "samples_per_s": cfg["batch"] / (ms / 1e3)})
+            if timed and profile_epoch:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     t1 = time.perf_counter()
@@ -3952,30 +4013,34 @@ def rec_leg(torch, eb, kind, init, xs, y, epochs, graphed, timed=0):
                           epochs=epochs + 1, verbose=False)
                     torch.cuda.synchronize()
                     prof_wall = time.perf_counter() - t1
-                events = kernel_events(torch, prof)
-                busy = sum(device_us(e) for e in events) / 1e3
-                top = sorted(events, key=device_us, reverse=True)[:8]
-                by_kind = {}
-                for e in events:
-                    kind_of = next((k for k, words in REC_KERNEL_KINDS
-                                    if any(w in e.key.lower()
-                                           for w in words)), "other")
-                    by_kind[kind_of] = (by_kind.get(kind_of, 0.0)
-                                        + device_us(e) / 1e3 / steps)
-                out.update({
-                    "ms_per_step_device": busy / steps,
-                    "device_ms_per_step_by_kind": by_kind,
-                    "kernels_per_step": sum(e.count for e in events) / steps,
-                    "device_busy_share": busy / (1e3 * prof_wall),
-                    "graph_and_kernel_launches": graph_launches(prof),
-                    "top_device_ms_per_step": {
-                        e.key[:60]: device_us(e) / 1e3 / steps
-                        for e in top}})
+                out.update(step_profile(torch, prof, steps))
+                out["device_busy_share"] = (
+                    out["ms_per_step_device"] * steps / (1e3 * prof_wall))
+                out["graph_and_kernel_launches"] = graph_launches(prof)
     finally:
         init_zoo_context()
     out["epoch_loss"] = [h["loss"] for h in m.estimator.history]
     out["programs"] = programs_of(m.estimator._programs)
     return m, out, export_params(m.model)
+
+
+def step_profile(torch, prof, steps):
+    """Device ms per step, by kind (``REC_KERNEL_KINDS``) and for the top
+    kernels, and kernels per step, from a profile of ``steps`` steps."""
+    events = kernel_events(torch, prof)
+    busy = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    by_kind = {}
+    for e in events:
+        kind_of = next((k for k, words in REC_KERNEL_KINDS
+                        if any(w in e.key.lower() for w in words)), "other")
+        by_kind[kind_of] = (by_kind.get(kind_of, 0.0)
+                            + device_us(e) / 1e3 / steps)
+    return {"ms_per_step_device": busy / steps,
+            "device_ms_per_step_by_kind": by_kind,
+            "kernels_per_step": sum(e.count for e in events) / steps,
+            "top_device_ms_per_step": {e.key[:60]: device_us(e) / 1e3 / steps
+                                       for e in top}}
 
 
 def rec_training(torch, eb, kind, seed):
@@ -4222,6 +4287,699 @@ def recommender_phase(torch, eb, dq, card):
 
 
 # ---------------------------------------------------------------------------
+# text phase (TextClassifier, KNRM, Seq2seq, AnomalyDetector)
+
+# TextClassifier at the JAX package's defaults, which follow the
+# reference TextClassifier.scala: 200-wide word vectors over 500 tokens,
+# 256 filters, the 5,000 most frequent words (a 5001 x 200 table); the 20
+# classes of 20 Newsgroups, on which the reference example trains
+TEXT_CONFIG = dict(class_num=20, token_length=200, sequence_length=500,
+                   encoder_output_dim=256, max_words_num=5000)
+# the smoke's corpus (its own choice; GloVe and 20 Newsgroups are not in
+# the repo): documents of 100-500 words, Zipf s = 1.0 over the 4,000
+# common ids 1 ... 4000, each word replaced at rate ``theme_share`` by one
+# of its class's 50 theme words (ids 4001 ... 5000), front-padded with id
+# 0 to 500 as TextSet.shape_sequence pads; the first ``held`` held out
+TEXT_CORPUS = dict(docs=16384, held=2048, min_len=100, max_len=500,
+                   common=4000, theme_words=50, theme_share=0.05)
+# the reference example's batch 128 and the JAX example's Adam 1e-3; bf16,
+# K steps per graph; ``epochs`` graphed epochs, the last ``timed`` timed
+TEXT_TRAIN = dict(batch=128, k=8, lr=1e-3, epochs=6, timed=2, floor=0.9)
+# the LSTM and GRU encoders at the same widths and T = 500 (the smoke's
+# choice: 2,048 rows, one step per graph, the second of 2 epochs timed)
+TEXT_RNN_TRAIN = dict(rows=2048, batch=128, k=1, lr=1e-3, epochs=2,
+                      timed=1)
+TEXT_BUCKETS = (1, 8, 64, 128)
+TEXT_LOSS = "sparse_categorical_crossentropy_with_logits"
+# Graphed against eager from one init, in f32: the bag backward adds the
+# 64,000 contributions of a step with f32 atomics in a free order,
+# thousands of them (every pad position) into row 0, so two runs differ in
+# that row's last bits from the first step on; after TEXT_GRAPHED_STEPS
+# steps (three 8-step dispatches: the eager warm-up, the capture, a
+# replay) the parameters' L2 distance is held within TEXT_GRAPHED_REL of
+# the graphed run's movement from the init (a stale or skipped captured
+# step moves them by a share of its whole update).  Over two epochs the
+# difference grows through the training's own sensitivity (the max pool's
+# argmax, Adam's normalised steps on near-zero gradients) to a share of
+# the movement (0.13-0.49 in f32 and bf16 on an H100, 700 W): there the
+# parameters' distance is reported, and the last epoch's losses are held
+# within TEXT_GRAPHED_LOSS_REL of each other (they parted by up to 4.7%;
+# the loss falls 17-fold from the first epoch to the second, so a run
+# whose replays went stale would be far outside the band)
+TEXT_GRAPHED_STEPS = 24
+TEXT_GRAPHED_REL = 1e-3
+TEXT_GRAPHED_LOSS_REL = 0.2
+# Served logits against the plain f32 forward on the card, within
+# TEXT_SERVE_REL of each row's largest |logit| (kernel 3's f32 x takes
+# three bf16 products per product; int8 / int4 against the dequantized
+# tree)
+TEXT_SERVE_REL = 1e-4
+# KNRM as the reference qaranker example runs it: query 10 and answer 40
+# tokens, 21 kernels, sigma 0.1, exact-match sigma 0.001, GloVe's 300-wide
+# vectors; the 5,000-word vocabulary is the smoke's choice.  Trained with
+# rank_hinge on (pos, neg) pairs, f32, batch 128 (64 pairs); a relevant
+# answer holds 16 of its query's words, and held-out lists hold 1
+# relevant and 4 other answers per query.  Adam at 1e-2 (the smoke's
+# choice): the pooled features are scaled by 0.01, so at 1e-3 the score's
+# weights move too little in 512 steps to outweigh their random start
+# (NDCG@3 0.44 on an H100, chance level)
+KNRM_CONFIG = dict(text1_length=10, text2_length=40, max_words_num=5000,
+                   embed_size=300, kernel_num=21, sigma=0.1,
+                   exact_sigma=0.001)
+KNRM_TRAIN = dict(pairs=8192, batch=128, k=1, lr=1e-2, epochs=4,
+                  matches=16, queries=256, candidates=5, ndcg_k=3,
+                  floor=0.9, odd_rows=1001)
+# Seq2seq, every width the smoke's choice: vocabulary 5001, embed 64, two
+# LSTM layers of 128, the dense bridge; the JAX test's copy task (decoder
+# input: start sign 1, then the source shifted right; ids in [2, 5001))
+SEQ2SEQ_CONFIG = dict(vocab_size=5001, embed_dim=64, rnn_type="lstm",
+                      num_layers=2, hidden_size=128, bridge_type="dense")
+SEQ2SEQ_TRAIN = dict(rows=8192, length=8, batch=256, k=8, lr=3e-3,
+                     epochs=4, decode_rows=64, max_seq_len=12, beam=4,
+                     stop_sign=2, length_penalty=0.6)
+# beam scores (sums of 12 f32 log-probabilities) against the plain
+# versions on the card
+SEQ2SEQ_SCORE_TOL = 1e-4
+# AnomalyDetector at the JAX and reference defaults; a sine series (the
+# JAX test's, period 20 pi steps) and a held-out continuation with spikes
+ANOMALY_CONFIG = dict(feature_shape=(24, 1), hidden_layers=(8, 32, 15),
+                      dropouts=(0.2, 0.2, 0.2))
+ANOMALY_TRAIN = dict(points=4096, batch=64, k=1, lr=1e-2, epochs=5,
+                     held=600, spikes=(150, 320, 470), spike=5.0)
+
+
+def text_corpus(n, seed):
+    """``n`` documents of the smoke's corpus (``TEXT_CORPUS``) as (ids (n,
+    500) int32, labels (n,) int32)."""
+    cfg, length = TEXT_CORPUS, TEXT_CONFIG["sequence_length"]
+    rs = np.random.RandomState(seed)
+    y = rs.randint(0, TEXT_CONFIG["class_num"], n).astype(np.int32)
+    lens = rs.randint(cfg["min_len"], cfg["max_len"] + 1, n)
+    p = 1.0 / np.arange(1, cfg["common"] + 1)
+    words = rs.choice(cfg["common"], size=(n, length), p=p / p.sum()) + 1
+    theme = (cfg["common"] + 1 + y[:, None] * cfg["theme_words"]
+             + rs.randint(0, cfg["theme_words"], (n, length)))
+    words = np.where(rs.rand(n, length) < cfg["theme_share"], theme, words)
+    keep = np.arange(length)[None, :] >= length - lens[:, None]
+    return np.where(keep, words, 0).astype(np.int32), y
+
+
+def text_model(encoder, init=None):
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.models import TextClassifier
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    reset_name_scope()
+    m = TextClassifier(encoder=encoder, device="cuda", **TEXT_CONFIG)
+    if init is not None:
+        load_jax_params(m.model, init)
+    return m
+
+
+def text_training(torch, eb, x, y, card):
+    """The CNN TextClassifier at full width: a timed graphed bf16 run
+    that must lower its loss and reach the held-out accuracy floor, then a
+    graphed and an eager run of two epochs from one init, held together.
+    Returns the line's numbers and the trained weights."""
+    from analytics_zoo_tpu_torch.convert import export_params
+
+    held = TEXT_CORPUS["held"]
+    dev = [torch.from_numpy(x[held:]).cuda()]
+    yd = torch.from_numpy(y[held:]).cuda()
+    init = export_params(text_model("cnn").model)
+    cfg = TEXT_TRAIN
+    m, timed, trained = fit_leg(torch, eb, text_model("cnn", init), cfg,
+                                TEXT_LOSS, ["accuracy"], dev, yd,
+                                cfg["epochs"], True, timed=cfg["timed"])
+    res = m.evaluate(x[:held], y[:held], batch_size=cfg["batch"])
+    short = TEXT_GRAPHED_STEPS * cfg["batch"]
+    compare = {
+        "f32_24_steps": graphed_vs_eager(torch, eb, init, cfg,
+                                         [dev[0][:short]], yd[:short], 1,
+                                         None),
+        "f32_2_epochs": graphed_vs_eager(torch, eb, init, cfg, dev, yd, 2,
+                                         None),
+        "bf16_2_epochs": graphed_vs_eager(torch, eb, init, cfg, dev, yd, 2,
+                                          "bfloat16"),
+        "tolerance_l2_rel_24_steps": TEXT_GRAPHED_REL,
+        "tolerance_last_epoch_loss_rel": TEXT_GRAPHED_LOSS_REL}
+    losses = timed["epoch_loss"]
+    out = {"card": card, "config": TEXT_CONFIG, "corpus": TEXT_CORPUS,
+           "train": cfg,
+           "parameters": sum(p.numel() for p in m.model.parameters()),
+           "timed": timed, "held_out_accuracy": res["accuracy"],
+           "held_out_loss": res["loss"], "accuracy_floor": cfg["floor"],
+           "graphed_vs_eager": compare}
+    log("text_training", json.dumps(out))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"text: the loss did not fall: {losses}")
+    if not res["accuracy"] >= cfg["floor"]:
+        raise AssertionError(f"text: held-out accuracy {res['accuracy']} "
+                             f"< {cfg['floor']}")
+    drift = [abs(p["graphed_epoch_loss"][-1] / p["eager_epoch_loss"][-1]
+                 - 1.0) for k, p in compare.items() if k.endswith("epochs")]
+    if (compare["f32_24_steps"]["params_l2_rel"] > TEXT_GRAPHED_REL
+            or max(drift) > TEXT_GRAPHED_LOSS_REL):
+        raise AssertionError(f"text: graphed left the eager run: {compare}")
+    if not timed["programs"] or not all(timed["launches"].values()):
+        raise AssertionError(f"text: no captured step program, or a bag "
+                             f"kernel never launched: {timed}")
+    del m, dev, yd
+    free_card(torch)
+    return out, trained
+
+
+def graphed_vs_eager(torch, eb, init, cfg, xs, y, epochs, dtype):
+    """The CNN classifier from ``init`` trained ``epochs`` epochs graphed
+    and again eagerly at ``compute_dtype`` ``dtype``: the L2 distance of
+    the two runs' parameters over the graphed run's movement, and both
+    runs' epoch losses."""
+    _, graphed, gp = fit_leg(torch, eb, text_model("cnn", init), cfg,
+                             TEXT_LOSS, None, xs, y, epochs, True,
+                             compute_dtype=dtype)
+    _, eager, ep = fit_leg(torch, eb, text_model("cnn", init), cfg,
+                           TEXT_LOSS, None, xs, y, epochs, False,
+                           compute_dtype=dtype)
+    return {"steps": epochs * int(xs[0].shape[0]) // cfg["batch"],
+            "params_l2_rel": l2(gp, ep) / max(l2(gp, init), 1e-30),
+            "params_max_abs_diff": tree_diff(gp, ep)[0],
+            "bit_equal": tree_diff(gp, ep)[1],
+            "graphed_epoch_loss": graphed["epoch_loss"],
+            "eager_epoch_loss": eager["epoch_loss"]}
+
+
+def text_rnn_training(torch, eb, encoder, x, y, card):
+    """The LSTM or GRU TextClassifier at the same widths over T = 500:
+    graphed bf16 epochs on ``TEXT_RNN_TRAIN["rows"]`` rows, the last
+    timed; the capture's seconds and the card's memory; then one eager
+    step under ``torch.profiler`` for its kernels and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.core import graphs
+
+    cfg = TEXT_RNN_TRAIN
+    held, n = TEXT_CORPUS["held"], cfg["rows"]
+    dev = [torch.from_numpy(x[held:held + n]).cuda()]
+    yd = torch.from_numpy(y[held:held + n]).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    m, timed, trained = fit_leg(torch, eb, text_model(encoder), cfg,
+                                TEXT_LOSS, None, dev, yd, cfg["epochs"],
+                                True, timed=cfg["timed"],
+                                profile_epoch=False)
+    memory = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+    b = cfg["batch"]
+    # the card's activity only: a step's 30,000-odd host ops would take
+    # the profiler longer to gather than the whole leg
+    with graphs.disabled(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        m.fit(dev[0][:b], yd[:b], batch_size=b, epochs=cfg["epochs"] + 1,
+              verbose=False)
+        torch.cuda.synchronize()
+    eager_step = step_profile(torch, prof, 1)
+    losses = timed["epoch_loss"]
+    out = {"card": card, "encoder": encoder, "train": cfg,
+           "parameters": sum(p.numel() for p in m.model.parameters()),
+           "timed": timed, "memory": memory,
+           "eager_step_profile": eager_step}
+    log(f"text_{encoder}_training", json.dumps(out))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"text {encoder}: the loss did not fall: "
+                             f"{losses}")
+    if not timed["programs"] or not all(timed["launches"].values()):
+        raise AssertionError(f"text {encoder}: no captured step program, "
+                             f"or a bag kernel never launched: {timed}")
+    del m, dev, yd
+    free_card(torch)
+    return out, trained
+
+
+def text_serving(torch, eb, dq, encoder, trained, root, card):
+    """The trained classifier served in f32, int8 and int4 from bucket
+    graphs (``TEXT_BUCKETS``) of a model warmed from a ``CompileCache``
+    that a first model filled: 256 one-row requests of held-out
+    documents from 8 threads through ``DynamicBatcher``, against the
+    plain f32 forward on the card (the dequantized tree for int8 /
+    int4); the kernels' counts zeroed just before and read just after.
+    Returns the numbers, the launches and, for the CNN, the int8 serving
+    model."""
+    import os
+
+    from analytics_zoo_tpu_torch.deploy import CompileCache, DynamicBatcher
+    from analytics_zoo_tpu_torch.deploy.inference import (dequantize_pytree,
+                                                          quantize_pytree)
+
+    m = text_model(encoder, trained)
+    n = 256
+    xs = [text_corpus(n, SEED + 21)[0]]
+    plain = rec_reference(torch, m.model, xs)
+    out, keep = {}, None
+    total = {"embedding_bag_fwd": 0, "dequant_matmul": 0}
+    for wd in ("float32", "int8", "int4"):
+        want = plain
+        if wd != "float32":
+            want = rec_reference(torch, m.model, xs, dequantize_pytree(
+                quantize_pytree(m.model.params(),
+                                bits=4 if wd == "int4" else 8)))
+        cache = CompileCache(os.path.join(root, f"text_{encoder}_{wd}"))
+        cover = m.inference_model(weight_dtype=wd, batch_buckets=TEXT_BUCKETS,
+                                  name=f"text_{encoder}_{wd}")
+        cover.attach_compile_cache(cache)
+        t0 = time.perf_counter()
+        for b in TEXT_BUCKETS:
+            for _ in range(2):          # eager, then captured
+                cover.predict([a[:b] for a in xs])
+        torch.cuda.synchronize()
+        cover_s = time.perf_counter() - t0
+        im = m.inference_model(weight_dtype=wd, batch_buckets=TEXT_BUCKETS,
+                               name=f"text_{encoder}_{wd}")
+        im.attach_compile_cache(cache)
+        t0 = time.perf_counter()
+        warmed = im.warm()
+        warm_s = time.perf_counter() - t0
+        eb.LAUNCHES.reset()
+        dq.LAUNCHES.reset()
+        batcher = DynamicBatcher(im, max_batch=64, max_latency_ms=2.0)
+        t0 = time.perf_counter()
+        try:
+            got, lat = serve_requests(
+                batcher, [[a[r:r + 1] for a in xs] for r in range(n)], 8)
+        finally:
+            batcher.close()
+        wall = time.perf_counter() - t0
+        launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                    "dequant_matmul": dq.LAUNCHES.value}
+        for k in total:
+            total[k] += launches[k]
+        row_top = np.abs(want).max(-1, keepdims=True)
+        err = float((np.abs(got - want) / row_top).max())
+        r = {"card": card, "p50_ms": float(np.percentile(lat, 50)),
+             "p99_ms": float(np.percentile(lat, 99)),
+             "rows": n, "wall_s": wall, "rows_per_s": n / wall,
+             "compile_count": im.compile_count, "warmed": warmed,
+             "warm_s": warm_s, "captured_cold": cover.compile_count,
+             "cover_s": cover_s, "launches": launches,
+             "max_err_rel_row_top": err, "tolerance": TEXT_SERVE_REL,
+             "top1_agreement": float(np.mean(got.argmax(-1)
+                                             == want.argmax(-1))),
+             "weight_bytes": im.weight_nbytes(),
+             "programs": programs_of(im._programs)}
+        out[wd] = r
+        log(f"text_{encoder}_serving", wd, json.dumps(r))
+        if (im.compile_count != 0 or warmed != len(TEXT_BUCKETS)
+                or got.shape != want.shape or not np.all(np.isfinite(got))
+                or err > TEXT_SERVE_REL or not launches["embedding_bag_fwd"]
+                or bool(launches["dequant_matmul"]) != (wd != "float32")):
+            raise AssertionError(f"text {encoder} serving ({wd}) failed: "
+                                 f"{r}")
+        if encoder == "cnn" and wd == "int8":
+            keep = im
+        del cover, im
+        free_card(torch)
+    return out, total, keep
+
+
+def text_cluster_serving(torch, eb, dq, im, card):
+    """The int8 CNN classifier (warmed, ``compile_count`` 0) behind one
+    ``ClusterServing`` worker over a ``ShmQueue``, as
+    examples/textclassification/streaming_text_example.py serves it, with
+    int32 id records of 500 tokens from a client thread of this process;
+    every record's top-2 held against the plain path's logits
+    (``cluster_check``)."""
+    from analytics_zoo_tpu_torch.deploy import (ClusterServing, InputQueue,
+                                                OutputQueue, ServingConfig,
+                                                ShmQueue)
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    n = 512
+    recs = text_corpus(n, SEED + 23)[0]
+    with dispatch.forced("reference"):
+        ref = np.concatenate([im.predict(recs[s:s + 128])
+                              for s in range(0, n, 128)])
+    queue = ShmQueue(name="smoke_text", slots=1024, slot_bytes=1 << 12,
+                     result_slots=1024, result_slot_bytes=1 << 10)
+    cfg = ServingConfig(postprocess_top_n=CLUSTER_TOP_N, batch_size=128,
+                        max_batch_delay_ms=2.0, decode_workers=4)
+    cs = ClusterServing({"text": im}, queue, cfg)
+    iq, oq = InputQueue(queue), OutputQueue(queue)
+    answers = {}
+    try:
+        cs.start()
+        window = METRICS.snapshot()
+        eb.LAUNCHES.reset()
+        dq.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        pusher = threading.Thread(target=lambda: [
+            iq.enqueue(uri=f"text{r}", model="text", x=recs[r])
+            for r in range(n)])
+        pusher.start()
+        deadline = time.monotonic() + 120
+        while len(answers) < n and time.monotonic() < deadline:
+            answers.update(oq.dequeue(timeout=0.5))
+        wall = time.perf_counter() - t0
+        pusher.join(timeout=60)
+        torch.cuda.synchronize()
+        launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                    "dequant_matmul": dq.LAUNCHES.value}
+        delta = METRICS.delta(window)
+    finally:
+        cs.stop(timeout=30)
+        del cs
+        queue.stop()
+    idx = np.full((n, CLUSTER_TOP_N), -1, np.int64)
+    val = np.full((n, CLUSTER_TOP_N), np.nan, np.float64)
+    for r in range(n):
+        a = answers.get(f"text{r}")
+        if isinstance(a, list) and len(a) == CLUSTER_TOP_N:
+            idx[r] = [p[0] for p in a]
+            val[r] = [p[1] for p in a]
+    check = cluster_check("text", idx, val, ref)
+    out = {"card": card, "records": n, "answered": len(answers),
+           "wall_s": wall, "records_per_s": n / wall, "check": check,
+           "launches": launches, "compile_count": im.compile_count,
+           "stages": stage_rollup(delta).get("text"),
+           "device_busy": device_busy(delta, wall)}
+    log("text_cluster_serving", json.dumps(out))
+    if len(answers) != n or not check["ok"] or not all(launches.values()):
+        raise AssertionError(f"text ClusterServing failed: {out}")
+    return launches
+
+
+def knrm_lists(queries, seed):
+    """``queries`` held-out query ids (queries, 10) with ``candidates``
+    answers each: the first relevant (``matches`` of its 40 tokens are
+    the query's words), the rest random.  Returns (q rows, doc rows,
+    query ids, labels)."""
+    cfg, kc = KNRM_TRAIN, KNRM_CONFIG
+    rs = np.random.RandomState(seed)
+    vocab = kc["max_words_num"]
+    q = rs.randint(1, vocab + 1, (queries, kc["text1_length"]))
+    c = cfg["candidates"]
+    docs = rs.randint(1, vocab + 1, (queries, c, kc["text2_length"]))
+    for r in range(queries):
+        at = rs.choice(kc["text2_length"], cfg["matches"], replace=False)
+        docs[r, 0, at] = rs.choice(q[r], cfg["matches"])
+    qrows = np.repeat(q, c, axis=0).astype(np.int32)
+    labels = np.tile(np.eye(1, c, dtype=np.int64)[0], queries)
+    return (qrows, docs.reshape(queries * c, -1).astype(np.int32),
+            np.repeat(np.arange(queries), c), labels)
+
+
+def knrm_pairs(pairs, seed):
+    """Training rows: each query with its relevant answer, then a random
+    one (rank_hinge's interleaved (pos, neg) rows)."""
+    q, d, _, _ = knrm_lists(pairs, seed)
+    c = KNRM_TRAIN["candidates"]
+    pick = np.stack([np.arange(pairs) * c, np.arange(pairs) * c + 1],
+                    1).reshape(-1)
+    return [q[pick], d[pick]], np.zeros((2 * pairs, 1), np.float32)
+
+
+def knrm_phase(torch, eb, card):
+    """KNRM trained with rank_hinge (graphed, f32), ranked by ``Ranker``
+    on held-out candidate lists, and ``evaluate`` on an odd row count
+    against the masked rule (a pair counts when both its rows are in
+    one batch) computed from the served scores."""
+    from analytics_zoo_tpu_torch.models import KNRM, Ranker
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    cfg = KNRM_TRAIN
+    xs, y = knrm_pairs(cfg["pairs"], SEED + 31)
+    dev = [torch.from_numpy(a).cuda() for a in xs]
+    reset_name_scope()
+    m, timed, _ = fit_leg(torch, eb, KNRM(device="cuda", **KNRM_CONFIG),
+                          cfg, "rank_hinge", None, dev,
+                          torch.from_numpy(y).cuda(), cfg["epochs"], True,
+                          timed=1, compute_dtype=None)
+    q, d, qid, labels = knrm_lists(cfg["queries"], SEED + 32)
+    scores = m.predict([q, d], batch_size=cfg["batch"])[:, 0]
+    ndcg = Ranker.evaluate_ndcg(qid, labels, scores, k=cfg["ndcg_k"])
+    mean_ap = Ranker.evaluate_map(qid, labels, scores)
+    oq, od = [a[:cfg["odd_rows"]] for a in knrm_pairs(cfg["odd_rows"] // 2 + 1,
+                                                       SEED + 33)[0]]
+    s = m.predict([oq, od], batch_size=cfg["batch"])[:, 0].astype(np.float64)
+    full = 2 * (len(s) // 2)
+    want = float(np.mean(np.maximum(1.0 - s[0:full:2] + s[1:full:2], 0.0)))
+    got = m.evaluate([oq, od], np.zeros((len(s), 1), np.float32),
+                     batch_size=cfg["batch"])["loss"]
+    losses = timed["epoch_loss"]
+    out = {"card": card, "config": KNRM_CONFIG, "train": cfg,
+           "timed": timed, "ndcg@3": ndcg, "map": mean_ap,
+           "floor": cfg["floor"],
+           "odd_evaluate": {"rows": len(s), "loss": got,
+                            "masked_rule": want}}
+    log("knrm", json.dumps(out))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"knrm: the loss did not fall: {losses}")
+    if not (ndcg >= cfg["floor"] and mean_ap >= cfg["floor"]):
+        raise AssertionError(f"knrm: NDCG@3 {ndcg} / MAP {mean_ap} below "
+                             f"{cfg['floor']}")
+    if not abs(got - want) <= 1e-5 * max(abs(want), 1e-3):
+        raise AssertionError(f"knrm: evaluate on {len(s)} rows gave {got}, "
+                             f"the masked rule {want}")
+    if not all(timed["launches"].values()):
+        raise AssertionError(f"knrm: a bag kernel never launched: {timed}")
+    del m, dev
+    free_card(torch)
+    return timed["launches"]
+
+
+def seq2seq_phase(torch, eb, dq, card):
+    """Seq2seq trained teacher-forced on the copy task (graphed, f32),
+    then greedy and beam-search decoding from graphs against the same
+    decoders on the plain versions on the card (equal tokens, scores
+    within ``SEQ2SEQ_SCORE_TOL``), and greedy decoding from int8 weights
+    (kernel 3 at every step)."""
+    from analytics_zoo_tpu_torch.models import Seq2seq
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    cfg = SEQ2SEQ_TRAIN
+    rs = np.random.RandomState(SEED + 41)
+    src = rs.randint(2, SEQ2SEQ_CONFIG["vocab_size"],
+                     (cfg["rows"], cfg["length"])).astype(np.int32)
+    dec = np.concatenate([np.ones((cfg["rows"], 1), np.int32),
+                          src[:, :-1]], axis=1)
+    reset_name_scope()
+    m, timed, _ = fit_leg(torch, eb, Seq2seq(device="cuda", **SEQ2SEQ_CONFIG),
+                          cfg, TEXT_LOSS, None,
+                          [torch.from_numpy(a).cuda() for a in (src, dec)],
+                          torch.from_numpy(src).cuda(), cfg["epochs"], True,
+                          timed=1, compute_dtype=None)
+    enc = src[:cfg["decode_rows"]]
+    greedy_kw = dict(start_sign=1, max_seq_len=cfg["max_seq_len"],
+                     stop_sign=cfg["stop_sign"])
+    beam_kw = dict(greedy_kw, beam_size=cfg["beam"],
+                   length_penalty=cfg["length_penalty"])
+    out = {"card": card, "config": SEQ2SEQ_CONFIG, "train": cfg,
+           "timed": timed}
+    eb.LAUNCHES.reset()
+    dq.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    for _ in range(3):              # eager, captured, replayed
+        toks = m.infer(enc, **greedy_kw)
+        seq, sc = m.infer_beam(enc, **beam_kw)
+    torch.cuda.synchronize()
+    out["decode_s_3_calls_each"] = time.perf_counter() - t0
+    out["decode_launches_f32"] = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                                  "dequant_matmul": dq.LAUNCHES.value}
+    with dispatch.forced("reference"):
+        p_toks = m.infer(enc, **greedy_kw)
+        p_seq, p_sc = m.infer_beam(enc, **beam_kw)
+    captured = [k for k, p in m._decoders.items() if p.graph.captured]
+    out.update({
+        "decoders_captured": len(captured),
+        "greedy_equal": bool(np.array_equal(toks, p_toks)),
+        "beam_equal": bool(np.array_equal(seq, p_seq)),
+        "beam_score_max_abs_diff": float(np.abs(sc - p_sc).max()),
+        "score_tolerance": SEQ2SEQ_SCORE_TOL,
+        "copied_share_greedy": float(np.mean(
+            toks[:, :cfg["length"]] == enc))})
+    im8 = m.inference_model(weight_dtype="int8")
+    eb.LAUNCHES.reset()
+    dq.LAUNCHES.reset()
+    for _ in range(3):
+        q_toks = m.infer(enc, **greedy_kw)
+    torch.cuda.synchronize()
+    out["decode_launches_int8"] = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                                   "dequant_matmul": dq.LAUNCHES.value}
+    with dispatch.forced("reference"):
+        q_plain = m.infer(enc, **greedy_kw)
+    out["int8_greedy_agreement_with_plain"] = float(np.mean(q_toks
+                                                            == q_plain))
+    out["int8_greedy_agreement_with_f32"] = float(np.mean(q_toks == toks))
+    out["int8_weight_bytes"] = im8.weight_nbytes()
+    log("seq2seq", json.dumps(out))
+    losses = timed["epoch_loss"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"seq2seq: the loss did not fall: {losses}")
+    if not (out["greedy_equal"] and out["beam_equal"]
+            and out["beam_score_max_abs_diff"] <= SEQ2SEQ_SCORE_TOL
+            and len(captured) == 2):
+        raise AssertionError(f"seq2seq: graphed decoding left the plain "
+                             f"versions: {out}")
+    if not (all(timed["launches"].values())
+            and out["decode_launches_f32"]["embedding_bag_fwd"]
+            and out["decode_launches_int8"]["dequant_matmul"]):
+        raise AssertionError(f"seq2seq: a kernel never launched: {out}")
+    launches = {"training": timed["launches"],
+                "decode": {k: out["decode_launches_f32"][k]
+                           + out["decode_launches_int8"][k]
+                           for k in out["decode_launches_f32"]}}
+    del m
+    free_card(torch)
+    return launches
+
+
+def anomaly_phase(torch, eb, card):
+    """AnomalyDetector trained on a sine series (graphed, f32, mse), then
+    ``detect_anomalies`` over the windows of a held-out continuation with
+    spikes: the ``len(spikes)`` largest errors are the spikes' windows."""
+    from analytics_zoo_tpu_torch.models import AnomalyDetector
+    from analytics_zoo_tpu_torch.models.anomalydetection import unroll
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    cfg = ANOMALY_TRAIN
+    length = ANOMALY_CONFIG["feature_shape"][0]
+    series = np.sin(np.arange(cfg["points"], dtype=np.float32) * 0.1)
+    x, y = unroll(series, length)
+    n = (len(x) // cfg["batch"]) * cfg["batch"]
+    reset_name_scope()
+    m, timed, _ = fit_leg(torch, eb, AnomalyDetector(device="cuda",
+                                                     **ANOMALY_CONFIG),
+                          cfg, "mse", None, [torch.from_numpy(x[:n]).cuda()],
+                          torch.from_numpy(y[:n]).cuda(), cfg["epochs"],
+                          True, timed=1, compute_dtype=None,
+                          profile_epoch=False)
+    held = np.sin((np.arange(cfg["held"], dtype=np.float32)
+                   + cfg["points"]) * 0.1)
+    held[list(cfg["spikes"])] = cfg["spike"]
+    hx, hy = unroll(held, length)
+    pred = m.predict(hx, batch_size=cfg["batch"])[:, 0]
+    flagged = sorted(int(i) for i in m.detect_anomalies(
+        hy, pred, anomaly_size=len(cfg["spikes"])))
+    want = [p - length for p in cfg["spikes"]]
+    err = np.abs(hy - pred)
+    out = {"card": card, "config": ANOMALY_CONFIG, "train": cfg,
+           "timed": timed, "flagged": flagged, "spike_windows": want,
+           "spike_errors": [float(err[i]) for i in want],
+           "largest_other_error": float(np.delete(err, want).max())}
+    log("anomaly", json.dumps(out))
+    losses = timed["epoch_loss"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"anomaly: the loss did not fall: {losses}")
+    if flagged != want:
+        raise AssertionError(f"anomaly: flagged {flagged}, the spikes' "
+                             f"windows are {want}")
+    del m
+    free_card(torch)
+
+
+def text_kernel_cases(torch, eb, dq):
+    """Kernels 1-3 at the text slice's shapes: the TextClassifier's
+    gather of 128 x 500 front-padded ids from its (5001, 200) table (f32,
+    and bf16 as the bf16 step casts it); its backward, the same 64,000
+    contributions, front-padded (every pad position adds into row 0) and
+    Zipf s = 1.0 without padding; the dequantize-matmul at ``tc_fc`` (K =
+    256, N = 128), ``tc_out`` (128, 20) and the Seq2seq generator (128,
+    5001) at M = 1, 8, 64, 128, int8 and int4."""
+    ids = torch.from_numpy(text_corpus(128, SEED + 51)[0]).reshape(
+        -1, 1).cuda()
+    vocab, dim = TEXT_CONFIG["max_words_num"] + 1, TEXT_CONFIG[
+        "token_length"]
+    bag, bwd, dqc = [], [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        bag.append(bag_case(torch, eb, "text_embed", vocab, dim, len(ids), 1,
+                            "sum", None, dtype=dtype, ids=ids))
+    bwd.append(bag_bwd_case(torch, eb, "text_embed_front_padded", vocab,
+                            dim, len(ids), 1, "sum", None, ids=ids))
+    bwd.append(bag_bwd_case(torch, eb, "text_embed_zipf", vocab, dim,
+                            len(ids), 1, "sum", None, zipf=True))
+    for label, k, n in (("tc_fc", 256, 128), ("tc_out", 128, 20),
+                        ("seq2seq_generator", 128, 5001)):
+        for bits in (8, 4):
+            for m in TEXT_BUCKETS:
+                dqc.append(dq_case(torch, dq, label, m, k, n, bits,
+                                   iters=100))
+    for c in bag + bwd + dqc:
+        log("kernel_case", json.dumps(c))
+    return bag, bwd, dqc
+
+
+def text_phase(torch, eb, dq, card):
+    """Phase 12: TextClassifier at full width trained (CNN; LSTM and GRU
+    at T = 500) and served in three weight forms, the int8 CNN behind
+    ClusterServing; KNRM; Seq2seq with greedy and beam decoding;
+    AnomalyDetector.  Returns each path's kernel launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="zoo_text_")
+    paths, summary, seconds = {}, {"card": card}, {}
+
+    def timed_leg(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    try:
+        x, y = text_corpus(TEXT_CORPUS["docs"], SEED + 17)
+        training, trained = timed_leg("cnn_training", text_training, torch,
+                                      eb, x, y, card)
+        paths["text_training"] = training["timed"]["launches"]
+        weights = {"cnn": trained}
+        for enc in ("lstm", "gru"):
+            rnn, weights[enc] = timed_leg(f"{enc}_training",
+                                          text_rnn_training, torch, eb, enc,
+                                          x, y, card)
+            paths[f"text_{enc}_training"] = rnn["timed"]["launches"]
+            summary[f"{enc}_ms_per_step_wall"] = rnn["timed"][
+                "ms_per_step_wall"]
+            summary[f"{enc}_kernels_per_step"] = rnn["eager_step_profile"][
+                "kernels_per_step"]
+        del x, y
+        int8_cnn = None
+        for enc in ("cnn", "lstm", "gru"):
+            serving, served, im = timed_leg(f"{enc}_serving", text_serving,
+                                            torch, eb, dq, enc, weights[enc],
+                                            root, card)
+            paths[f"text_{enc}_serving"] = served
+            int8_cnn = im or int8_cnn
+            summary[f"{enc}_served_p50_ms"] = {k: v["p50_ms"]
+                                              for k, v in serving.items()}
+        paths["text_cluster_serving"] = timed_leg(
+            "cluster_serving", text_cluster_serving, torch, eb, dq, int8_cnn,
+            card)
+        del int8_cnn
+        free_card(torch)
+        paths["knrm_training"] = timed_leg("knrm", knrm_phase, torch, eb,
+                                           card)
+        s2s = timed_leg("seq2seq", seq2seq_phase, torch, eb, dq, card)
+        paths["seq2seq_training"] = s2s["training"]
+        paths["seq2seq_decode"] = s2s["decode"]
+        timed_leg("anomaly", anomaly_phase, torch, eb, card)
+        summary.update({
+            "text_samples_per_s": training["timed"]["samples_per_s"],
+            "text_ms_per_step_device": training["timed"][
+                "ms_per_step_device"],
+            "text_device_busy_share": training["timed"][
+                "device_busy_share"],
+            "text_held_out_accuracy": training["held_out_accuracy"],
+            "text_graphed_vs_eager_l2_rel": {
+                k: v["params_l2_rel"] for k, v in training[
+                    "graphed_vs_eager"].items() if isinstance(v, dict)}})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["seconds_by_leg"] = seconds
+    summary["seconds"] = time.perf_counter() - t0
+    log("text_summary", json.dumps(summary))
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 # The flash kernels' templates <T, DMAX, warps, m-tiles, tile rows / 8,
@@ -4423,10 +5181,11 @@ def main() -> int:
 
     bag_cases, bwd_cases, dq_cases = kernel_phase(torch, eb, dq)
     dq_cases += resnet_head_cases(torch, dq)
-    rec_bag, rec_bwd, rec_dq = recommender_kernel_cases(torch, eb, dq)
-    bag_cases += rec_bag
-    bwd_cases += rec_bwd
-    dq_cases += rec_dq
+    for more in (recommender_kernel_cases(torch, eb, dq),
+                 text_kernel_cases(torch, eb, dq)):
+        bag_cases += more[0]
+        bwd_cases += more[1]
+        dq_cases += more[2]
     fl_cases = flash_cases(torch, fa)
     lse_cases, bwd_dq_cases, bwd_dkv_cases = flash_train_cases(torch, fa)
     for c in fl_cases + lse_cases + bwd_dq_cases + bwd_dkv_cases:
@@ -4445,6 +5204,8 @@ def main() -> int:
     image = image_phase(torch, dq, card)
     reset_counts(eb, dq, fa)
     rec = recommender_phase(torch, eb, dq, card)
+    reset_counts(eb, dq, fa)
+    text = text_phase(torch, eb, dq, card)
     rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
                  "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
@@ -4452,18 +5213,23 @@ def main() -> int:
                    "bert_serving": bert["embedding_bag"],
                    "fault_tolerant_ncf": ft_ncf["embedding_bag_fwd"],
                    "cluster_serving": cluster["embedding_bag_fwd"],
-                   **{p: rec[p]["embedding_bag_fwd"] for p in rec_paths}}
+                   **{p: rec[p]["embedding_bag_fwd"] for p in rec_paths},
+                   **{p: v["embedding_bag_fwd"] for p, v in text.items()}}
     bwd_by_path = {"training": trained["embedding_bag_bwd"],
                    "fault_tolerant_ncf": ft_ncf["embedding_bag_bwd"],
                    **{p: rec[p]["embedding_bag_bwd"] for p in rec_paths
-                      if p.endswith("_training")}}
+                      if p.endswith("_training")},
+                   **{p: v["embedding_bag_bwd"] for p, v in text.items()
+                      if "embedding_bag_bwd" in v}}
     dq_by_path = {"serving": served["dequant_matmul"],
                   "training": trained["dequant_matmul"],
                   "bert_serving": bert["dequant_matmul"],
                   "cluster_serving": cluster["dequant_matmul"],
                   "resnet50_serving": image["dequant_matmul"],
                   **{p: rec[p]["dequant_matmul"] for p in rec_paths
-                     if p.endswith("_serving")}}
+                     if p.endswith("_serving")},
+                  **{p: v["dequant_matmul"] for p, v in text.items()
+                     if "dequant_matmul" in v}}
     kernels = [
         headline(bag_cases, "embedding_bag_fwd", "cuda", BAG_SRC, BAG_TPU,
                  sum(fwd_by_path.values()),

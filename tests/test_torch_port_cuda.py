@@ -2024,3 +2024,101 @@ def test_wide_and_deep_fit_graphed_matches_eager_on_card(cuda_device,
     np.testing.assert_allclose(loss, eager_loss, rtol=1e-6)
     assert loss[1] < loss[0]
     assert _tree_rel_diff(got, want) <= 1e-6
+
+
+def _text_models():
+    """The text slice's four models at small widths, with their inputs
+    (numpy, seeded), on the CPU."""
+    from analytics_zoo_tpu_torch.models import (KNRM, AnomalyDetector,
+                                                Seq2seq, TextClassifier)
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    rs = np.random.RandomState(21)
+    reset_name_scope()
+    out = {"cnn": (TextClassifier(5, token_length=16, sequence_length=40,
+                                  encoder_output_dim=32, max_words_num=300,
+                                  device="cpu"),
+                   [rs.randint(0, 301, (9, 40)).astype(np.int32)])}
+    reset_name_scope()
+    out["lstm"] = (TextClassifier(5, token_length=16, sequence_length=40,
+                                  encoder="lstm", encoder_output_dim=32,
+                                  max_words_num=300, device="cpu"),
+                   out["cnn"][1])
+    reset_name_scope()
+    out["knrm"] = (KNRM(6, 20, max_words_num=300, embed_size=24,
+                        device="cpu"),
+                   [rs.randint(1, 301, (9, 6)).astype(np.int32),
+                    rs.randint(1, 301, (9, 20)).astype(np.int32)])
+    reset_name_scope()
+    enc = rs.randint(2, 300, (9, 7)).astype(np.int32)
+    out["seq2seq"] = (Seq2seq(300, embed_dim=16, num_layers=2,
+                              hidden_size=32, bridge_type="dense",
+                              device="cpu"), [enc, enc])
+    reset_name_scope()
+    out["anomaly"] = (AnomalyDetector((12, 1), device="cpu"),
+                      [rs.randn(9, 12, 1).astype(np.float32)])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cnn", "lstm", "knrm", "seq2seq",
+                                  "anomaly"])
+def test_text_slice_models_on_card_match_plain(cuda_device, kind):
+    """Each model's forward on the card through the kernels against the
+    plain route on the card and against the CPU (f32 sums in other
+    orders: atol 1e-4)."""
+    import copy
+
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    m, xs = _text_models()[kind]
+    net = m.model.eval()
+    want = net(*[torch.from_numpy(x) for x in xs]).detach()
+    card = copy.deepcopy(net).to(cuda_device)
+    ins = [torch.from_numpy(x).to(cuda_device) for x in xs]
+    n0 = teb.LAUNCHES.value
+    with torch.no_grad():
+        got = card(*ins)
+        torch.cuda.synchronize()
+        launched = teb.LAUNCHES.value - n0
+        with dispatch.forced("reference"):
+            plain = card(*ins)
+    assert launched == {"cnn": 1, "lstm": 1, "knrm": 2, "seq2seq": 2,
+                        "anomaly": 0}[kind]
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_dtype", ["float32", "int8"])
+def test_seq2seq_graphed_infer_matches_eager_on_card(cuda_device,
+                                                     weight_dtype):
+    """Greedy and beam decoding replayed from their CUDA graphs against
+    the same decoders run eagerly (``graphs.disabled``): equal tokens,
+    beam scores within 1e-5; kernel 3 launches at every int8 step."""
+    from analytics_zoo_tpu_torch.core import graphs
+
+    from analytics_zoo_tpu_torch.models import Seq2seq
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    reset_name_scope()
+    m = Seq2seq(300, embed_dim=16, num_layers=2, hidden_size=32,
+                bridge_type="dense", device=cuda_device)
+    enc = np.random.RandomState(22).randint(2, 300, (9, 7)).astype(np.int32)
+    m.inference_model(weight_dtype=weight_dtype)
+    kw = dict(start_sign=1, max_seq_len=9, stop_sign=2)
+    for _ in range(3):          # eager, captured, replayed
+        toks = m.infer(enc, **kw)
+        seq, sc = m.infer_beam(enc, beam_size=3, length_penalty=0.6, **kw)
+    assert all(p.graph.captured and p.graph.replays
+               for p in m._decoders.values())
+    n0 = tdq.LAUNCHES.value
+    with graphs.disabled():
+        e_toks = m.infer(enc, **kw)
+        e_seq, e_sc = m.infer_beam(enc, beam_size=3, length_penalty=0.6,
+                                   **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(toks, e_toks)
+    np.testing.assert_array_equal(seq, e_seq)
+    np.testing.assert_allclose(sc, e_sc, rtol=0, atol=1e-5)
+    assert (tdq.LAUNCHES.value - n0 == 2 * 9) == (weight_dtype == "int8")
