@@ -209,11 +209,13 @@ class TextSet:
         y = np.asarray(labels, np.int32) if labels else None
         return x, y
 
-    def to_feature_set(self, cache_level: Optional[str] = None):
+    def to_feature_set(self, memory_type: str = "DRAM",
+                       cache_level: Optional[str] = None):
         from analytics_zoo_tpu_torch.data.featureset import FeatureSet
 
         x, y = self.to_arrays()
-        return FeatureSet.from_ndarrays(x, y, cache_level=cache_level)
+        return FeatureSet.from_ndarrays(x, y, memory_type=memory_type,
+                                        cache_level=cache_level)
 
 
 def load_glove_embeddings(path: str, word_index: Dict[str, int],

@@ -510,12 +510,16 @@ class InferenceModel:
 
     def __init__(self, forward: Optional[Callable],
                  batch_buckets: Sequence[int] = (1, 8, 64, 256),
-                 name: str = DEFAULT_MODEL):
+                 dtype=None, name: str = DEFAULT_MODEL):
         """``forward``: fn(list_of_np_inputs_padded) -> np output(s) for a
         full padded batch, wrapped by bucket padding in predict(); None
-        for a native net's bucket programs (``from_keras_net``)."""
+        for a native net's bucket programs (``from_keras_net``).
+        ``dtype`` is kept as ``self.dtype``, as in the JAX package (which
+        reads it nowhere either); ``name`` labels this model's series in
+        every serving metric."""
         self._forward = forward
         self.batch_buckets = tuple(sorted(batch_buckets))
+        self.dtype = dtype
         self.name = str(name)
         # batch-signature ledger: one entry per distinct padded batch
         # shape dispatched that paid a live capture — the bounded-shape
@@ -735,12 +739,13 @@ class InferenceModel:
 
     @classmethod
     def from_keras_net(cls, net, params=None, state=None, int8: bool = False,
-                       weight_dtype: Optional[str] = None, device=None,
                        preprocess: Optional[Callable] = None,
+                       weight_dtype: Optional[str] = None, device=None,
                        **kw) -> "InferenceModel":
         """Wrap a built net as a serving model on ``device`` (default
-        ``cuda``; raises when there is none).  The JAX signature: the
-        net, its params and its state, in that order.
+        ``cuda``; raises when there is none).  The JAX signature (the net,
+        its params, its state, ``int8``, ``preprocess``, ``weight_dtype``,
+        in that order), with the port's ``device`` after it.
 
         The net is copied, so the caller's stays as it is.  ``params``
         (a JAX-layout tree of numpy arrays or tensors, plain or already

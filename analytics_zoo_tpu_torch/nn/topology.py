@@ -74,32 +74,31 @@ class KerasNet(Layer):
         return total
 
     # -- training facade (delegates to train.Estimator) -------------------
-    def compile(self, optimizer, loss, metrics=None, device=None,
-                sharding: str = "dp", compute_dtype: Optional[str] = None,
-                grad_accum_steps: int = 1):
-        """Configure training: ``optimizer`` / ``loss`` / ``metrics`` take
-        Keras names or objects; ``device`` defaults to the context's,
-        else ``cuda``; ``compute_dtype`` ("bfloat16") and
-        ``grad_accum_steps`` go to the ``Estimator``.  Re-compiling keeps
-        the live weights (they live in this net); weights staged by
-        ``set_initial_weights`` — before this call, or on the previous
-        estimator and not yet applied — carry over, and so does a
-        ``set_checkpoint`` made before it.  ``sharding`` is "dp" (one
-        device here); the JAX package's other regimes (tp / ep / sp / pp)
-        raise until the multi-GPU slice."""
+    def compile(self, optimizer, loss, metrics=None, sharding="dp",
+                aux_loss_weight: float = 0.01, grad_accum_steps: int = 1,
+                device=None, compute_dtype: Optional[str] = None):
+        """Configure training, in the JAX signature with the port's extras
+        after it: ``optimizer`` / ``loss`` / ``metrics`` take Keras names
+        or objects; ``sharding`` is "dp" (one device here; the JAX
+        package's other regimes, tp / ep / sp / pp, raise until the
+        multi-GPU slice); ``aux_loss_weight`` is accepted and inert until
+        the layers that emit auxiliary losses are ported (``moe.py``,
+        ROADMAP A9); ``grad_accum_steps`` and ``compute_dtype``
+        ("bfloat16") go to the ``Estimator``; ``device`` defaults to the
+        context's, else ``cuda``.  Re-compiling keeps the live weights
+        (they live in this net); weights staged by ``set_initial_weights``
+        — before this call, or on the previous estimator and not yet
+        applied — carry over, and so does a ``set_checkpoint`` made before
+        it."""
         from analytics_zoo_tpu_torch.train.estimator import Estimator
-
-        if sharding != "dp":
-            raise NotImplementedError(
-                f"sharding={sharding!r} (the sequence-parallel, pipeline and "
-                f"model-parallel regimes) needs the multi-GPU slice "
-                f"(ROADMAP A9); the port trains on one device")
 
         prev = self._estimator
         self._estimator = Estimator(self, optimizer=optimizer, loss=loss,
-                                    metrics=metrics, device=device,
+                                    metrics=metrics, sharding=sharding,
                                     compute_dtype=compute_dtype,
-                                    grad_accum_steps=grad_accum_steps)
+                                    aux_loss_weight=aux_loss_weight,
+                                    grad_accum_steps=grad_accum_steps,
+                                    device=device)
         carried = prev._initial if prev is not None else None
         if self._pending_init is not None:
             carried, self._pending_init = self._pending_init, None
@@ -178,7 +177,9 @@ class KerasNet(Layer):
     def evaluate(self, x, y=None, batch_size: int = 32):
         return self.estimator.evaluate(x, y, batch_size=batch_size)
 
-    def predict(self, x, batch_size: int = 32):
+    def predict(self, x, batch_size: int = 32, distributed: bool = True):
+        """``distributed`` is accepted and ignored, as the JAX package
+        ignores it."""
         return self.estimator.predict(x, batch_size=batch_size)
 
     def predict_classes(self, x, batch_size: int = 32,

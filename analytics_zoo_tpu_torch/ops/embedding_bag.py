@@ -5,12 +5,14 @@ The plain PyTorch versions (``embedding_bag_reference`` and
 scatter the (B, N, D) contributions, through device memory; the CUDA
 kernels (``csrc/embedding_bag.cu``, the ports of the JAX package's Pallas
 ``_fwd_kernel`` and ``_bwd_kernel``) read each row once and write only
-the (B, D) result, and scatter ``scale_b * g[b]`` straight into the
-(V, D) table gradient.  Tables of float32, bfloat16 and float16 sum in
-f32 and answer in the table's type, rounded once (the JAX kernel's rule);
-float64 tables sum in f64.  The backward takes ``g`` in f32, as the JAX
-rule does (``g.astype(jnp.float32)``), and ``_Bag`` casts the f32
-gradient to the table's type.
+the (B, D) result, and sum ``scale_b * g[b]`` per row in a fixed order
+(within chunks of slots, then the chunks in order), writing each row of
+the (V, D) table gradient once: the same bits on every run.  Tables of
+float32, bfloat16 and float16 sum in f32 and answer in the table's type,
+rounded once (the JAX kernel's rule); float64 tables sum in f64.  The
+backward takes ``g`` in f32, as the JAX rule does
+(``g.astype(jnp.float32)``), and ``_Bag`` casts the f32 gradient to the
+table's type.
 
 Routing (``ops.dispatch.select_path``, knob ``ZooConfig.fused_embedding``):
 a CUDA tensor launches the kernel unless the knob says ``off``; a CPU
@@ -21,7 +23,7 @@ both paths (the rule of the TPU kernel).
 Both lookups are one ``torch.autograd.Function`` (``_Bag``) on every
 device, differentiable with respect to the table: the forward saves only
 the ids and the table's shape (nothing under ``torch.no_grad`` or
-``torch.inference_mode``), and the backward is the scatter kernel, or
+``torch.inference_mode``), and the backward is the backward kernel, or
 its plain version on the CPU.  The backward is the true gradient of this
 forward: every live slot (``id != pad_id``, every slot when ``pad_id`` is
 None) scatters to its clipped row, negative ids included — where the JAX
@@ -31,7 +33,7 @@ kernel, with ``pad_id=None``, skips negative ids.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,9 +59,112 @@ _SIGNATURES = {
     # ..., dtype, piece, then the five fields of BagLayout
     "zoo_embedding_bag_fwd": (ctypes.c_int,
                               _ARGS + [ctypes.c_int] * 7 + _STREAM),
-    "zoo_embedding_bag_bwd_f32": (ctypes.c_int, _ARGS + _STREAM),
+    # ..., route, then the workspace: partials, prow, counters, list,
+    # heavy, state
+    "zoo_embedding_bag_bwd": (ctypes.c_int, _ARGS + [ctypes.c_int]
+                              + [ctypes.c_void_p] * 6 + _STREAM),
     "zoo_embedding_bag_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+# The backward's sizes (csrc/embedding_bag.cu: kTileSlots, kChunk,
+# kScanTile): the most slots the tile way takes, slots per chunk of the
+# lists way, and row counters per scan block.  The tile way's blocks each
+# read every id: it is taken while (V / 64 blocks) x (slots) stays under
+# BWD_TILE_READS.
+BWD_TILE_SLOTS = 16384
+BWD_TILE_ROWS = 64
+BWD_TILE_READS = 1 << 23
+BWD_CHUNK = 256
+BWD_SCAN_TILE = 8192
+_BWD_ROUTES = {"tile": 1, "lists": 2, "owned": 3}
+BWD_OWNED_SPAN = 64               # owned rows where B*N <= V <= 64 B*N
+_BWD_MAX = (1 << 31) - 1 - BWD_CHUNK       # V and B * N stay below it
+_ALIGN = 256
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel runs for one shape, and its workspace.
+
+    ``route`` is ``"none"`` (no slot or no column: no launch, the gradient
+    is zeros), ``"tile"`` (one kernel: each block owns a range of rows,
+    keeps the slots that land in them in slot order and writes its rows;
+    for at most ``BWD_TILE_SLOTS`` slots, rows of at most 32 column
+    pieces, and where the blocks' reads of the ids stay under
+    ``BWD_TILE_READS``) or
+    ``"lists"`` (a memset of the counters, then the chunk pass with row
+    counts, a scan, the placing of each partial in its row's list, the
+    pass over the rows of at most two partials, and the pass over the
+    rows of more, off two queues) or ``"owned"`` (the lists way where the
+    table has between B*N and ``BWD_OWNED_SPAN`` x B*N rows, so most rows
+    take their slots from one chunk: a pass first counts each row's
+    slots, and a chunk that holds all of a row's slots writes the row
+    itself).  ``sections`` are ``(name, byte offset, bytes)`` in one
+    workspace of ``workspace_bytes``; ``zeroed_bytes`` of it (the
+    counters) are zeroed by the C entry; ``device_ops`` counts the device
+    kernels and memsets one call issues."""
+
+    route: str
+    slots: int
+    chunks: int
+    device_ops: int
+    sections: Tuple[Tuple[str, int, int], ...]
+    workspace_bytes: int
+    zeroed_bytes: int
+
+
+def _vec_width(dim: int) -> int:
+    """Floats a lane moves at once: 4, 2 or 1, the widest that divides
+    ``dim`` (csrc: the backward's VW)."""
+    return 4 if dim % 4 == 0 else (2 if dim % 2 == 0 else 1)
+
+
+def bag_bwd_plan(vocab: int, dim: int, bags: int, nnz: int,
+                 route: Optional[str] = None) -> BwdPlan:
+    """The backward's route and workspace for a (vocab, dim) table and a
+    (bags, nnz) id block, from these shapes alone (so a graph replays the
+    same allocation).  ``route`` forces ``"tile"``, ``"lists"`` or
+    ``"owned"`` where the shape allows it (tests run each at one shape)."""
+    vocab, dim, bags, nnz = int(vocab), int(dim), int(bags), int(nnz)
+    if min(vocab, dim, bags, nnz) < 0:
+        raise ValueError(f"negative size in table ({vocab}, {dim}) or ids "
+                         f"({bags}, {nnz})")
+    slots = bags * nnz
+    if slots == 0 or dim == 0:
+        return BwdPlan("none", slots, 0, 0, (), 0, 0)
+    if vocab < 1 or vocab > _BWD_MAX or slots > _BWD_MAX:
+        raise ValueError(f"embedding_bag backward kernel takes fewer than "
+                         f"{_BWD_MAX + 1} rows and slots, got a ({vocab}, "
+                         f"{dim}) table and ({bags}, {nnz}) ids")
+    fits = (slots <= BWD_TILE_SLOTS and dim // _vec_width(dim) <= 32)
+    if fits and -(-vocab // BWD_TILE_ROWS) * slots <= BWD_TILE_READS:
+        auto = "tile"
+    elif slots <= vocab <= BWD_OWNED_SPAN * slots:
+        auto = "owned"
+    else:
+        auto = "lists"
+    route = auto if route is None else route
+    if route not in _BWD_ROUTES or (route == "tile" and not fits):
+        raise ValueError(f"route {route!r} does not take ({bags}, {nnz}) "
+                         f"ids and rows of {dim}")
+    if route == "tile":
+        return BwdPlan("tile", slots, 0, 1, (), 0, 0)
+    chunks = -(-slots // BWD_CHUNK)
+    cap = chunks * BWD_CHUNK
+    tiles = -(-(vocab + 1) // BWD_SCAN_TILE)
+    # counts, tile sums, heavy rows, and each row's slots for owned rows
+    # from the next 16 bytes
+    lead = vocab + 3 + tiles
+    zeroed = 4 * (-(-lead // 4) * 4 + vocab if route == "owned" else lead)
+    sizes = [("counters", zeroed), ("list", 4 * cap),
+             ("heavy", 4 * min(vocab, cap // 2)), ("prow", 4 * cap),
+             ("state", vocab + 1), ("partials", 4 * cap * dim)]
+    sections, at = [], 0
+    for name, nbytes in sizes:
+        sections.append((name, at, nbytes))
+        at += -(-nbytes // _ALIGN) * _ALIGN
+    return BwdPlan(route, slots, chunks, 7 if route == "owned" else 6,
+                   tuple(sections), at, zeroed)
 
 
 class BagLayout(NamedTuple):
@@ -218,10 +323,12 @@ def _launch(table, ids, combiner, pad_id):
     return out
 
 
-def _launch_bwd(vocab, ids, g, combiner, pad_id):
+def _launch_bwd(vocab, ids, g, combiner, pad_id, route=None):
     """Run the backward kernel: (B, N) ``ids`` and (B, D) ``g``, widened
-    (or narrowed) to f32, into a fresh (vocab, D) f32 gradient,
-    zero-filled by the kernel's entry."""
+    (or narrowed) to f32, into a fresh (vocab, D) f32 gradient that the
+    kernel writes whole.  The workspace is sized by ``bag_bwd_plan`` from
+    the shapes alone and taken from the caching allocator on the current
+    stream; nothing here waits on the device."""
     if g.device.type != "cuda" or ids.device != g.device:
         raise ValueError(f"embedding_bag backward kernel needs ids and g on "
                          f"one CUDA device, got {ids.device} and {g.device}")
@@ -233,16 +340,22 @@ def _launch_bwd(vocab, ids, g, combiner, pad_id):
     g = g.to(torch.float32).contiguous()        # the JAX rule: g in f32
     bags, nnz = ids32.shape
     dim = g.shape[1]
-    if bags == 0:
+    plan = bag_bwd_plan(vocab, dim, bags, nnz, route)
+    if plan.route == "none":
         return torch.zeros((vocab, dim), dtype=torch.float32, device=g.device)
     dtab = torch.empty((vocab, dim), dtype=torch.float32, device=g.device)
+    work = torch.empty(plan.workspace_bytes, dtype=torch.uint8,
+                       device=g.device)
+    at = {name: work.data_ptr() + off for name, off, _ in plan.sections}
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().zoo_embedding_bag_bwd_f32(
+        rc = _lib().zoo_embedding_bag_bwd(
             ids32.data_ptr(), g.data_ptr(), dtab.data_ptr(), vocab, dim,
             bags, nnz, int(pad_id is not None),
             0 if pad_id is None else int(pad_id), _COMBINER_CODE[combiner],
-            stream)
+            _BWD_ROUTES[plan.route], at.get("partials"), at.get("prow"),
+            at.get("counters"), at.get("list"), at.get("heavy"),
+            at.get("state"), stream)
     _raise_on(rc, "backward", f"table ({vocab}, {dim}), ids "
               f"{tuple(ids32.shape)} and g {tuple(g.shape)}")
     BWD_LAUNCHES.add()
@@ -257,7 +370,7 @@ def embedding_bag_backward(vocab: int, ids, g, combiner: str = "sum",
                            pad_id=0):
     """The (vocab, D) f32 gradient of ``embedding_bag`` with respect to
     its table, for (B, N) ``ids`` and the (B, D) output gradient ``g``:
-    the scatter kernel for a CUDA tensor, the plain version on the CPU
+    the backward kernel for a CUDA tensor, the plain version on the CPU
     (``select_path("embedding_bag_bwd")``, knob ``fused_embedding``)."""
     path = dispatch.select_path("embedding_bag_bwd", device=g.device,
                                 knob=_knob())
@@ -268,7 +381,7 @@ def embedding_bag_backward(vocab: int, ids, g, combiner: str = "sum",
 
 
 class _Bag(torch.autograd.Function):
-    """The bag lookup with its scatter backward.  ``path`` is the
+    """The bag lookup with its kernel backward.  ``path`` is the
     forward's routing decision; ``save`` is False when the caller's grad
     mode is off, so serving under ``inference_mode`` keeps nothing."""
 

@@ -268,10 +268,15 @@ def _unpickled(meta, key):
 class Estimator:
     """fit / evaluate / predict over a ``KerasNet`` on one device.
 
-    ``device`` defaults to the context's, else ``cuda`` (raising when
-    there is none); pass ``device="cpu"`` to train on the CPU.
-    ``compute_dtype`` defaults to ``ZooConfig.compute_dtype``;
-    ``grad_accum_steps`` > 1 applies one update per that many batches.
+    The JAX signature, with the port's ``device`` after it.  ``sharding``
+    is "dp" (one device; the other regimes raise until the multi-GPU
+    slice, ROADMAP A9).  ``compute_dtype`` defaults to
+    ``ZooConfig.compute_dtype``; ``aux_loss_weight`` is accepted and inert
+    until the layers that emit auxiliary losses are ported (``moe.py``,
+    A9); ``grad_accum_steps`` > 1 applies one update per that many
+    batches.  ``device`` defaults to the context's, else ``cuda``
+    (raising when there is none); pass ``device="cpu"`` to train on the
+    CPU.
     """
 
     def __init__(self, model, optimizer="adam", loss="mse",
@@ -279,9 +284,17 @@ class Estimator:
                  ctx: Optional[ZooContext] = None,
                  grad_clip_norm: Optional[float] = None,
                  grad_clip_value: Optional[float] = None,
-                 device=None, compute_dtype: Optional[str] = None,
-                 grad_accum_steps: int = 1):
+                 sharding="dp", compute_dtype: Optional[str] = None,
+                 aux_loss_weight: float = 0.01,
+                 grad_accum_steps: int = 1, device=None):
+        if sharding != "dp":
+            raise NotImplementedError(
+                f"sharding={sharding!r} (the sequence-parallel, pipeline and "
+                f"model-parallel regimes) needs the multi-GPU slice "
+                f"(ROADMAP A9); the port trains on one device")
         self.model = model
+        self.aux_loss_weight = aux_loss_weight
+        self._sharding_strategy = sharding
         tx = optim_lib.get(optimizer)
         # clip wraps the base optimizer inside the accumulation, so it
         # sees the accumulated mean gradient

@@ -46,10 +46,11 @@
    magnitude of the terms: one rounding of an f32 sum);
    embedding-bag backward atol 1e-6 plus rtol 1e-5 of the summed
    magnitude of each element's contributions (|dT| itself where a row
-   gets one add; duplicate ids meet in f32 atomics whose order is free,
-   so a hot row's cancelling sum cannot be held to 1e-5 of itself),
-   also on a table of 2^31 + 192 elements (V = 2^25 + 3, D = 64, ids
-   at both ends and past 2^31 elements);
+   gets one add; the kernel adds duplicate ids in another fixed order
+   than ``index_add_``, so a hot row's cancelling sum cannot be held to
+   1e-5 of itself), and the same bits from a second call and from a
+   CUDA graph's replay, also on a table of 2^31 + 192 elements (V = 2^25
+   + 3, D = 64, ids at both ends and past 2^31 elements);
    dequantize-matmul f32 (and f64) x max |err| <= 1e-4 * max |plain|
    (K-long f32 sums in another order), bf16 and f16 x |err| <= 2^-7 or
    2^-10 * |plain| + 1e-5 * max |plain| (both f32 results rounded once
@@ -111,10 +112,11 @@
    weights within atol 1e-6; the loss must fall from epoch 1 to epoch
    3; every step launches exactly 4 bag forwards, 4 bag backwards and
    no dequantize-matmul.  The final weights after 3 epochs are reported
-   beside a second plain run's, not held to a bound: both backward
-   paths add duplicate ids with atomics in a free order, and Adam turns
-   those last-bit differences into larger ones on a few elements, so
-   two plain runs differ from each other too.  One more epoch runs
+   beside a second plain run's, not held to a bound: the two paths add
+   duplicate ids in different orders (the plain one, ``index_add_``, with
+   atomics in a free order), and Adam turns those last-bit differences
+   into larger ones on a few elements, so two plain runs differ from
+   each other too.  One more epoch runs
    under ``torch.profiler`` for the device's busy share.
 5. BERT serving phase (the third main path): BERTClassifier at the
    BERT-Base width (vocab 30522, hidden 768, 12 blocks, 12 heads,
@@ -332,10 +334,11 @@
    held-out eighth): untimed epochs, timed epochs with the bag kernels'
    counts read around them, one profiled epoch; the loss must fall, the
    held-out accuracy reach 0.9; a graphed and an eager f32 run of 24
-   steps from one init agree within ``TEXT_GRAPHED_REL`` of their
-   movement (L2; kernel 2's atomics on the padding row have no fixed
-   order, so they are not bit-equal), and of two epochs, f32 and bf16,
-   in their last epoch's loss within ``TEXT_GRAPHED_LOSS_REL``.  The
+   steps from one init give the same bits with cuDNN's deterministic
+   convolutions, and agree within ``TEXT_GRAPHED_REL`` of their movement
+   with cuDNN free (L2; its convolution backward has no fixed order), and
+   of two epochs, f32 and bf16, in their last epoch's loss within
+   ``TEXT_GRAPHED_LOSS_REL``.  The
    LSTM and GRU encoders at the same widths train graphed in bf16 over
    T = 500 on 2,048 rows (``TEXT_RNN_TRAIN``, the smoke's choice), the
    second of two epochs timed, one eager step profiled for its kernels.
@@ -435,7 +438,7 @@ P_WEIGHTS_REL = 5e-2
 BF16_PLAIN_LOSS_RTOL = 2.0 ** -5
 # grad_accum_steps=2 at batch 1024 against batch 2048 (SGD, lr 0.05): f32
 # sums of the two half-batch means against one mean, duplicate ids added
-# by atomics in a free order, over 58 steps.  At lr 0.5 the two runs part
+# in another order, over 58 steps.  At lr 0.5 the two runs part
 # on the card after 8 to 16 steps by up to 6e-3 (and stay within 1e-7 on
 # the CPU): a step that large carries one run across a kink the other
 # does not cross (a ReLU's, or the loss's clip at 1e-7), while at 0.05 and
@@ -645,12 +648,33 @@ def zipf_ids(torch, gen, vocab, shape, s=1.0):
     return torch.searchsorted(cdf, u).clamp_(max=vocab - 1).to(torch.int32)
 
 
+def replayed(torch, fn):
+    """``fn()``'s result from one replay of a CUDA graph that captured it
+    (after a warm-up call on a side stream, as ``device_ms`` does)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    return out
+
+
 def bag_bwd_case(torch, eb, label, vocab, dim, bags, nnz, combiner,
                  pad_id, clip=False, zipf=False, iters=200, ids=None):
     """The backward kernel against its plain version (``ids``, a (bags,
-    nnz) int32 CUDA tensor, gives the ids).  A table of 2^31 elements or
-    more also gets ids at both of its ends and at the first row past
-    2^31 elements; its 8 GiB buffers are freed before the timings."""
+    nnz) int32 CUDA tensor, gives the ids).  Tolerance: 1e-6 + 1e-5 of
+    each element's summed magnitude (the kernel adds in another fixed
+    order than ``index_add_``).  The kernel is deterministic, and this is
+    held bit for bit: a second call and one replay of a CUDA graph that
+    captured it give the first call's bits.  A table of 2^31 elements or
+    more also gets ids at both of its ends and at the first row past 2^31
+    elements; its 8 GiB buffers are freed before the timings."""
     g_ = torch.Generator(device="cuda").manual_seed(SEED + 7 * vocab + nnz)
     ids_given = ids is not None
     if not ids_given and zipf:
@@ -666,17 +690,27 @@ def bag_bwd_case(torch, eb, label, vocab, dim, bags, nnz, combiner,
         ids[torch.rand(bags, nnz, device="cuda", generator=g_) < 0.25] = \
             pad_id
     grad = torch.randn(bags, dim, device="cuda", generator=g_)
-    got = eb.embedding_bag_backward(vocab, ids, grad, combiner, pad_id)
+    plan = eb.bag_bwd_plan(vocab, dim, bags, nnz)
+
+    def kernel():
+        return eb.embedding_bag_backward(vocab, ids, grad, combiner, pad_id)
+
+    got = kernel()
+    bits = {"bit_equal_repeat": bool(torch.equal(kernel(), got)),
+            "bit_equal_graph_replay": bool(torch.equal(
+                replayed(torch, kernel), got))}
+    torch.cuda.empty_cache()
     ref = eb.embedding_bag_backward_reference(vocab, ids, grad, combiner,
                                               pad_id)
     mass = eb.embedding_bag_backward_reference(vocab, ids, grad.abs(),
                                                combiner, pad_id)
     torch.cuda.synchronize()
     err = (got - ref).abs()
-    ok = bool(torch.all(err <= 1e-6 + 1e-5 * mass))
+    ok = bool(torch.all(err <= 1e-6 + 1e-5 * mass)) and all(bits.values())
     max_abs_err = float(err.max())
     max_rel_err = float((err / mass.clamp_min(1e-30)).max())
     del got, ref, mass, err
+    torch.cuda.empty_cache()
     live = (torch.ones_like(ids, dtype=torch.bool) if pad_id is None
             else ids != pad_id)
     n_live = int(live.sum())
@@ -691,25 +725,30 @@ def bag_bwd_case(torch, eb, label, vocab, dim, bags, nnz, combiner,
             0, lids, contrib)
 
     rows = int(torch.unique(lids).numel())
+    hottest = int(torch.bincount(lids).max()) if n_live else 0
     case = {
         "case": label, "vocab": vocab, "dim": dim, "bags": bags,
         "nnz": nnz, "combiner": combiner, "pad_id": pad_id, "clip": clip,
         "zipf": zipf, "given_ids": ids_given, "live_slots": n_live,
-        "distinct_rows": rows,
+        "distinct_rows": rows, "hottest_row_slots": hottest,
         "table_elements": vocab * dim,
+        "route": plan.route, "chunks": plan.chunks,
+        "device_kernels_per_call": plan.device_ops,
+        "workspace_bytes": plan.workspace_bytes,
+        "zeroed_bytes": plan.zeroed_bytes, **bits,
         "max_abs_err": max_abs_err, "max_rel_err": max_rel_err,
         **bound(4 * (vocab * dim + bags * dim + bags * nnz),
                 n_live * dim + bags * dim),
         **timings(torch, {
-            "kernel": lambda: eb.embedding_bag_backward(
-                vocab, ids, grad, combiner, pad_id),
+            "kernel": kernel,
             "plain": lambda: eb.embedding_bag_backward_reference(
                 vocab, ids, grad, combiner, pad_id),
             "library": library}, iters),
     }
     if not ok:
         raise AssertionError(f"embedding_bag backward kernel disagrees with "
-                             f"its plain version: {case}")
+                             f"its plain version or is not deterministic: "
+                             f"{case}")
     return case
 
 
@@ -3883,13 +3922,14 @@ REC_KERNEL_KINDS = (
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "foreach", "copy", "fill", "cat")),
 )
-# Graphed against eager: the bag backward adds a table's duplicate ids
-# with f32 atomics in a free order, so two runs of the same steps differ
-# in the last bits of those rows' gradients; in bf16 such a sum may round
-# one bf16 step apart, which Adam passes on as a change of up to 2^-8 of
-# that element's update.  The parameters' L2 distance is held within
-# REC_GRAPHED_REL of how far the graphed run moved them from the init (a
-# stale or skipped captured step moves them by its whole update).
+# Graphed against eager: a kernel whose order of adds is not fixed makes
+# two runs of the same steps differ in the last bits of some gradients
+# (the bag backward was one until its deterministic redesign); in bf16
+# such a sum may round one bf16 step apart, which Adam passes on as a
+# change of up to 2^-8 of that element's update.  The parameters' L2
+# distance is held within REC_GRAPHED_REL of how far the graphed run moved
+# them from the init (a stale or skipped captured step moves them by its
+# whole update).
 REC_GRAPHED_REL = 1e-3
 # Served answers against the plain f32 forward on the card: within
 # REC_SERVE_REL of each row's largest probability (kernel 3's f32 x takes
@@ -4311,21 +4351,23 @@ TEXT_RNN_TRAIN = dict(rows=2048, batch=128, k=1, lr=1e-3, epochs=2,
                       timed=1)
 TEXT_BUCKETS = (1, 8, 64, 128)
 TEXT_LOSS = "sparse_categorical_crossentropy_with_logits"
-# Graphed against eager from one init, in f32: the bag backward adds the
-# 64,000 contributions of a step with f32 atomics in a free order,
-# thousands of them (every pad position) into row 0, so two runs differ in
-# that row's last bits from the first step on; after TEXT_GRAPHED_STEPS
-# steps (three 8-step dispatches: the eager warm-up, the capture, a
-# replay) the parameters' L2 distance is held within TEXT_GRAPHED_REL of
-# the graphed run's movement from the init (a stale or skipped captured
-# step moves them by a share of its whole update).  Over two epochs the
-# difference grows through the training's own sensitivity (the max pool's
-# argmax, Adam's normalised steps on near-zero gradients) to a share of
-# the movement (0.13-0.49 in f32 and bf16 on an H100, 700 W): there the
-# parameters' distance is reported, and the last epoch's losses are held
-# within TEXT_GRAPHED_LOSS_REL of each other (they parted by up to 4.7%;
-# the loss falls 17-fold from the first epoch to the second, so a run
-# whose replays went stale would be far outside the band)
+# Graphed against eager from one init, in f32.  The bag backward is
+# deterministic, and with cuDNN's deterministic convolutions the two runs
+# are held to the same bits after TEXT_GRAPHED_STEPS steps (three 8-step
+# dispatches: the eager warm-up, the capture, a replay).  With cuDNN free
+# to pick its convolution backward (the default, as the training runs
+# use) the runs differ in the last bits from the first step on (two eager
+# runs do too): there the parameters' L2 distance is held within
+# TEXT_GRAPHED_REL of the graphed run's movement from the init (a stale
+# or skipped captured step moves them by a share of its whole update).
+# Over two epochs the difference grows through the training's own
+# sensitivity (the max pool's argmax, Adam's normalised steps on
+# near-zero gradients) to a share of the movement (0.13-0.49 in f32 and
+# bf16 on an H100, 700 W): there the parameters' distance is reported,
+# and the last epoch's losses are held within TEXT_GRAPHED_LOSS_REL of
+# each other (they parted by up to 4.7%; the loss falls 17-fold from the
+# first epoch to the second, so a run whose replays went stale would be
+# far outside the band)
 TEXT_GRAPHED_STEPS = 24
 TEXT_GRAPHED_REL = 1e-3
 TEXT_GRAPHED_LOSS_REL = 0.2
@@ -4413,10 +4455,18 @@ def text_training(torch, eb, x, y, card):
                                 cfg["epochs"], True, timed=cfg["timed"])
     res = m.evaluate(x[:held], y[:held], batch_size=cfg["batch"])
     short = TEXT_GRAPHED_STEPS * cfg["batch"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:  # the same 24 steps with cuDNN's deterministic convolutions
+        same_bits = graphed_vs_eager(torch, eb, init, cfg, [dev[0][:short]],
+                                     yd[:short], 1, None)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     compare = {
         "f32_24_steps": graphed_vs_eager(torch, eb, init, cfg,
                                          [dev[0][:short]], yd[:short], 1,
                                          None),
+        "f32_24_steps_cudnn_deterministic": same_bits,
         "f32_2_epochs": graphed_vs_eager(torch, eb, init, cfg, dev, yd, 2,
                                          None),
         "bf16_2_epochs": graphed_vs_eager(torch, eb, init, cfg, dev, yd, 2,
@@ -4439,7 +4489,8 @@ def text_training(torch, eb, x, y, card):
     drift = [abs(p["graphed_epoch_loss"][-1] / p["eager_epoch_loss"][-1]
                  - 1.0) for k, p in compare.items() if k.endswith("epochs")]
     if (compare["f32_24_steps"]["params_l2_rel"] > TEXT_GRAPHED_REL
-            or max(drift) > TEXT_GRAPHED_LOSS_REL):
+            or max(drift) > TEXT_GRAPHED_LOSS_REL
+            or not same_bits["bit_equal"]):
         raise AssertionError(f"text: graphed left the eager run: {compare}")
     if not timed["programs"] or not all(timed["launches"].values()):
         raise AssertionError(f"text: no captured step program, or a bag "
@@ -5243,6 +5294,8 @@ def main() -> int:
     ]
     kernels[0]["launches_by_path"] = fwd_by_path
     kernels[1]["launches_by_path"] = bwd_by_path
+    kernels[1]["device_kernels_per_call"] = {
+        c["case"]: c["device_kernels_per_call"] for c in bwd_cases}
     dq_f32 = [c for c in dq_cases if c["dtype"] == "float32"]
     kernels[2]["max_abs_err"] = max(c["max_abs_err"] for c in dq_f32)
     kernels[2]["max_rel_err"] = max(c["max_rel_err"] for c in dq_f32)

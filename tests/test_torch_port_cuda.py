@@ -188,9 +188,10 @@ def test_ncf_serving_on_card_matches_cpu(cuda_device, weight_dtype):
 @pytest.mark.parametrize("pad_id", [0, None])
 def test_bag_backward_kernel_matches_plain_on_card(cuda_device, combiner,
                                                    pad_id):
-    """The scatter kernel against the plain backward: duplicates within
-    and across bags, the clip rule, an all-pad bag.  Atomic adds sum the
-    duplicates in a run-dependent order: rtol 1e-5, atol 1e-6."""
+    """The backward kernel against the plain backward: duplicates within
+    and across bags, the clip rule, an all-pad bag.  The kernel sums the
+    duplicates in another fixed order than ``index_add_``: rtol 1e-5,
+    atol 1e-6."""
     _, ids = _bag_inputs(6041, 20, 515, 4, pad_id, seed=2)
     ids[1, :] = 7
     ids[2:40, 0] = 7
@@ -204,12 +205,136 @@ def test_bag_backward_kernel_matches_plain_on_card(cuda_device, combiner,
     assert teb.BWD_LAUNCHES.value == n0 + 1
     want = teb.embedding_bag_backward_reference(6041, i, g, combiner, pad_id)
     # rtol against the summed magnitude of each element's contributions
-    # (|dT| itself where a row gets one add): the atomic order is free
+    # (|dT| itself where a row gets one add): the order of adds differs
     mass = teb.embedding_bag_backward_reference(6041, i, g.abs(), combiner,
                                                 pad_id)
     assert bool(((got - want).abs() <= 1e-6 + RTOL * mass).all())
     empty = teb.embedding_bag_backward(6041, i[:0], g[:0], combiner, pad_id)
     assert teb.BWD_LAUNCHES.value == n0 + 1 and not empty.any()
+
+
+def _replayed(fn):
+    """``fn()``'s result from one replay of a CUDA graph that captured it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _front_padded_ids(docs, length, vocab, seed):
+    """(docs * length, 1) ids of documents of 100 .. length Zipf words,
+    front-padded with id 0 (``TextSet.shape_sequence``'s rule), as the
+    TextClassifier's gather flattens them."""
+    rs = np.random.RandomState(seed)
+    ids = np.zeros((docs, length), np.int32)
+    for d in range(docs):
+        n = rs.randint(100, length + 1)
+        ids[d, length - n:] = 1 + (rs.zipf(1.2, n) - 1) % (vocab - 1)
+    return ids.reshape(-1, 1)
+
+
+def _routes(vocab, dim, bags, nnz):
+    """The backward's ways that take this shape: the tile way where it
+    fits, and the lists way with and without owned rows."""
+    tile = teb.bag_bwd_plan(vocab, dim, bags, nnz).route == "tile"
+    return (["tile"] if tile else []) + ["lists", "owned"]
+
+
+def _check_deterministic(vocab, ids, g, combiner, pad_id, routes):
+    """Each route: two calls and a graph replay give the same bits, within
+    1e-6 + 1e-5 of the summed magnitude of the plain version.  Returns
+    the first route's gradient."""
+    want = teb.embedding_bag_backward_reference(vocab, ids, g, combiner,
+                                                pad_id)
+    mass = teb.embedding_bag_backward_reference(vocab, ids, g.abs(),
+                                                combiner, pad_id)
+    first = None
+    for route in routes:
+        def call(route=route):
+            return teb._launch_bwd(vocab, ids, g, combiner, pad_id, route)
+        got = call()
+        assert torch.equal(call(), got), route
+        assert torch.equal(_replayed(call), got), route
+        assert bool(((got - want).abs() <= 1e-6 + RTOL * mass).all()), route
+        first = got if first is None else first
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["text_front_padded", "one_row",
+                                  "all_pad"])
+def test_bag_backward_is_deterministic_on_card(cuda_device, case):
+    """The backward's bits depend on its inputs alone: two calls, and a
+    CUDA graph's replay against the eager call, at the TextClassifier's
+    front-padded shape (64,000 gathers into a (5001, 200) table, about
+    40% of them into row 0), with 65,536 ids all 7 (one row takes every
+    slot), and on an all-pad batch with ``pad_id=0`` (a zero gradient)."""
+    rs = np.random.RandomState(11)
+    if case == "text_front_padded":
+        vocab, dim, combiner, pad_id = 5001, 200, "sum", None
+        ids = _front_padded_ids(128, 500, vocab, 12)
+    elif case == "one_row":
+        vocab, dim, combiner, pad_id = 5001, 20, "sum", None
+        ids = np.full((65536, 1), 7, np.int32)
+    else:
+        vocab, dim, combiner, pad_id = 6041, 20, "mean", 0
+        ids = np.zeros((515, 4), np.int32)
+    i = torch.from_numpy(ids).to(cuda_device)
+    g = torch.from_numpy(rs.randn(len(ids), dim).astype(np.float32)).to(
+        cuda_device)
+    got = _check_deterministic(vocab, i, g, combiner, pad_id,
+                               _routes(vocab, dim, *ids.shape))
+    if case == "all_pad":
+        assert not got.any()
+    if case == "one_row":
+        assert not torch.cat([got[:7], got[8:]]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", teb.COMBINERS)
+@pytest.mark.parametrize("pad_id", [0, None])
+def test_bag_backward_routes_are_deterministic_on_card(cuda_device,
+                                                        combiner, pad_id):
+    """The tile and lists ways of the backward (with and without owned
+    rows), each deterministic and within tolerance at one shape, with
+    clipped ids -7 and 10^6 and an all-pad bag among the slots."""
+    _, ids = _bag_inputs(6041, 20, 515, 4, pad_id, seed=6)
+    ids[1, :] = 7
+    ids[2:40, 0] = 7
+    ids[3, 1], ids[4, 2] = -7, 10 ** 6
+    rs = np.random.RandomState(7)
+    g = torch.from_numpy(rs.randn(515, 20).astype(np.float32)).to(cuda_device)
+    i = torch.from_numpy(ids).to(cuda_device)
+    assert teb.bag_bwd_plan(6041, 20, 515, 4).route == "tile"
+    _check_deterministic(6041, i, g, combiner, pad_id,
+                         ["tile", "lists", "owned"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 2, 20, 200])
+@pytest.mark.parametrize("bags,nnz", [(1000, 3), (40000, 1)])
+def test_bag_backward_widths_and_ragged_chunks_on_card(cuda_device, dim,
+                                                       bags, nnz):
+    """Row widths of 1, 2, 20 and 200 floats (one, two and four columns a
+    lane), and slot counts that are no multiple of the 256-slot chunk
+    (3,000 through both ways where the row fits the tile way; 40,000
+    through the lists way), Zipf ids with a pad id, the mean combiner."""
+    rs = np.random.RandomState(dim + bags)
+    vocab = 3001
+    ids = ((rs.zipf(1.3, (bags, nnz)) - 1) % vocab).astype(np.int32)
+    ids[rs.rand(bags, nnz) < 0.2] = 3
+    i = torch.from_numpy(ids).to(cuda_device)
+    g = torch.from_numpy(rs.randn(bags, dim).astype(np.float32)).to(
+        cuda_device)
+    _check_deterministic(vocab, i, g, "mean", 3,
+                         _routes(vocab, dim, bags, nnz))
 
 
 @pytest.mark.cuda
@@ -715,11 +840,11 @@ def test_multihead_attention_wider_than_the_kernel_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_bag_backward_takes_a_table_past_2_31_elements_on_card(cuda_device):
-    """The scatter kernel on a (2^25 + 3, 64) table, V * D just past 2^31
+    """The backward kernel on a (2^25 + 3, 64) table, V * D just past 2^31
     (an 8 GiB gradient): one launch, and the plain version's gradient on
     every touched row -- row 0, row V - 1 and the first rows past 2^31
     elements among them -- and in the sum of the whole gradient; every
-    other row stays 0."""
+    other row stays 0; a second call gives the same bits."""
     vocab, dim = (1 << 25) + 3, 64
     rs = np.random.RandomState(5)
     ids = rs.randint(0, vocab, (256, 8)).astype(np.int32)
@@ -734,6 +859,8 @@ def test_bag_backward_takes_a_table_past_2_31_elements_on_card(cuda_device):
     torch.cuda.synchronize()
     assert teb.BWD_LAUNCHES.value == n0 + 1
     assert got.shape == (vocab, dim)
+    assert torch.equal(teb.embedding_bag_backward(vocab, i, g, "mean", None),
+                       got)
     rows = torch.unique(i.long()).to(cuda_device)
     total = float(got.sum(dtype=torch.float64))
     touched = got[rows].clone()
