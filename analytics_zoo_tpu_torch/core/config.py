@@ -126,7 +126,8 @@ class ZooConfig:
     serving_slo_p99_ms: float = 0.0
     serving_slo_window_s: float = 5.0
     # Queue transport: "memory", "file" (spool directory, binary framed
-    # records), "shm" (shared-memory ring) or "redis" (not ported).
+    # records), "shm" (shared-memory ring) or "redis" (needs the redis
+    # package and a server).
     serving_queue_backend: str = "memory"
     # ShmQueue arena geometry: ring capacity in records and the byte cap
     # per request slot / per result slot.

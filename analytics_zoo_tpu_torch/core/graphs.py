@@ -44,7 +44,11 @@ Only one capture may be underway in a process (PyTorch's rule), so
 captures take a process-wide lock.  They use ``capture_error_mode=
 "thread_local"``: the prefetch thread's pinned copies and event waits,
 and other models' threads, go on during a capture; the capturing thread
-itself may make no call that synchronises.
+itself may make no call that synchronises.  The libraries keep a handle
+per thread (cuBLAS, cuBLASLt, cuDNN), and making one inside a capture
+invalidates it, so a thread makes its handles before its first capture
+(``_thread_handles``): a serving signature's warm-up may have run in
+another thread than the one that captures it.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ CAPTURE_ERROR_MODE = "thread_local"
 _DISABLED = 0
 _DISABLED_LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
+_THREAD = threading.local()
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -112,6 +117,24 @@ def _culprit(exc: BaseException) -> str:
                     f":{f.lineno}: {f.line}")
         exc = exc.__cause__ or exc.__context__
     return "no frame of the port"
+
+
+def _thread_handles(device: torch.device) -> None:
+    """Make this thread's cuBLAS, cuBLASLt and cuDNN handles on
+    ``device`` (a tiny matmul, a linear with bias and a convolution),
+    once per thread and device, outside any capture."""
+    done = getattr(_THREAD, "devices", None)
+    if done is None:
+        done = _THREAD.devices = set()
+    if device in done:
+        return
+    a = torch.ones(8, 8, device=device)
+    torch.mm(a, a)
+    torch.nn.functional.linear(a, a, a[0])
+    if torch.backends.cudnn.is_available():
+        torch.nn.functional.conv2d(a.view(1, 1, 8, 8), a[:3, :3].reshape(
+            1, 1, 3, 3))
+    done.add(device)
 
 
 class StepGraph:
@@ -181,6 +204,7 @@ class StepGraph:
         with _CAPTURE_LOCK:
             if not self._warmed:
                 self.warm_up()
+            _thread_handles(self.device)
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             try:

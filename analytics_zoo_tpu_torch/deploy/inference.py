@@ -118,9 +118,62 @@ def _net_forward(net, xs):
     cd = floats[0] if floats else torch.float32
     for d in floats[1:]:
         cd = torch.promote_types(cd, d)
-    if cd not in (torch.bfloat16, torch.float16):
+    if cd not in (torch.bfloat16, torch.float16) or isinstance(
+            net, _FunctionNet):
         return net(*xs)
     return torch.func.functional_call(net, cast_floats(net, cd), xs)
+
+
+class _FunctionNet(torch.nn.Module):
+    """A torch function of the inputs as the net of a model's bucket
+    programs (``InferenceModel.from_function``).  It runs on the inputs
+    as they come, bf16 included (no cast of its weights).  When ``fn`` is
+    a module, its weights are its ``state_dict``; ``identity`` names the
+    function in the model's fingerprint, so two functions never share a
+    compile cache's signatures."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+        code = getattr(fn, "__code__", None)
+        self.identity = ":".join((
+            getattr(fn, "__module__", None) or "",
+            getattr(fn, "__qualname__", type(fn).__qualname__),
+            hashlib.sha256(code.co_code).hexdigest()[:16] if code else ""))
+
+    def forward(self, *xs):
+        return self.fn(*xs)
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return (dict(self.fn.state_dict())
+                if isinstance(self.fn, torch.nn.Module) else {})
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        return {}
+
+
+def _device_tensor(x, device: torch.device) -> torch.Tensor:
+    """One numpy input (the codec's ``BFLOAT16`` included) as a tensor on
+    ``device``."""
+    from analytics_zoo_tpu_torch.deploy.codec import BFLOAT16, bf16_to_torch
+
+    x = np.asarray(x)
+    t = (bf16_to_torch(x) if x.dtype == BFLOAT16
+         else torch.from_numpy(np.ascontiguousarray(x)))
+    return t.to(device)
+
+
+def _eager_forward(fn: Callable, device: torch.device) -> Callable:
+    """``forward`` of a function model that calls ``fn`` eagerly on the
+    device for every padded batch: numpy in, numpy out."""
+    def forward(inputs: List[np.ndarray]):
+        with torch.inference_mode():
+            out = fn(*[_device_tensor(x, device) for x in inputs])
+        if isinstance(out, (list, tuple)):
+            return [_host_view(o.detach().cpu().contiguous()) for o in out]
+        return _host_view(out.detach().cpu().contiguous())
+
+    return forward
 
 
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -588,6 +641,7 @@ class InferenceModel:
         h = hashlib.sha256()
         h.update((type(self._net).__name__ if self._net is not None
                   else "<fn>").encode())
+        h.update(getattr(self._net, "identity", "").encode())
         h.update(self._weight_dtype.encode())
 
         def walk(tree, path):
@@ -614,12 +668,14 @@ class InferenceModel:
         """Wire a ``deploy.compile_cache.CompileCache`` into the dispatch
         path: every signature captured live is persisted, and ``warm()``
         on the next process start captures them all up front.  Only a
-        model with a native net qualifies: a function model has no
-        program to capture."""
+        model with bucket programs qualifies (``from_keras_net``, or
+        ``from_function`` with ``jit=True``): an eager function model has
+        no program to capture."""
         if self._net is None:
             raise ValueError(
-                "attach_compile_cache needs a native net (from_keras_net); "
-                "a function model has no program to capture")
+                "attach_compile_cache needs bucket programs: a native net "
+                "(from_keras_net) or from_function(jit=True); an eager "
+                "function model has no program to capture")
         self._cache = cache
         if name:
             self.name = str(name)
@@ -775,6 +831,45 @@ class InferenceModel:
         m = cls(None, **kw)
         m._net, m._weight_dtype, m.device = net, weight_dtype, device
         m._preprocess = preprocess
+        return m
+
+    @classmethod
+    def from_function(cls, fn: Callable, jit: bool = True, device=None,
+                      **kw) -> "InferenceModel":
+        """Serve a torch function of the inputs on ``device`` (default
+        ``cuda``; raises when there is none): ``fn`` takes one tensor per
+        input, on the device, and returns a tensor or a list of them.
+        ``jit=True`` runs it as a native net runs, through the bucket
+        programs (one CUDA graph per bucket signature on the card, kept
+        and warmed by a compile cache; float outputs come back as f32);
+        ``jit=False`` calls it eagerly on the device for every batch.
+        The JAX signature, with the port's ``device`` after it."""
+        device = resolve_device(device)
+        if not jit:
+            m = cls(_eager_forward(fn, device), **kw)
+        else:
+            m = cls(None, **kw)
+            m._net = _FunctionNet(fn).to(device).eval()
+        m.device = device
+        return m
+
+    @classmethod
+    def load_torch(cls, model_or_path, device=None,
+                   **kw) -> "InferenceModel":
+        """Serve a TorchScript file or a ``torch.nn.Module`` (reference
+        TorchNet.scala:39) on ``device`` (default ``cuda``).  A module is
+        copied, so the caller's stays where it is; the model is moved to
+        the device, put in eval mode and called eagerly on each batch
+        there, as the JAX package calls it on the host."""
+        device = resolve_device(device)
+        if isinstance(model_or_path, (str, os.PathLike)):
+            model = torch.jit.load(os.fspath(model_or_path),
+                                   map_location=device)
+        else:
+            model = copy.deepcopy(model_or_path).to(device)
+        model.eval()
+        m = cls.from_function(model, jit=False, device=device, **kw)
+        m._torch_model = model
         return m
 
     # -- replicas ----------------------------------------------------------

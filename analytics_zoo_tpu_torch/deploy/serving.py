@@ -23,13 +23,17 @@ surfaced by :meth:`ClusterServing.health`.  The transport is pluggable:
                     on one host or a shared file system);
 - ``ShmQueue``    — shared-memory ring buffer + binary tensor codec, the
                     zero-copy single-host path (``deploy/shmqueue.py``),
-                    which clients in other processes attach to by name.
+                    which clients in other processes attach to by name;
+- ``RedisQueue``  — Redis streams with a consumer group, wire-shaped like
+                    the reference client (needs the ``redis`` package and
+                    a server; the import is gated, and nothing stands in
+                    when it fails).
 
-The JAX package's ``RedisQueue``, its pod-scale mesh replicas and
-``PodCoordinator``, image records and the serving TensorBoard writer are
-not ported yet (ROADMAP A4, A5, A8, A9): ``make_queue("redis")`` and a
-``tensorboard_dir`` raise ``NotImplementedError`` naming the item, and
-an image record is answered with a typed ``malformed`` error.
+The JAX package's pod-scale mesh replicas and ``PodCoordinator``, image
+records and the serving TensorBoard writer are not ported yet (ROADMAP
+A5, A8, A9): a ``tensorboard_dir`` raises ``NotImplementedError`` naming
+the item, and an image record is answered with a typed ``malformed``
+error.
 
 Wire format is a per-backend property (``queue.wire``): ``"binary"``
 backends move framed raw tensor bytes (:mod:`deploy.codec`, the JAX
@@ -74,9 +78,9 @@ from analytics_zoo_tpu_torch.robust.errors import (DeadlineExpired,
                                                    MalformedRecordError,
                                                    ServingError)
 
-__all__ = ["MemoryQueue", "FileQueue", "make_queue", "make_queue_from_zoo",
-           "InputQueue", "OutputQueue", "ServingConfig", "ClusterServing",
-           "DeviceExecutor", "encode_tensor", "decode_tensor",
+__all__ = ["MemoryQueue", "FileQueue", "RedisQueue", "make_queue",
+           "make_queue_from_zoo", "InputQueue", "OutputQueue",
+           "ServingConfig", "ClusterServing", "DeviceExecutor", "encode_tensor", "decode_tensor",
            "error_payload", "MalformedRecordError"]
 
 
@@ -443,6 +447,122 @@ class FileQueue:
                     "error": str(e)}
 
 
+class RedisQueue:
+    """Redis-stream backend, wire-shaped like the reference
+    (xadd to the stream, results to hashes ``result:{uri}``) —
+    client.py:83-150 / ClusterServing.scala:107-138.  Requires the
+    ``redis`` package and a live server; without the package the
+    constructor raises ``ImportError``.
+
+    Reads go through a consumer group (XREADGROUP + XACK), so N workers
+    on one queue each claim disjoint records — the same exactly-one-
+    claimer contract as FileQueue.  The JAX package's class, with its
+    wire: a record either package's ``InputQueue`` pushes is served by
+    either package's worker."""
+
+    GROUP = "serving_workers"
+
+    def __init__(self, host: str = "localhost", port: int = 6379,
+                 name: str = "serving_stream",
+                 retry: Optional[RetryPolicy] = None):
+        import redis  # gated import
+
+        self.name = name
+        self._r = redis.Redis(host=host, port=port, decode_responses=True)
+        self._consumer = uuid.uuid4().hex
+        self._retry = retry or _io_retry(
+            "redisqueue_io",
+            (getattr(redis, "ConnectionError", OSError),
+             getattr(redis, "TimeoutError", OSError), OSError))
+        try:
+            self._r.xgroup_create(self.name, self.GROUP, id="0",
+                                  mkstream=True)
+        except redis.ResponseError as e:  # BUSYGROUP = already exists
+            if "BUSYGROUP" not in str(e):
+                raise
+
+    def push(self, record: Dict) -> str:
+        rid = record.get("uri") or uuid.uuid4().hex
+
+        def _write():
+            faults.inject("queue.io")
+            self._r.xadd(self.name, {"blob": json.dumps(
+                {"rid": rid, "record": record})})
+
+        self._retry.call(_write)
+        return rid
+
+    def pop_batch(self, n: int, timeout: float = 0.1
+                  ) -> List[Tuple[str, Dict]]:
+        resp = self._r.xreadgroup(self.GROUP, self._consumer,
+                                  {self.name: ">"}, count=n,
+                                  block=int(timeout * 1000))
+        out = []
+        for _, entries in resp or []:
+            for eid, fields in entries:
+                if "blob" in fields:
+                    # native client envelope (json)
+                    blob = json.loads(fields["blob"])
+                    out.append((blob["rid"], blob["record"]))
+                else:
+                    # reference-client wire shape: flat fields
+                    # {uri, image: b64(jpg bytes)} (client.py:102-110),
+                    # lifted into the worker's record schema (image
+                    # records are answered ``malformed`` until ROADMAP A8)
+                    rec = dict(fields)
+                    rid = rec.get("uri") or eid
+                    if "image" in rec and not isinstance(rec["image"],
+                                                         dict):
+                        rec = {"uri": rid, "codec": "file",
+                               "image": rec["image"]}
+                    out.append((rid, rec))
+                self._r.xack(self.name, self.GROUP, eid)
+        return out
+
+    def __len__(self) -> int:
+        return self._r.xlen(self.name)
+
+    def trim(self, maxlen: int) -> int:
+        before = self._r.xlen(self.name)
+        self._r.xtrim(self.name, maxlen=maxlen)
+        return max(0, before - self._r.xlen(self.name))
+
+    def set_result(self, rid: str, value: Any) -> None:
+        def _write():
+            faults.inject("queue.io")
+            self._r.hset(f"result:{rid}", "value", json.dumps(value))
+
+        self._retry.call(_write)
+
+    def get_result(self, rid: str, timeout: float = 10.0) -> Any:
+        deadline = time.monotonic() + timeout
+
+        def _read():
+            faults.inject("queue.io")
+            return self._r.hget(f"result:{rid}", "value")
+
+        while True:
+            v = self._retry.call(_read)
+            if v is not None:
+                self._r.delete(f"result:{rid}")
+                return json.loads(v)
+            if time.monotonic() >= deadline:
+                raise TimeoutError(_timeout_msg(self, rid, timeout))
+            time.sleep(0.01)
+
+    def pending_results(self) -> List[str]:
+        return [k.split(":", 1)[1] for k in self._r.keys("result:*")]
+
+    def health(self) -> Dict[str, Any]:
+        """Probe: PING the server (the reference serving stack's startup
+        does the same liveness check before starting the stream)."""
+        try:
+            self._r.ping()
+            return {"ok": True, "backend": "redis", "depth": len(self)}
+        except Exception as e:
+            return {"ok": False, "backend": "redis", "error": str(e)}
+
+
 def make_queue(backend: str = "memory", **kw):
     """String lowering for queue backends."""
     b = backend.lower()
@@ -451,15 +571,13 @@ def make_queue(backend: str = "memory", **kw):
     if b in ("file", "spool"):
         return FileQueue(**kw)
     if b in ("redis",):
-        raise NotImplementedError(
-            "the Redis queue is not ported yet (ROADMAP A4); use the "
-            "memory, file or shm backend")
+        return RedisQueue(**kw)
     if b in ("shm", "shared_memory"):
         from analytics_zoo_tpu_torch.deploy.shmqueue import ShmQueue
 
         return ShmQueue(**kw)
     raise ValueError(f"unknown queue backend {backend!r}; "
-                     "known: memory, file, shm (redis: not ported)")
+                     "known: memory, file, redis, shm")
 
 
 def make_queue_from_zoo(zoo_cfg, **kw):
@@ -1888,6 +2006,18 @@ class ClusterServing:
         if self._batcher is not None:
             self._batcher.max_latency = ms / 1e3
         return ms
+
+    # -- scenario hooks (the loadgen harness rides these) ------------------
+    def add_scenario_check(self, name: str, fn, every: int = 1) -> bool:
+        """Register an extra periodic check on the serving supervisor —
+        the loadgen harness uses it to export status snapshots and to
+        script mid-run events at the supervisor cadence.  Returns False
+        when there is no supervisor to ride (``supervise=False`` or the
+        sync engine)."""
+        if self._supervisor is None:
+            return False
+        self._supervisor.add_check(name, fn, every=every)
+        return True
 
     def autoscale_actions(self) -> List[Dict[str, Any]]:
         """The autoscaler's applied-action audit ledger (deep copies;

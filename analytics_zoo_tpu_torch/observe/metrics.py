@@ -91,6 +91,21 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...]]] = {
     "serving_codec_seconds": (
         "histogram", "wire codec encode/decode wall time, by codec and "
         "direction", ("codec", "op")),
+    # load harness (loadgen/ — docs/LOADGEN.md)
+    "loadgen_requests_total": (
+        "counter", "requests offered by the open-loop generator, by "
+        "traffic leg and target model", ("leg", "model")),
+    "loadgen_outcomes_total": (
+        "counter", "terminal outcomes observed by loadgen clients "
+        "(ok | typed error code | lost)", ("model", "outcome")),
+    "loadgen_schedule_lag_seconds": (
+        "histogram", "how far behind its Poisson slot each send fired "
+        "(open-loop honesty: stays flat while the server stalls)",
+        ("leg",)),
+    "loadgen_open_loop_drops_total": (
+        "counter", "scheduled sends the transport refused (ring full, "
+        "queue closed) — the schedule moves on instead of blocking",
+        ("leg",)),
     # robustness
     "breaker_transitions_total": (
         "counter", "circuit breaker state transitions",

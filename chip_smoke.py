@@ -367,13 +367,45 @@
    8, 64, 128).  ``text_*``, ``knrm``, ``seq2seq``, ``anomaly`` and
    ``text_summary`` lines carry the numbers, with the card's name and
    power limit.
-13. Prints the kernels JSON line and, last, the ok line.
+13. Loadgen phase (open-loop load, ``analytics_zoo_tpu_torch.loadgen``).
+   (a) Phase 9's int8 NeuralCF and BERT-Base, warmed from a compile
+   cache as phase 9's (``cluster_cover``), behind one ClusterServing per
+   leg over a ShmQueue (the leg fails on any other wire), with
+   ``slo_p99_ms`` the JAX legs' 250 ms (steady) and 400 ms (burst).
+   ``LOADGEN_CLIENTS`` client processes (``chip_smoke.py
+   --loadgen-client SEGMENT OUT SPEC``, which never touch CUDA), released
+   at one instant, each run an ``OpenLoopClient`` on a seeded Poisson
+   schedule at 1/N of the leg's rate (their sum is the leg's Poisson
+   stream): NCF : BERT = 64 : 1 by record, NCF (user,
+   item) pairs Zipf s = 1.0 over ids 0 ... 3706 (``ZipfianIdPayload``),
+   BERT 128 ids; steady at 0.5 R for 8 s, then a flash crowd (base 0.25
+   R, 1.5 R for 2 s from 3 s, 12 s), R being phase 9's ShmQueue records
+   per second in this run.  Per leg and model: p50 and p99 from schedule
+   to answer, sustained QPS at SLO, shed fraction, recovery after the
+   burst, send lag p99, open-loop drops, the card's busy share (the
+   bucket graphs' CUDA events over the client's wall time), the launches
+   of kernels 1, 3 and 4 (zeroed just before, read just after; each must
+   run) and ``compile_count`` (must stay 0); every answered record's
+   top-2 is held against the plain scores of its payload, re-drawn from
+   its client's seed (phase 9's 1e-5 for NCF, 1e-3 for BERT).  (b) The
+   port's ``loadgen.harness.default_report(quick=True)``: the JAX legs
+   (steady, burst, mix shift, adversarial, open loop) on host models, and
+   the kill leg, whose ``server_main`` processes, forked from a
+   forkserver that imported the port once, fit and serve on the card:
+   the SIGKILLed server's successor must warm every signature from
+   the same compile cache (``warm_compile_count`` 0), return to SLO
+   within ``KILL_RECOVERY_S`` with at most ``KILL_LOST`` lost and exit
+   0, and the mix-shift leg's autoscaler must not flap.  ``loadgen``,
+   ``loadgen_report`` and ``loadgen_summary`` lines carry the numbers,
+   with the card's name and power limit.
+14. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
 """
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -3373,8 +3405,9 @@ def cluster_serving_phase(torch, eb, dq, fa, card):
             bad.append(f"codec copies: {c['codec_tensor_copies']}")
         if bad:
             raise AssertionError(f"cluster serving over {b}: {bad}")
-    return {k: sum(run["launches"][k] for run in runs)
-            for k in runs[0]["launches"]}
+    return ({k: sum(run["launches"][k] for run in runs)
+             for k in runs[0]["launches"]},
+            runs[0]["client"]["records_per_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -5031,6 +5064,415 @@ def text_phase(torch, eb, dq, card):
 
 
 # ---------------------------------------------------------------------------
+# loadgen phase (open-loop load through ClusterServing)
+
+
+# Phase 13's legs: the JAX legs' p99 SLOs (loadgen/harness.py:113, :151),
+# NCF : BERT = 64 : 1 by record (phase 9's 4,096 : 64), NCF (user, item)
+# pairs Zipf s = 1.0 over the ids both tables hold (0 ... ITEMS), rates
+# as fractions of phase 9's ShmQueue records/s (R)
+LOADGEN_LEGS = {
+    "steady": dict(shape="steady", qps_r=0.5, duration_s=8.0, seed=41,
+                   slo_ms=250.0),
+    "burst": dict(shape="burst", base_r=0.25, burst_r=1.5, at_s=3.0,
+                  dur_s=2.0, duration_s=12.0, seed=43, slo_ms=400.0)}
+LOADGEN_ZIPF_S = 1.0
+LOADGEN_WEIGHTS = {"ncf": 64.0, "bert": 1.0}
+# the offered load is split over this many client processes, each a
+# Poisson stream at 1/N of the rate from a seed of its own (their sum is
+# the leg's Poisson stream), started at one instant: one Python client
+# cannot send 1.5 R on schedule
+LOADGEN_CLIENTS = 4
+# the client's open-loop push: a full ring refuses within this, counted
+# as an open-loop drop, and the schedule moves on
+LOADGEN_PUSH_TIMEOUT_S = 0.2
+# part (b): the port's default_report(quick=True), held to what the JAX
+# soak holds (tests/test_loadgen_soak.py:87-116)
+KILL_RECOVERY_S, KILL_LOST = 10.0, 32
+
+
+def loadgen_mix():
+    from analytics_zoo_tpu_torch.loadgen.payloads import (PayloadClass,
+                                                          PayloadMix,
+                                                          ZipfianIdPayload)
+
+    return PayloadMix([
+        ZipfianIdPayload("ncf", (2,), vocab=ITEMS + 1, s=LOADGEN_ZIPF_S,
+                         weight=LOADGEN_WEIGHTS["ncf"], field="x"),
+        PayloadClass("bert", (CLUSTER_L,), dtype="int32",
+                     weight=LOADGEN_WEIGHTS["bert"], field="ids",
+                     high=BERT_BASE["vocab"])])
+
+
+def loadgen_schedule(spec):
+    from analytics_zoo_tpu_torch.loadgen.arrivals import (FlashCrowd,
+                                                          Steady,
+                                                          arrival_times)
+
+    shape = (Steady(spec["qps"]) if spec["shape"] == "steady" else
+             FlashCrowd(spec["base_qps"], spec["burst_qps"], spec["at_s"],
+                        spec["dur_s"]))
+    return arrival_times(shape, spec["duration_s"], spec["seed"])
+
+
+def loadgen_payloads(spec):
+    """Every arrival's (model, payload) by uri, drawn as the client's
+    sender draws them: one generator from the client's seed, one mix draw
+    per slot in schedule order (``OpenLoopClient._send_loop``)."""
+    mix, sched = loadgen_mix(), loadgen_schedule(spec)
+    rng = np.random.Generator(np.random.PCG64(int(spec["seed"])))
+    out = {}
+    for i, off in enumerate(sched):
+        cls, payload = mix.draw(rng, t=float(off))
+        out[f"{spec['prefix']}-{i:06d}"] = (cls.model, payload)
+    return out
+
+
+class KeptAnswers:
+    """The client's OutputQueue, keeping every answer it reads."""
+
+    def __init__(self, outq):
+        self.outq, self.queue, self.answers = outq, outq.queue, {}
+
+    def query(self, uri, timeout=10.0):
+        val = self.outq.query(uri, timeout=timeout)
+        self.answers[uri] = val
+        return val
+
+
+def loadgen_client(segment, out_path, spec_json):
+    """A client process (``chip_smoke.py --loadgen-client SEGMENT OUT
+    SPEC``): an ``OpenLoopClient`` on its schedule and the mix over the
+    worker's ShmQueue, attached by name.  It writes ``OUT.ready``, waits
+    for the go file to name the instant (``time.monotonic``, one clock
+    for every process of the host) its schedule starts at, runs, and
+    writes every record's timeline and answer to ``OUT`` (JSON); prints
+    one JSON line.  It never touches CUDA."""
+    import torch
+
+    from analytics_zoo_tpu_torch.deploy import (InputQueue, OutputQueue,
+                                                ShmQueue)
+    from analytics_zoo_tpu_torch.loadgen import OpenLoopClient
+
+    spec = json.loads(spec_json)
+    q = ShmQueue.attach(segment, push_timeout_s=LOADGEN_PUSH_TIMEOUT_S)
+    kept = KeptAnswers(OutputQueue(q))
+    client = OpenLoopClient(InputQueue(q), kept, loadgen_schedule(spec),
+                            loadgen_mix(), leg=spec["leg"], seed=spec["seed"],
+                            uri_prefix=spec["prefix"], query_timeout_s=5.0)
+    open(out_path + ".ready", "w").close()
+    deadline = time.monotonic() + 300
+    while not os.path.exists(spec["go_file"]):
+        if time.monotonic() > deadline:
+            raise TimeoutError("no go file")
+        time.sleep(0.002)
+    with open(spec["go_file"]) as f:
+        start_at = float(f.read())
+    time.sleep(max(0.0, start_at - time.monotonic()))
+    late_ms = (time.monotonic() - start_at) * 1e3
+    t0 = time.perf_counter()
+    records = client.run(drain_timeout_s=60.0)
+    wall = time.perf_counter() - t0
+    q.stop()
+    with open(out_path, "w") as f:
+        json.dump({"records": [r.as_dict() for r in records],
+                   "answers": kept.answers}, f)
+    print(json.dumps({"prefix": spec["prefix"], "records": len(records),
+                      "answered": len(kept.answers), "wall_s": wall,
+                      "start_late_ms": late_ms,
+                      "open_loop_drops": client.open_loop_drops,
+                      "cuda_initialized": torch.cuda.is_initialized()}))
+    return 0
+
+
+def loadgen_check(torch, models, specs, answers, outcomes):
+    """Every answered record's top-2 against the plain scores of its
+    payload (``cluster_check``: phase 9's tolerances)."""
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    payloads = {}
+    for spec in specs:
+        payloads.update(loadgen_payloads(spec))
+    checks = {}
+    for name in models:
+        uris = [u for u, (m, _) in payloads.items()
+                if m == name and outcomes.get(u) == "ok"]
+        if not uris:
+            checks[name] = {"rows": 0, "ok": False}
+            continue
+        xs = np.stack([payloads[u][1] for u in uris])
+        with dispatch.forced("reference"):
+            ref = np.concatenate([models[name].predict(xs[s:s + 256])
+                                  for s in range(0, len(xs), 256)])
+        idx = np.asarray([[p[0] for p in answers[u]] for u in uris])
+        val = np.asarray([[p[1] for p in answers[u]] for u in uris],
+                         np.float64)
+        checks[name] = cluster_check(name, idx, val, ref)
+    return checks
+
+
+def loadgen_clients(queue, root, leg, specs):
+    """Start one client process per spec, wait until each is ready, name
+    one start instant for all; returns their (returncode, stdout,
+    stderr)."""
+    outs = [os.path.join(root, f"loadgen_{s['prefix']}.json") for s in specs]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--loadgen-client",
+         queue.segment, out, json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for out, spec in zip(outs, specs)]
+    try:
+        deadline = time.monotonic() + 120
+        while not all(os.path.exists(o + ".ready") for o in outs):
+            if (time.monotonic() > deadline
+                    or any(p.poll() is not None for p in procs)):
+                raise AssertionError(f"loadgen {leg}: a client did not "
+                                     f"start")
+            time.sleep(0.01)
+        go = specs[0]["go_file"]
+        with open(go + ".tmp", "w") as f:
+            f.write(repr(time.monotonic() + 0.5))
+        os.replace(go + ".tmp", go)
+        res = [p.communicate(timeout=specs[0]["duration_s"] + 180)
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, res)], outs
+
+
+def loadgen_leg(torch, eb, dq, fa, models, cache_dir, root, leg, spec):
+    """One leg: a fresh ShmQueue and ClusterServing (warm from the cache)
+    with the leg's SLO, the client processes on the schedule, the fold."""
+    import gc
+
+    from analytics_zoo_tpu_torch.deploy import ClusterServing, ServingConfig
+    from analytics_zoo_tpu_torch.loadgen import slo
+    from analytics_zoo_tpu_torch.loadgen.client import RequestRecord
+    from analytics_zoo_tpu_torch.loadgen.harness import make_queue
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+
+    n = LOADGEN_CLIENTS
+    rates = ("qps",) if spec["shape"] == "steady" else ("base_qps",
+                                                        "burst_qps")
+    specs = [dict(spec, prefix=f"{leg}{i}", seed=spec["seed"] + 1000 * i,
+                  go_file=os.path.join(root, f"go_{leg}"),
+                  **{k: spec[k] / n for k in rates}) for i in range(n)]
+    queue, wire = make_queue("shm", name=f"smoke_{leg}", slots=4096,
+                             slot_bytes=1 << 12, result_slots=4096,
+                             result_slot_bytes=1 << 10)
+    slo_ms = {m: spec["slo_ms"] for m in models}
+    cfg = ServingConfig(postprocess_top_n=CLUSTER_TOP_N, batch_size=256,
+                        max_batch_delay_ms=2.0, decode_workers=4,
+                        compile_cache_dir=cache_dir, supervise=True,
+                        supervisor_interval_s=0.05, slo_p99_ms=slo_ms)
+    cs = ClusterServing(dict(models), queue, cfg)
+    try:
+        if wire != "shm":
+            raise AssertionError(f"loadgen {leg}: the wire is {wire}, "
+                                 f"not shm")
+        cs.start()
+        torch.cuda.synchronize()
+        window = METRICS.snapshot()
+        reset_counts(eb, dq, fa)
+        ran, outs = loadgen_clients(queue, root, leg, specs)
+        torch.cuda.synchronize()
+        launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                    "dequant_matmul": dq.LAUNCHES.value,
+                    "flash_attention_fwd": fa.LAUNCHES.value}
+        delta = METRICS.delta(window)
+        health = cs.health()
+    finally:
+        cs.stop(timeout=30)
+        del cs
+        gc.collect()
+        queue.stop()
+    for rc, stdout, stderr in ran:
+        if rc != 0:
+            raise AssertionError(f"loadgen {leg}: a client failed (rc "
+                                 f"{rc}): {stdout[-2000:]} {stderr[-3000:]}")
+    clients = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in ran]
+    records, answers = [], {}
+    for path in outs:
+        with open(path) as f:
+            got = json.load(f)
+        records += [RequestRecord(**d) for d in got["records"]]
+        answers.update(got["answers"])
+    records.sort(key=lambda r: r.t_sched)
+    outcomes = {r.uri: r.outcome for r in records}
+    checks = loadgen_check(torch, models, specs, answers, outcomes)
+    busy = device_busy(delta, max(c["wall_s"] for c in clients))
+    lags = [r.lag_s * 1e3 for r in records if r.lag_s is not None]
+    by_model = {}
+    for name in models:
+        recs = [r for r in records if r.model == name]
+        oks = [r.latency_s * 1e3 for r in recs
+               if r.outcome == "ok" and r.latency_s is not None]
+        windows = slo.fold_windows(recs, 1.0, spec["duration_s"])
+        row = {"offered": len(recs),
+               "outcomes": slo.outcome_counts(recs),
+               "p50_ms": slo.percentile(oks, 50),
+               "p99_ms": slo.percentile(oks, 99),
+               "sustained_qps_at_slo": slo.sustained_qps_at_slo(
+                   windows, {name: spec["slo_ms"]}),
+               "shed_fraction": slo.shed_fraction_by_model(recs).get(
+                   name, 0.0),
+               "device_busy_share": busy["device_s_by_model"].get(
+                   name, 0.0) / busy["wall_s"],
+               "compile_count": models[name].compile_count,
+               "max_abs_err": checks[name].get("max_abs_err"),
+               "checked_rows": checks[name]["rows"]}
+        if spec["shape"] == "burst":
+            row["recovery_after_burst_s"] = slo.recovery_time_to_slo(
+                windows, spec["at_s"] + spec["dur_s"], {name: spec["slo_ms"]})
+        by_model[name] = row
+    windows = slo.fold_windows(records, 1.0, spec["duration_s"])
+    out = {"leg": leg, "spec": spec, "clients": clients, "wire": wire,
+           "scheduled": sum(len(loadgen_schedule(s)) for s in specs),
+           "offered": len(records), "outcomes": slo.outcome_counts(records),
+           "sustained_qps_at_slo": slo.sustained_qps_at_slo(windows, slo_ms),
+           "send_lag_p50_ms": slo.percentile(lags, 50),
+           "send_lag_p99_ms": slo.percentile(lags, 99),
+           "open_loop_drops": sum(c["open_loop_drops"] for c in clients),
+           "cuda_initialized_in_client": any(c["cuda_initialized"]
+                                             for c in clients),
+           "device_busy": busy, "launches": launches, "models": by_model,
+           "checks": checks, "stages_by_model": stage_rollup(delta),
+           "health_stages": {k: health["stages"].get(k)
+                             for k in CLUSTER_STAGES},
+           "windows": windows}
+    if spec["shape"] == "burst":
+        out["recovery_after_burst_s"] = slo.recovery_time_to_slo(
+            windows, spec["at_s"] + spec["dur_s"], slo_ms)
+    return out
+
+
+def loadgen_legs(torch, eb, dq, fa, records_per_s):
+    """Part (a): int8 NCF and BERT-Base at full width behind one
+    ClusterServing per leg, warmed from a compile cache as phase 9's,
+    driven open-loop over a ShmQueue by a client in another process."""
+    import gc
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="zoo_loadgen_")
+    try:
+        cache_dir = f"{root}/compile_cache"
+        cold = cluster_models(torch)
+        cluster_cover(cold, cluster_records(), cache_dir)
+        del cold
+        gc.collect()
+        torch.cuda.empty_cache()
+        models = cluster_models(torch)
+        legs = []
+        for leg, base in LOADGEN_LEGS.items():
+            spec = {"leg": leg, "shape": base["shape"],
+                    "duration_s": base["duration_s"], "seed": base["seed"],
+                    "slo_ms": base["slo_ms"]}
+            if base["shape"] == "steady":
+                spec["qps"] = base["qps_r"] * records_per_s
+            else:
+                spec.update(base_qps=base["base_r"] * records_per_s,
+                            burst_qps=base["burst_r"] * records_per_s,
+                            at_s=base["at_s"], dur_s=base["dur_s"])
+            legs.append(loadgen_leg(torch, eb, dq, fa, models, cache_dir,
+                                    root, leg, spec))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return legs
+
+
+def loadgen_phase(torch, eb, dq, fa, card, records_per_s):
+    """Phase 13 (docstring item 13): open-loop legs at full width through
+    ClusterServing (part a), then the port's ``default_report(quick=True)``
+    with its kill leg's servers on the card (part b)."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.loadgen.harness import default_report
+
+    t0 = time.perf_counter()
+    legs = loadgen_legs(torch, eb, dq, fa, records_per_s)
+    legs_s = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="zoo_loadgen_report_")
+    try:
+        t0 = time.perf_counter()
+        report = default_report(work, quick=True, device="cuda")
+        report_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("loadgen", json.dumps({"card": card, "records_per_s_r":
+                               records_per_s, "legs_s": legs_s,
+                               "legs": legs}))
+    log("loadgen_report", json.dumps({"card": card, "wall_s": report_s,
+                                      "report": report}))
+    summary = {"card": card, "r_records_per_s": records_per_s,
+               "legs_s": legs_s, "report_s": report_s}
+    for leg in legs:
+        summary[leg["leg"]] = {
+            k: leg[k] for k in ("scheduled", "offered", "outcomes",
+                                "sustained_qps_at_slo", "send_lag_p99_ms",
+                                "open_loop_drops", "launches", "models")
+            if k in leg}
+        summary[leg["leg"]]["device_busy_share"] = leg["device_busy"][
+            "device_busy_share"]
+        if "recovery_after_burst_s" in leg:
+            summary[leg["leg"]]["recovery_after_burst_s"] = leg[
+                "recovery_after_burst_s"]
+    kill, mix = report["kill"], report["mix_shift"]
+    summary["report"] = {
+        "kill": {k: kill.get(k) for k in (
+            "offered", "answered_ok", "lost", "recovery_after_kill_s",
+            "cold_compile_count", "warm_compile_count", "warm_count",
+            "warm_cache_hits", "server2_exit_rc", "latency_p99_ms")},
+        "mix_shift": {k: mix.get(k) for k in (
+            "autoscale_actions", "autoscale_flaps", "shed_fraction_echo",
+            "shed_fraction_laggy", "lost")},
+        "steady_p99_ms": report["steady"]["latency_p99_ms"],
+        "burst_recovery_s": report["burst"]["recovery_after_burst_s"],
+        "open_loop_rate_ratio": report["open_loop"][
+            "offered_to_scheduled_rate"],
+        "adversarial": {k: report["adversarial"][k] for k in (
+            "malformed_all_typed", "expired_all_shed")},
+        "not_ported": report["not_ported"]}
+    log("loadgen_summary", json.dumps(summary))
+    bad = []
+    for leg in legs:
+        name = leg["leg"]
+        if leg["wire"] != "shm":
+            bad.append(f"{name}: wire {leg['wire']}")
+        if leg["cuda_initialized_in_client"]:
+            bad.append(f"{name}: the client process touched CUDA")
+        if not all(leg["launches"].values()):
+            bad.append(f"{name}: a kernel of the path never ran: "
+                       f"{leg['launches']}")
+        for m, row in leg["models"].items():
+            if row["compile_count"]:
+                bad.append(f"{name}: {m} captured {row['compile_count']} "
+                           f"live after warm")
+        for m, c in leg["checks"].items():
+            if not c["ok"]:
+                bad.append(f"{name}: {m} answers {c}")
+    if kill["warm_compile_count"] != 0:
+        bad.append(f"kill: the successor captured live: {kill}")
+    if (kill["recovery_after_kill_s"] is None
+            or kill["recovery_after_kill_s"] >= KILL_RECOVERY_S):
+        bad.append(f"kill: recovery {kill['recovery_after_kill_s']}")
+    if kill["lost"] > KILL_LOST:
+        bad.append(f"kill: {kill['lost']} lost")
+    if kill["server2_exit_rc"] != 0:
+        bad.append(f"kill: successor rc {kill['server2_exit_rc']}")
+    if mix["autoscale_flaps"] != 0:
+        bad.append(f"mix_shift: {mix['autoscale_flaps']} autoscale flaps")
+    if bad:
+        raise AssertionError(f"loadgen: {bad}")
+    return {k: sum(leg["launches"][k] for leg in legs)
+            for k in legs[0]["launches"]}
+
+
+# ---------------------------------------------------------------------------
 
 
 # The flash kernels' templates <T, DMAX, warps, m-tiles, tile rows / 8,
@@ -5250,13 +5692,16 @@ def main() -> int:
     ft_bert_launches, ft_ncf = fault_tolerant_phase(torch, eb, dq, fa,
                                                     bert_f32, card)
     graphed_phase(torch, eb, fa, card)
-    cluster = cluster_serving_phase(torch, eb, dq, fa, card)
+    cluster, shm_records_per_s = cluster_serving_phase(torch, eb, dq, fa,
+                                                       card)
     reset_counts(eb, dq, fa)
     image = image_phase(torch, dq, card)
     reset_counts(eb, dq, fa)
     rec = recommender_phase(torch, eb, dq, card)
     reset_counts(eb, dq, fa)
     text = text_phase(torch, eb, dq, card)
+    reset_counts(eb, dq, fa)
+    loadgen = loadgen_phase(torch, eb, dq, fa, card, shm_records_per_s)
     rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
                  "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
@@ -5264,6 +5709,7 @@ def main() -> int:
                    "bert_serving": bert["embedding_bag"],
                    "fault_tolerant_ncf": ft_ncf["embedding_bag_fwd"],
                    "cluster_serving": cluster["embedding_bag_fwd"],
+                   "loadgen": loadgen["embedding_bag_fwd"],
                    **{p: rec[p]["embedding_bag_fwd"] for p in rec_paths},
                    **{p: v["embedding_bag_fwd"] for p, v in text.items()}}
     bwd_by_path = {"training": trained["embedding_bag_bwd"],
@@ -5276,6 +5722,7 @@ def main() -> int:
                   "training": trained["dequant_matmul"],
                   "bert_serving": bert["dequant_matmul"],
                   "cluster_serving": cluster["dequant_matmul"],
+                  "loadgen": loadgen["dequant_matmul"],
                   "resnet50_serving": image["dequant_matmul"],
                   **{p: rec[p]["dequant_matmul"] for p in rec_paths
                      if p.endswith("_serving")},
@@ -5306,7 +5753,8 @@ def main() -> int:
                  "bert_training_no_grad": bert_eval["flash_attention_fwd"],
                  "fault_tolerant_no_grad": ft_bert_launches[
                      "flash_attention_fwd"],
-                 "cluster_serving": cluster["flash_attention_fwd"]}
+                 "cluster_serving": cluster["flash_attention_fwd"],
+                 "loadgen": loadgen["flash_attention_fwd"]}
     flash_rows = [
         (fl_cases, "flash_attention_fwd", FLASH_SRC, FLASH_TPU, fwd_paths,
          "bert_l128"),
@@ -5352,4 +5800,6 @@ if __name__ == "__main__":
         sys.exit(serve_warm(sys.argv[2]))
     if sys.argv[1:2] == ["--serve-client"]:
         sys.exit(serve_client(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--loadgen-client"]:
+        sys.exit(loadgen_client(*sys.argv[2:5]))
     sys.exit(main())

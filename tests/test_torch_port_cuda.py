@@ -2249,3 +2249,98 @@ def test_seq2seq_graphed_infer_matches_eager_on_card(cuda_device,
     np.testing.assert_array_equal(seq, e_seq)
     np.testing.assert_allclose(sc, e_sc, rtol=0, atol=1e-5)
     assert (tdq.LAUNCHES.value - n0 == 2 * 9) == (weight_dtype == "int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jit", [True, False])
+def test_from_function_runs_on_card_by_default(cuda_device, jit):
+    """``from_function`` with no device serves on the card: ``jit=True``
+    from bucket graphs (captured at a signature's second batch, then
+    replayed), ``jit=False`` eagerly; answers equal the function on the
+    CPU within atol 1e-6 + rtol 1e-5."""
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+
+    rs = np.random.RandomState(30)
+    w = rs.randn(6, 4).astype(np.float32)
+    wd = torch.from_numpy(w).to(cuda_device)
+
+    def fn(x):
+        return torch.tanh(x @ (wd if x.is_cuda else torch.from_numpy(w)))
+
+    m = InferenceModel.from_function(fn, jit=jit, batch_buckets=(1, 4, 8))
+    assert m.device.type == "cuda"
+    for n in (1, 1, 1, 3, 3, 4, 8, 8, 13):
+        x = rs.randn(n, 6).astype(np.float32)
+        np.testing.assert_allclose(m.predict(x), fn(torch.from_numpy(x)),
+                                   atol=1e-6, rtol=RTOL)
+    if jit:
+        assert all(p.graph.captured and p.graph.replays
+                   for p in m._programs.values())
+
+
+@pytest.mark.cuda
+def test_load_torch_runs_on_card_by_default(cuda_device, tmp_path):
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+
+    torch.manual_seed(0)
+    module = torch.nn.Sequential(torch.nn.Linear(6, 8), torch.nn.Tanh(),
+                                 torch.nn.Dropout(0.5),
+                                 torch.nn.Linear(8, 3))
+    path = str(tmp_path / "m.pt")
+    torch.jit.script(module).save(path)
+    x = np.random.RandomState(31).randn(5, 6).astype(np.float32)
+    with torch.no_grad():
+        want = module.eval()(torch.from_numpy(x)).numpy()
+    for src in (module, path):
+        m = InferenceModel.load_torch(src)
+        assert next(m._torch_model.parameters()).is_cuda
+        np.testing.assert_allclose(m.predict(x), want, atol=1e-6, rtol=RTOL)
+    assert not next(module.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+def test_capture_in_another_thread_than_the_warm_up(cuda_device):
+    """A bucket signature warmed up by one thread and captured by another
+    (a server's coverage pass, then its executor) serves: the capturing
+    thread makes its cuBLAS handles before the capture, which making
+    them inside would invalidate."""
+    import threading
+
+    from analytics_zoo_tpu_torch.deploy import (ClusterServing, InputQueue,
+                                                MemoryQueue, OutputQueue,
+                                                ServingConfig)
+    from analytics_zoo_tpu_torch.loadgen.server_main import build_model
+
+    m = build_model("cuda")
+    x = np.random.RandomState(32).randn(8, 12).astype(np.float32)
+    (rep,) = m.replica_forwards(1)
+    for b in m.batch_buckets:          # warm-ups, in this thread
+        rep.harvest(rep.dispatch([x[:b]]))
+    out = {}
+
+    def other():                       # captures, then replays
+        for _ in range(3):
+            out[len(out)] = rep.harvest(rep.dispatch([x[:4]]))[0]
+
+    t = threading.Thread(target=other)
+    t.start()
+    t.join(60)
+    assert not t.is_alive() and len(out) == 3
+    q = MemoryQueue()
+    srv = ClusterServing(m, q, ServingConfig(batch_size=8)).start()
+    try:
+        inq, outq = InputQueue(q), OutputQueue(q)
+        for i in range(24):
+            inq.enqueue(f"r{i}", x=x[i % 8])
+        got = [np.asarray(outq.query(f"r{i}", timeout=30.0))
+               for i in range(24)]
+    finally:
+        srv.stop()
+    with torch.no_grad():
+        want = m.predict(x)
+    for i, g in enumerate(got):
+        np.testing.assert_allclose(g, want[i % 8], atol=1e-5, rtol=RTOL)
+    np.testing.assert_allclose(out[2], want[:4], atol=1e-5, rtol=RTOL)
+    # the 4-row signature, warmed up here, was captured in the thread
+    assert any(p.graph.captured and p.inputs[0].shape[0] == 4
+               for p in m._programs.values())

@@ -366,9 +366,11 @@ def test_graph_and_sequential_build_shapes():
 
 def test_port_imports_no_jax():
     """Training and serving NCF, serving BERTClassifier, ClusterServing
-    and the bf16 codec, and training and serving a small WideAndDeep and
-    SessionRecommender, through the port, load neither jax, ml_dtypes nor
-    the JAX package."""
+    and the bf16 codec, training and serving a small WideAndDeep and
+    SessionRecommender, the load harness (every ``loadgen`` module, and
+    ``server_main``'s model fitted and served), ``from_function``,
+    ``load_torch`` and the Redis queue, through the port, load neither
+    jax, ml_dtypes nor the JAX package."""
     code = (
         "import sys, numpy as np\n"
         "import analytics_zoo_tpu_torch.train.estimator\n"
@@ -429,6 +431,19 @@ def test_port_imports_no_jax():
         "sr.fit(sx, np.ones(8, np.int32), batch_size=8, epochs=1,"
         " verbose=False)\n"
         "assert len(sr.recommend_for_session(sx[:2], max_items=3)[1]) == 3\n"
+        "import analytics_zoo_tpu_torch.loadgen.__main__\n"
+        "import analytics_zoo_tpu_torch.loadgen.client_main\n"
+        "from analytics_zoo_tpu_torch.loadgen import (adversarial, harness,"
+        " server_main, slo)\n"
+        "from analytics_zoo_tpu_torch.data import zipf\n"
+        "sm = server_main.build_model('cpu')\n"
+        "assert sm.predict(np.ones((3, 12), np.float32)).shape == (3, 4)\n"
+        "import torch\n"
+        "fm = InferenceModel.from_function(lambda a: a * 2, device='cpu')\n"
+        "assert fm.predict(np.ones((2, 3), np.float32)).shape == (2, 3)\n"
+        "tm = InferenceModel.load_torch(torch.nn.Linear(3, 2), device='cpu')\n"
+        "assert tm.predict(np.ones((2, 3), np.float32)).shape == (2, 2)\n"
+        "from analytics_zoo_tpu_torch.deploy import RedisQueue\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')"
         " or m == 'ml_dtypes']\n"
