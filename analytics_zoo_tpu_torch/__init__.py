@@ -29,10 +29,25 @@ Entry points run on the CUDA device unless the caller passes
 
 __version__ = "0.1.0"
 
-from analytics_zoo_tpu_torch.core.config import ZooConfig  # noqa: F401
-from analytics_zoo_tpu_torch.core.context import (  # noqa: F401
-    ZooContext,
-    get_zoo_context,
-    init_zoo_context,
-    resolve_device,
-)
+# The names below load on first use (PEP 562), so that importing the
+# package, or a torch-free module of it such as ``loadgen.arrivals``,
+# does not import torch: a load client starts without it, and the
+# loadgen server points the interpreter's bytecode cache at its own cache
+# directory before torch is imported.
+_LAZY = {
+    "ZooConfig": "analytics_zoo_tpu_torch.core.config",
+    "ZooContext": "analytics_zoo_tpu_torch.core.context",
+    "get_zoo_context": "analytics_zoo_tpu_torch.core.context",
+    "init_zoo_context": "analytics_zoo_tpu_torch.core.context",
+    "resolve_device": "analytics_zoo_tpu_torch.core.context",
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(_LAZY[name]), name)
+    globals()[name] = value
+    return value

@@ -113,13 +113,14 @@ def imagenet_preprocess(scale: float = 1.0 / 127.5, offset: float = -1.0,
 def _net_forward(net, xs):
     """``net`` on the preprocessed inputs at their float dtype: when that
     is a 16-bit float, over copies of the float parameters and state cast
-    to it (the JAX package's ``_match_compute_dtype``)."""
+    to it (the JAX package's ``_match_compute_dtype``), unless the net
+    says it takes its weights as they are (``casts_weights = False``)."""
     floats = [x.dtype for x in xs if x.is_floating_point()]
     cd = floats[0] if floats else torch.float32
     for d in floats[1:]:
         cd = torch.promote_types(cd, d)
-    if cd not in (torch.bfloat16, torch.float16) or isinstance(
-            net, _FunctionNet):
+    if (cd not in (torch.bfloat16, torch.float16)
+            or not getattr(net, "casts_weights", True)):
         return net(*xs)
     return torch.func.functional_call(net, cast_floats(net, cd), xs)
 
@@ -131,6 +132,8 @@ class _FunctionNet(torch.nn.Module):
     a module, its weights are its ``state_dict``; ``identity`` names the
     function in the model's fingerprint, so two functions never share a
     compile cache's signatures."""
+
+    casts_weights = False
 
     def __init__(self, fn: Callable):
         super().__init__()

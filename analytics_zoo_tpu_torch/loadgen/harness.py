@@ -13,10 +13,12 @@ The in-process legs serve host functions (``two_model_pair``): they
 measure the pipeline, not a device.  The kill leg is the only one that
 crosses a process boundary: the server runs as a real OS process
 (``loadgen/server_main.py``, on the card unless ``device="cpu"``) over
-a ``FileQueue`` spool with a persistent compile cache, gets SIGKILLed
-mid-storm, and is relaunched against the same cache — the client's
-schedule never blinks (open loop), and the restarted server's status
-file must show ZERO live captures (warm start through the cache).  The
+a ``FileQueue`` spool with a persistent compile cache, its serving
+worker gets SIGKILLed mid-storm, and the server's supervisor relaunches
+it against the same cache — the client's schedule never blinks (open
+loop), and the restarted worker's status file must show ZERO live
+captures (warm start through the cache); then a fresh interpreter
+starts on the same caches, and its time to ready is reported beside.  The
 pod kill leg waits for pod-scale serving (ROADMAP A9).
 """
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -43,8 +46,7 @@ from analytics_zoo_tpu_torch.loadgen.payloads import PayloadClass, PayloadMix
 __all__ = ["two_model_pair", "make_queue", "run_steady_leg",
            "run_burst_leg", "run_mix_shift_leg", "run_adversarial_leg",
            "run_open_loop_check", "run_kill_leg", "run_pod_kill_leg",
-           "start_server_process", "fork_server_process",
-           "wait_for_status", "default_report",
+           "start_server_process", "wait_for_status", "default_report",
            "SERVER_IN_DIM", "SERVER_QUEUE_NAME", "POD_IN_DIM",
            "POD_VOCAB"]
 
@@ -413,78 +415,19 @@ def start_server_process(spool: str, cache_dir: str, status_file: str,
         logf.close()     # the child holds its own fd
 
 
-# what the kill leg's forkserver imports once, before any server forks
-FORK_PRELOAD = ["analytics_zoo_tpu_torch.loadgen.server_main",
-                "analytics_zoo_tpu_torch.deploy", "analytics_zoo_tpu_torch.nn",
-                "analytics_zoo_tpu_torch.train.estimator"]
-
-
-def _serve_forked(argv: List[str], log_path: str) -> None:
-    """A forked server's body: its output into ``log_path``, then
-    ``server_main.main(argv)``, whose code is the exit code."""
-    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
-    os.dup2(fd, 1)
-    os.dup2(fd, 2)
-    os.close(fd)
-    from analytics_zoo_tpu_torch.loadgen import server_main
-
-    sys.exit(server_main.main(argv))
-
-
-def fork_server_process(spool: str, cache_dir: str, status_file: str,
-                        log_path: str, slo_ms: float = 1000.0,
-                        device: str = "cuda"):
-    """``start_server_process``'s server, forked from ``multiprocessing``'s
-    forkserver, which imports torch and the port once (``FORK_PRELOAD``)
-    and never touches CUDA: each server is still a fresh OS process with
-    a CUDA context of its own, but starts without the interpreter's and
-    torch's import, which takes seconds where the kill leg times the
-    restart.  As for any forkserver child, the caller's main module must
-    import without side effects (the ``if __name__ == "__main__"``
-    idiom): the child imports it.  Returns the ``multiprocessing.Process``
-    (``pid``, ``kill()``, ``terminate()``, ``join()``, ``exitcode``)."""
-    import multiprocessing
-
-    ctx = multiprocessing.get_context("forkserver")
-    ctx.set_forkserver_preload(FORK_PRELOAD)
-    argv = ["--queue-root", spool, "--cache-dir", cache_dir,
-            "--status-file", status_file, "--slo-p99-ms", str(slo_ms),
-            "--device", device]
-    proc = ctx.Process(target=_serve_forked, args=(argv, log_path),
-                       name="loadgen-server", daemon=True)
-    proc.start()
-    return proc
-
-
-def _exit_code(proc) -> Optional[int]:
-    """A server's exit code, None while it runs (a ``Popen`` or a
-    ``multiprocessing.Process``)."""
-    return proc.poll() if hasattr(proc, "poll") else proc.exitcode
-
-
-def _stop(proc, timeout_s: float = 30.0) -> Optional[int]:
-    """SIGTERM a forked server, SIGKILL it if it outlives ``timeout_s``;
-    its exit code."""
-    proc.terminate()
-    proc.join(timeout_s)
-    if proc.exitcode is None:
-        proc.kill()
-        proc.join(10)
-    return proc.exitcode
-
-
 def wait_for_status(status_file: str, timeout_s: float = 120.0,
-                    require: Optional[str] = None, proc=None
-                    ) -> Dict[str, Any]:
+                    require: Optional[str] = None,
+                    proc: Optional[subprocess.Popen] = None,
+                    not_pid: Optional[int] = None) -> Dict[str, Any]:
     """Block until the server's status JSON exists (and, optionally,
-    carries ``require`` as a truthy key) — the 'server is up' barrier.
-    With ``proc`` (a ``Popen`` or a ``Process``), a server that exits
-    first raises at once."""
+    carries ``require`` as a truthy key, and comes from another worker
+    than ``not_pid``) — the 'server is up' barrier.  With ``proc``, a
+    server that exits first raises at once."""
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
-        if proc is not None and _exit_code(proc) is not None:
+        if proc is not None and proc.poll() is not None:
             raise RuntimeError(
-                f"server process exited (rc {_exit_code(proc)}) before "
+                f"server process exited (rc {proc.returncode}) before "
                 f"{status_file} was ready; see its log")
         if os.path.exists(status_file):
             try:
@@ -492,29 +435,49 @@ def wait_for_status(status_file: str, timeout_s: float = 120.0,
                     st = json.load(f)
             except (OSError, ValueError):
                 st = None
-            if st is not None and (require is None or st.get(require)):
+            if (st is not None and (require is None or st.get(require))
+                    and (not_pid is None or st.get("pid") != not_pid)):
                 return st
         time.sleep(0.1)
     raise TimeoutError(f"server status never appeared at {status_file}")
 
 
+def _stop(proc: subprocess.Popen) -> int:
+    """SIGTERM a server (a clean stop dumps its final status), SIGKILL
+    it if it outlives 30 s; its exit code."""
+    proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait(timeout=10)
+
+
 def run_kill_leg(workdir: str, qps: float = 50.0, duration_s: float = 22.0,
                  kill_at_s: float = 7.0, restart_delay_s: float = 0.5,
                  slo_ms: float = 2000.0, seed: int = 29,
-                 window_s: float = 1.0,
-                 device: str = "cuda") -> Dict[str, Any]:
+                 window_s: float = 1.0, device: str = "cuda",
+                 drain_timeout_s: float = 60.0) -> Dict[str, Any]:
     """SIGKILL the serving process (on ``device``) mid-storm; relaunch
     it against the same compile-cache dir; prove the client returns to
     SLO and the restarted server did ZERO live captures (pure warm
-    start).  Both servers are forked from one forkserver
-    (``fork_server_process``): the successor is a new process with a new
-    CUDA context that fits its model and warms its graphs, without paying
-    the import of torch again.
+    start).
+
+    The serving process is ``server_main``'s worker; its supervisor
+    forks the successor ``restart_delay_s`` after the kill, without
+    importing torch again (``restart_ready_s``: from the SIGKILL to the
+    successor's readiness; ``server1_start_ready_s``: the first, cold
+    server's launch to readiness).  After the storm the leg stops the server
+    and starts a fresh interpreter on the same caches, as a restart of
+    the whole server (a lost host, a redeploy) would:
+    ``fresh_start_ready_s`` is its launch to its readiness, with its
+    captures in ``fresh_compile_count``.
 
     The FileQueue spool survives the kill, so queued-but-unclaimed
     records are served by the successor; records in flight inside the
     killed process are bounded by the pipeline depth and terminate as
-    ``lost`` at the client (counted, not hidden).
+    ``lost`` at the client (counted, not hidden) once
+    ``drain_timeout_s`` has passed after the last send.
     """
     from analytics_zoo_tpu_torch.deploy.serving import (FileQueue, InputQueue,
                                                         OutputQueue)
@@ -524,45 +487,47 @@ def run_kill_leg(workdir: str, qps: float = 50.0, duration_s: float = 22.0,
     cache = os.path.join(workdir, "cache")
     os.makedirs(spool, exist_ok=True)
     os.makedirs(cache, exist_ok=True)
-    status1 = os.path.join(workdir, "server1.status.json")
-    status2 = os.path.join(workdir, "server2.status.json")
+    status = os.path.join(workdir, "server.status.json")
+    status3 = os.path.join(workdir, "server_fresh.status.json")
+    restart = ["--restart-delay-s", str(restart_delay_s)]
 
-    proc = fork_server_process(
-        spool, cache, status1, os.path.join(workdir, "server1.log"),
-        slo_ms=slo_ms, device=device)
+    t_launch1 = time.time()
+    proc = start_server_process(
+        spool, cache, status, os.path.join(workdir, "server.log"),
+        slo_ms=slo_ms, extra_args=restart, device=device)
     try:
-        st1 = wait_for_status(status1, require="ready", proc=proc)
-    except BaseException:
-        _stop(proc)
-        raise
-    q = FileQueue(spool, name=SERVER_QUEUE_NAME)
-    schedule = arrival_times(Steady(qps), duration_s, seed)
-    mix = PayloadMix([PayloadClass("default", shape=(SERVER_IN_DIM,),
-                                   dtype="float32")])
-    client = OpenLoopClient(InputQueue(q), OutputQueue(q), schedule, mix,
-                            leg="kill", seed=seed,
-                            query_timeout_s=5.0).start()
-    t0 = time.monotonic()
-    time.sleep(kill_at_s)
-    proc.kill()                                   # SIGKILL, mid-storm
-    kill_wall = time.time()
-    proc.join(30)
-    kill_t = time.monotonic() - t0
-    time.sleep(restart_delay_s)
-    proc2 = fork_server_process(
-        spool, cache, status2, os.path.join(workdir, "server2.log"),
-        slo_ms=slo_ms, device=device)
-    try:
-        records = client.finish(drain_timeout_s=60.0)
-        st2 = wait_for_status(status2, require="ready", proc=proc2)
+        st1 = wait_for_status(status, require="ready", proc=proc)
+        q = FileQueue(spool, name=SERVER_QUEUE_NAME)
+        schedule = arrival_times(Steady(qps), duration_s, seed)
+        mix = PayloadMix([PayloadClass("default", shape=(SERVER_IN_DIM,),
+                                       dtype="float32")])
+        client = OpenLoopClient(InputQueue(q), OutputQueue(q), schedule,
+                                mix, leg="kill", seed=seed,
+                                query_timeout_s=5.0).start()
+        t0 = time.monotonic()
+        time.sleep(kill_at_s)
+        os.kill(st1["pid"], signal.SIGKILL)       # the worker, mid-storm
+        kill_wall = time.time()
+        kill_t = time.monotonic() - t0
+        records = client.finish(drain_timeout_s=drain_timeout_s)
+        st2 = wait_for_status(status, require="ready", proc=proc,
+                              not_pid=st1["pid"])
     finally:
-        rc2 = _stop(proc2)
-    # final status the server dumped on SIGTERM (post-traffic truth)
+        rc2 = _stop(proc)
+    # final status the worker dumped on SIGTERM (post-traffic truth)
     try:
-        with open(status2) as f:
+        with open(status) as f:
             st2 = json.load(f)
     except (OSError, ValueError):
         pass
+    t_launch = time.time()
+    proc3 = start_server_process(
+        spool, cache, status3, os.path.join(workdir, "server_fresh.log"),
+        slo_ms=slo_ms, device=device)
+    try:
+        st3 = wait_for_status(status3, require="ready", proc=proc3)
+    finally:
+        _stop(proc3)
     windows = slo_mod.fold_windows(records, window_s, duration_s)
     outcomes = slo_mod.outcome_counts(records)
     sec: Dict[str, Any] = {
@@ -575,17 +540,19 @@ def run_kill_leg(workdir: str, qps: float = 50.0, duration_s: float = 22.0,
         "recovery_after_kill_s": slo_mod.recovery_time_to_slo(
             windows, kill_t, {"default": slo_ms}),
         "cold_compile_count": st1.get("compile_count"),
+        "server1_start_ready_s": st1["ready_t"] - t_launch1,
+        "server1_startup_s": st1.get("startup_s"),
         "warm_compile_count": st2.get("compile_count"),
         "warm_cache_hits": ((st2.get("cache") or {}).get("events")
                             or {}).get("hit"),
         "warm_count": st2.get("warm_count"),
-        "server1_exit_rc": proc.exitcode,           # -9: SIGKILLed
+        "server1_exit_rc": st2.get("previous_exit"),   # -9: SIGKILLed
         "server2_exit_rc": rc2,
-        # from the SIGKILL to the successor's readiness, and its start-up
-        # by part
-        "restart_ready_s": (None if st2.get("ready_t") is None
-                            else st2["ready_t"] - kill_wall),
+        "restart_ready_s": st2["ready_t"] - kill_wall,
         "server2_startup_s": st2.get("startup_s"),
+        "fresh_start_ready_s": st3["ready_t"] - t_launch,
+        "fresh_startup_s": st3.get("startup_s"),
+        "fresh_compile_count": st3.get("compile_count"),
     }
     sec.update(_lat_stats(records))
     return sec
@@ -630,14 +597,24 @@ def default_report(workdir: str, quick: bool = False,
         },
         "not_ported": {"pod_kill": POD_KILL_NOT_PORTED},
     }
-    report["steady"] = run_steady_leg(duration_s=8.0 * scale)
-    report["burst"] = run_burst_leg(duration_s=14.0 * scale,
-                                    at_s=3.0 * scale, dur_s=2.0 * scale)
-    report["mix_shift"] = run_mix_shift_leg(duration_s=16.0 * scale,
-                                            shift_at_s=6.0 * scale)
-    report["adversarial"] = run_adversarial_leg()
-    report["open_loop"] = run_open_loop_check()
-    report["kill"] = run_kill_leg(os.path.join(workdir, "kill"),
-                                  duration_s=22.0 * scale,
-                                  kill_at_s=7.0 * scale, device=device)
+    legs = [
+        ("steady", lambda: run_steady_leg(duration_s=8.0 * scale)),
+        ("burst", lambda: run_burst_leg(duration_s=14.0 * scale,
+                                        at_s=3.0 * scale,
+                                        dur_s=2.0 * scale)),
+        ("mix_shift", lambda: run_mix_shift_leg(duration_s=16.0 * scale,
+                                                shift_at_s=6.0 * scale)),
+        ("adversarial", run_adversarial_leg),
+        ("open_loop", run_open_loop_check),
+        ("kill", lambda: run_kill_leg(os.path.join(workdir, "kill"),
+                                      duration_s=22.0 * scale,
+                                      kill_at_s=7.0 * scale,
+                                      device=device)),
+    ]
+    # each leg's wall seconds, set-up and drain included
+    wall = report["run_metadata"]["leg_wall_s"] = {}
+    for name, leg in legs:
+        t0 = time.perf_counter()
+        report[name] = leg()
+        wall[name] = time.perf_counter() - t0
     return report

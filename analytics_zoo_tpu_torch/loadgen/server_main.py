@@ -9,11 +9,32 @@ this module on the same device produces the identical fingerprint and a
 successor process warm-starts from the predecessor's persistent compile
 cache with zero live captures.
 
-The process periodically dumps a status JSON (atomic replace) carrying
+The process is a supervisor and a worker, as a pre-loading web server
+is: the supervisor imports torch and the port once, never touches the
+device, and forks the worker, which fits the model, serves and owns the
+CUDA context.  When the worker dies by a signal (a crash, an OOM kill,
+the kill leg's SIGKILL) the supervisor forks a new one after
+``--restart-delay-s``, at most ``--max-restarts`` times: the successor is
+a new process with a new CUDA context that warms its graphs from the
+compile cache, without importing torch again.  SIGTERM or SIGINT to the
+supervisor stops the worker cleanly (final status dump) and exits with
+its code, 0; a worker whose supervisor is gone stops.
+
+Where the installation ships no bytecode for torch (one installed under
+``PYTHONDONTWRITEBYTECODE``), the compile-cache directory also keeps the
+interpreter's bytecode (``<cache-dir>/bytecode``, ``sys.pycache_prefix``)
+for every module the process imports after it starts, torch's included:
+the first server compiles those sources once and a server started
+afresh on the same cache loads their bytecode (the process writes
+bytecode into that directory only).  The package's own ``__init__`` and
+``loadgen``'s import no torch, so the prefix is in place before torch
+loads.
+
+The worker periodically dumps a status JSON (atomic replace) carrying
 the warm-start proof (``compile_count``, ``warm_count``, cache event
-counts) plus serving health; the kill leg reads it instead of scraping
-logs.  SIGTERM stops cleanly (final status dump, exit 0); SIGKILL is
-the point — the kill leg sends it mid-storm.
+counts) plus serving health, its ``pid``, its supervisor's, and how many
+workers died before it (``restarts``, ``previous_exit``); the kill leg
+reads it instead of scraping logs.
 
 The JAX package's pod mode (``--model bag``, ``--pod-processes``,
 ``--mesh-replicas``, ``--local-devices``: a sharded-table model served
@@ -36,7 +57,8 @@ import signal
 import sys
 import threading
 import time
-from typing import Any, Dict
+import traceback
+from typing import Any, Dict, Optional
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -52,8 +74,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--decode-workers", type=int, default=2)
     p.add_argument("--max-batch-delay-ms", type=float, default=3.0)
     p.add_argument("--status-interval", type=int, default=2,
-                   help="dump status every N supervisor ticks")
+                   help="dump status every N ticks of ClusterServing's "
+                        "health supervisor")
     p.add_argument("--autoscale", action="store_true")
+    p.add_argument("--restart-delay-s", type=float, default=0.0,
+                   help="seconds between a worker's death and its successor")
+    p.add_argument("--max-restarts", type=int, default=8,
+                   help="successors forked for workers dead by a signal")
     # the JAX package's pod mode (ROADMAP A9)
     p.add_argument("--model", default="dense", choices=["dense", "bag"])
     p.add_argument("--pod-processes", type=int, default=0)
@@ -87,6 +114,23 @@ def build_model(device="cuda"):
                                          batch_buckets=buckets)
 
 
+def cache_bytecode(cache_dir: str) -> Optional[str]:
+    """Where the installation ships no bytecode for torch, write and
+    read the bytecode of every module imported from now on under
+    ``<cache_dir>/bytecode``; the directory, or None where it ships its
+    own (a prefix would hide it)."""
+    import importlib.util
+
+    spec = importlib.util.find_spec("torch")
+    if spec is None or spec.origin is None or os.path.exists(
+            importlib.util.cache_from_source(spec.origin)):
+        return None
+    prefix = os.path.join(os.path.abspath(cache_dir), "bytecode")
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    return prefix
+
+
 def _pod_options(args) -> list:
     return [opt for opt, on in (
         ("--model bag", args.model == "bag"),
@@ -102,20 +146,28 @@ def _dump_status(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
-def main(argv=None) -> int:
-    t_start = time.time()
-    args = parse_args(argv)
-    pod = _pod_options(args)
-    if pod:
-        raise NotImplementedError(
-            f"{', '.join(pod)}: pod-scale serving (a sharded-table model, "
-            f"a process group, mesh replicas) is not ported yet "
-            f"(ROADMAP A9)")
+def preload() -> None:
+    """Import torch and what a worker runs, touching no device."""
+    import numpy  # noqa: F401
+    import torch  # noqa: F401
 
+    from analytics_zoo_tpu_torch.deploy import (  # noqa: F401
+        ClusterServing, InferenceModel, ServingConfig)
+    from analytics_zoo_tpu_torch.deploy.serving import FileQueue  # noqa
+    from analytics_zoo_tpu_torch.nn import Sequential  # noqa: F401
+    from analytics_zoo_tpu_torch.nn.layers.core import Dense  # noqa: F401
+    from analytics_zoo_tpu_torch.train.estimator import Estimator  # noqa
+    from analytics_zoo_tpu_torch.train.optimizers import Adam  # noqa: F401
+
+
+def serve(args, supervisor_pid: int, restarts: int,
+          previous_exit: Optional[int], imports_s: float) -> int:
+    """The worker: fit, serve, dump status until SIGTERM/SIGINT or its
+    supervisor's end; 0."""
+    t_start = time.time()
     from analytics_zoo_tpu_torch.deploy import ClusterServing, ServingConfig
     from analytics_zoo_tpu_torch.deploy.serving import FileQueue
 
-    t_imported = time.time()
     model = build_model(args.device)
     t_built = time.time()
     q = FileQueue(args.queue_root, name=args.queue_name)
@@ -140,12 +192,12 @@ def main(argv=None) -> int:
     for b in model.batch_buckets:
         rep.harvest(rep.dispatch([xcov[:b]]))
     t_ready = time.time()
-    # seconds from main() to ready, by part (the interpreter's own start
-    # comes before it)
-    startup = {"imports": t_imported - t_start,
-               "build_and_fit": t_built - t_imported,
+    # seconds to ready, by part: the supervisor's imports (once, before
+    # the first worker), then this worker's own, from its fork
+    startup = {"imports": imports_s,
+               "build_and_fit": t_built - t_start,
                "serve_and_cover": t_ready - t_built,
-               "total": t_ready - t_start}
+               "worker_total": t_ready - t_start}
 
     def status_payload() -> Dict[str, Any]:
         h = srv.health()
@@ -153,6 +205,9 @@ def main(argv=None) -> int:
         return {
             "ready": True,
             "pid": os.getpid(),
+            "supervisor_pid": supervisor_pid,
+            "restarts": restarts,
+            "previous_exit": previous_exit,
             "t": time.time(),
             "ready_t": t_ready,
             "startup_s": startup,
@@ -182,11 +237,79 @@ def main(argv=None) -> int:
     stop_evt = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop_evt.set())
     signal.signal(signal.SIGINT, lambda *_: stop_evt.set())
-    while not stop_evt.is_set():
-        stop_evt.wait(0.2)
+    while not stop_evt.wait(0.2) and os.getppid() == supervisor_pid:
+        pass
     srv.stop()
     dump()                          # final post-traffic truth
     return 0
+
+
+def supervise(args, imports_s: float) -> int:
+    """Fork a worker and wait for it; fork a successor when it dies by a
+    signal.  The exit code is the last worker's (128 + the signal for
+    one killed past ``--max-restarts``)."""
+    import torch
+
+    if torch.cuda.is_initialized():
+        raise RuntimeError("the supervisor initialised CUDA before its "
+                           "fork; a forked worker could not use it")
+    state: Dict[str, Any] = {"stop": False, "worker": None}
+
+    def on_signal(signum, _frame):
+        state["stop"] = True
+        if state["worker"] is not None:
+            os.kill(state["worker"], signal.SIGTERM)
+
+    signal.signal(signal.SIGTERM, on_signal)
+    signal.signal(signal.SIGINT, on_signal)
+    restarts, previous = 0, None
+    while not state["stop"]:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        pid = os.fork()
+        if pid == 0:                # the worker
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            signal.signal(signal.SIGINT, signal.SIG_DFL)
+            code = 1
+            try:
+                code = serve(args, os.getppid(), restarts, previous,
+                             imports_s)
+            except BaseException:
+                traceback.print_exc()
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(code)
+        state["worker"] = pid
+        if state["stop"]:           # a signal came during the fork
+            os.kill(pid, signal.SIGTERM)
+        code = os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1])
+        state["worker"] = None
+        if state["stop"] and code == -signal.SIGTERM:
+            return 0                # stopped before its handler was set
+        if code >= 0:
+            return code
+        if state["stop"] or restarts >= args.max_restarts:
+            return 128 - code
+        print(f"worker {pid} died by signal {-code}; forking its "
+              f"successor", flush=True)
+        restarts, previous = restarts + 1, code
+        time.sleep(args.restart_delay_s)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    pod = _pod_options(args)
+    if pod:
+        raise NotImplementedError(
+            f"{', '.join(pod)}: pod-scale serving (a sharded-table model, "
+            f"a process group, mesh replicas) is not ported yet "
+            f"(ROADMAP A9)")
+    cache_bytecode(args.cache_dir)
+    t0 = time.time()
+    preload()
+    return supervise(args, time.time() - t0)
 
 
 if __name__ == "__main__":

@@ -388,16 +388,20 @@
    run) and ``compile_count`` (must stay 0); every answered record's
    top-2 is held against the plain scores of its payload, re-drawn from
    its client's seed (phase 9's 1e-5 for NCF, 1e-3 for BERT).  (b) The
-   port's ``loadgen.harness.default_report(quick=True)``: the JAX legs
-   (steady, burst, mix shift, adversarial, open loop) on host models, and
-   the kill leg, whose ``server_main`` processes, forked from a
-   forkserver that imported the port once, fit and serve on the card:
-   the SIGKILLed server's successor must warm every signature from
-   the same compile cache (``warm_compile_count`` 0), return to SLO
-   within ``KILL_RECOVERY_S`` with at most ``KILL_LOST`` lost and exit
-   0, and the mix-shift leg's autoscaler must not flap.  ``loadgen``,
-   ``loadgen_report`` and ``loadgen_summary`` lines carry the numbers,
-   with the card's name and power limit.
+   kill and mix-shift legs of the port's
+   ``loadgen.harness.default_report(quick=True)``, the two its checks
+   read (the other legs serve host functions and are held in the CPU
+   tests).  The kill leg's ``server_main`` runs on the card as users run
+   it: a supervisor that imported the port once forks the worker that
+   fits and serves; the worker is SIGKILLed mid-storm and the supervisor
+   forks its successor, which must warm every signature from the same
+   compile cache (``warm_compile_count`` 0), return to SLO within
+   ``KILL_RECOVERY_S`` with at most ``KILL_LOST`` lost and exit 0; then a
+   fresh interpreter starts on the same caches (``fresh_start_ready_s``,
+   its captures must be 0 too).  The mix-shift leg's autoscaler must not
+   flap.  ``loadgen``, ``loadgen_report`` and ``loadgen_summary`` lines
+   carry the numbers and the wall seconds by part, with the card's name
+   and power limit.
 14. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -5086,8 +5090,15 @@ LOADGEN_CLIENTS = 4
 # the client's open-loop push: a full ring refuses within this, counted
 # as an open-loop drop, and the schedule moves on
 LOADGEN_PUSH_TIMEOUT_S = 0.2
-# part (b): the port's default_report(quick=True), held to what the JAX
-# soak holds (tests/test_loadgen_soak.py:87-116)
+# part (b): default_report(quick=True)'s kill and mix-shift legs, the two
+# its checks read, held to what the JAX soak holds
+# (tests/test_loadgen_soak.py:87-116); the kill leg's drain ends 5 s
+# after the last send (60 s by default), where a lost record would hold
+# it to the end: the successor is up within seconds of the kill, and
+# the storm runs 7.5 s past it
+KILL_LEG = dict(duration_s=11.0, kill_at_s=3.5, device="cuda",
+                drain_timeout_s=5.0)
+MIX_SHIFT_LEG = dict(duration_s=8.0, shift_at_s=3.0)
 KILL_RECOVERY_S, KILL_LOST = 10.0, 32
 
 
@@ -5214,13 +5225,14 @@ def loadgen_check(torch, models, specs, answers, outcomes):
 def loadgen_clients(queue, root, leg, specs):
     """Start one client process per spec, wait until each is ready, name
     one start instant for all; returns their (returncode, stdout,
-    stderr)."""
+    stderr), their output files and the seconds they took to be ready."""
     outs = [os.path.join(root, f"loadgen_{s['prefix']}.json") for s in specs]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--loadgen-client",
          queue.segment, out, json.dumps(spec)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for out, spec in zip(outs, specs)]
+    t0 = time.perf_counter()
     try:
         deadline = time.monotonic() + 120
         while not all(os.path.exists(o + ".ready") for o in outs):
@@ -5229,6 +5241,7 @@ def loadgen_clients(queue, root, leg, specs):
                 raise AssertionError(f"loadgen {leg}: a client did not "
                                      f"start")
             time.sleep(0.01)
+        start_s = time.perf_counter() - t0
         go = specs[0]["go_file"]
         with open(go + ".tmp", "w") as f:
             f.write(repr(time.monotonic() + 0.5))
@@ -5240,7 +5253,8 @@ def loadgen_clients(queue, root, leg, specs):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return [(p.returncode, o, e) for p, (o, e) in zip(procs, res)], outs
+    return ([(p.returncode, o, e) for p, (o, e) in zip(procs, res)], outs,
+            start_s)
 
 
 def loadgen_leg(torch, eb, dq, fa, models, cache_dir, root, leg, spec):
@@ -5268,6 +5282,7 @@ def loadgen_leg(torch, eb, dq, fa, models, cache_dir, root, leg, spec):
                         max_batch_delay_ms=2.0, decode_workers=4,
                         compile_cache_dir=cache_dir, supervise=True,
                         supervisor_interval_s=0.05, slo_p99_ms=slo_ms)
+    t_leg = time.perf_counter()
     cs = ClusterServing(dict(models), queue, cfg)
     try:
         if wire != "shm":
@@ -5277,7 +5292,9 @@ def loadgen_leg(torch, eb, dq, fa, models, cache_dir, root, leg, spec):
         torch.cuda.synchronize()
         window = METRICS.snapshot()
         reset_counts(eb, dq, fa)
-        ran, outs = loadgen_clients(queue, root, leg, specs)
+        t_clients = time.perf_counter()
+        ran, outs, clients_start_s = loadgen_clients(queue, root, leg, specs)
+        t_ran = time.perf_counter()
         torch.cuda.synchronize()
         launches = {"embedding_bag_fwd": eb.LAUNCHES.value,
                     "dequant_matmul": dq.LAUNCHES.value,
@@ -5302,7 +5319,13 @@ def loadgen_leg(torch, eb, dq, fa, models, cache_dir, root, leg, spec):
         answers.update(got["answers"])
     records.sort(key=lambda r: r.t_sched)
     outcomes = {r.uri: r.outcome for r in records}
+    t_check = time.perf_counter()
     checks = loadgen_check(torch, models, specs, answers, outcomes)
+    wall_s = {"serving_start": t_clients - t_leg,
+              "clients_start": clients_start_s,
+              "schedule_and_drain": t_ran - t_clients - clients_start_s,
+              "stop_and_collect": t_check - t_ran,
+              "check": time.perf_counter() - t_check}
     busy = device_busy(delta, max(c["wall_s"] for c in clients))
     lags = [r.lag_s * 1e3 for r in records if r.lag_s is not None]
     by_model = {}
@@ -5339,6 +5362,7 @@ def loadgen_leg(torch, eb, dq, fa, models, cache_dir, root, leg, spec):
            "cuda_initialized_in_client": any(c["cuda_initialized"]
                                              for c in clients),
            "device_busy": busy, "launches": launches, "models": by_model,
+           "wall_s": wall_s,
            "checks": checks, "stages_by_model": stage_rollup(delta),
            "health_stages": {k: health["stages"].get(k)
                              for k in CLUSTER_STAGES},
@@ -5359,6 +5383,7 @@ def loadgen_legs(torch, eb, dq, fa, records_per_s):
 
     root = tempfile.mkdtemp(prefix="zoo_loadgen_")
     try:
+        t0 = time.perf_counter()
         cache_dir = f"{root}/compile_cache"
         cold = cluster_models(torch)
         cluster_cover(cold, cluster_records(), cache_dir)
@@ -5366,6 +5391,7 @@ def loadgen_legs(torch, eb, dq, fa, records_per_s):
         gc.collect()
         torch.cuda.empty_cache()
         models = cluster_models(torch)
+        log("loadgen_prepare_s", time.perf_counter() - t0)
         legs = []
         for leg, base in LOADGEN_LEGS.items():
             spec = {"leg": leg, "shape": base["shape"],
@@ -5386,57 +5412,60 @@ def loadgen_legs(torch, eb, dq, fa, records_per_s):
 
 def loadgen_phase(torch, eb, dq, fa, card, records_per_s):
     """Phase 13 (docstring item 13): open-loop legs at full width through
-    ClusterServing (part a), then the port's ``default_report(quick=True)``
-    with its kill leg's servers on the card (part b)."""
+    ClusterServing (part a), then the harness's kill leg with its
+    servers on the card and its mix-shift leg (part b)."""
     import shutil
     import tempfile
 
-    from analytics_zoo_tpu_torch.loadgen.harness import default_report
+    from analytics_zoo_tpu_torch.loadgen.harness import (run_kill_leg,
+                                                         run_mix_shift_leg)
 
     t0 = time.perf_counter()
     legs = loadgen_legs(torch, eb, dq, fa, records_per_s)
     legs_s = time.perf_counter() - t0
     work = tempfile.mkdtemp(prefix="zoo_loadgen_report_")
+    report_wall = {}
     try:
         t0 = time.perf_counter()
-        report = default_report(work, quick=True, device="cuda")
-        report_s = time.perf_counter() - t0
+        kill = run_kill_leg(os.path.join(work, "kill"), **KILL_LEG)
+        report_wall["kill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mix = run_mix_shift_leg(**MIX_SHIFT_LEG)
+        report_wall["mix_shift"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    report_s = sum(report_wall.values())
     log("loadgen", json.dumps({"card": card, "records_per_s_r":
                                records_per_s, "legs_s": legs_s,
                                "legs": legs}))
-    log("loadgen_report", json.dumps({"card": card, "wall_s": report_s,
-                                      "report": report}))
+    log("loadgen_report", json.dumps({"card": card, "wall_s": report_wall,
+                                      "kill": kill, "mix_shift": mix}))
     summary = {"card": card, "r_records_per_s": records_per_s,
                "legs_s": legs_s, "report_s": report_s}
     for leg in legs:
         summary[leg["leg"]] = {
             k: leg[k] for k in ("scheduled", "offered", "outcomes",
                                 "sustained_qps_at_slo", "send_lag_p99_ms",
-                                "open_loop_drops", "launches", "models")
+                                "open_loop_drops", "launches", "models",
+                                "wall_s")
             if k in leg}
         summary[leg["leg"]]["device_busy_share"] = leg["device_busy"][
             "device_busy_share"]
         if "recovery_after_burst_s" in leg:
             summary[leg["leg"]]["recovery_after_burst_s"] = leg[
                 "recovery_after_burst_s"]
-    kill, mix = report["kill"], report["mix_shift"]
     summary["report"] = {
+        "wall_s": report_wall,
         "kill": {k: kill.get(k) for k in (
             "offered", "answered_ok", "lost", "recovery_after_kill_s",
             "cold_compile_count", "warm_compile_count", "warm_count",
-            "warm_cache_hits", "server2_exit_rc", "latency_p99_ms")},
+            "warm_cache_hits", "server1_exit_rc", "server2_exit_rc",
+            "server1_start_ready_s", "server1_startup_s",
+            "restart_ready_s", "server2_startup_s", "fresh_start_ready_s",
+            "fresh_startup_s", "fresh_compile_count", "latency_p99_ms")},
         "mix_shift": {k: mix.get(k) for k in (
             "autoscale_actions", "autoscale_flaps", "shed_fraction_echo",
-            "shed_fraction_laggy", "lost")},
-        "steady_p99_ms": report["steady"]["latency_p99_ms"],
-        "burst_recovery_s": report["burst"]["recovery_after_burst_s"],
-        "open_loop_rate_ratio": report["open_loop"][
-            "offered_to_scheduled_rate"],
-        "adversarial": {k: report["adversarial"][k] for k in (
-            "malformed_all_typed", "expired_all_shed")},
-        "not_ported": report["not_ported"]}
+            "shed_fraction_laggy", "lost")}}
     log("loadgen_summary", json.dumps(summary))
     bad = []
     for leg in legs:
@@ -5457,6 +5486,10 @@ def loadgen_phase(torch, eb, dq, fa, card, records_per_s):
                 bad.append(f"{name}: {m} answers {c}")
     if kill["warm_compile_count"] != 0:
         bad.append(f"kill: the successor captured live: {kill}")
+    if kill["fresh_compile_count"] != 0:
+        bad.append(f"kill: the fresh server captured live: {kill}")
+    if kill["server1_exit_rc"] != -9:
+        bad.append(f"kill: the killed worker's exit {kill}")
     if (kill["recovery_after_kill_s"] is None
             or kill["recovery_after_kill_s"] >= KILL_RECOVERY_S):
         bad.append(f"kill: recovery {kill['recovery_after_kill_s']}")

@@ -23,6 +23,8 @@ Every wait takes a deadline and every worker is stopped in ``finally``.
 """
 
 import json
+import os
+import signal
 import subprocess
 import sys
 
@@ -391,15 +393,19 @@ def test_steady_and_burst_legs_on_the_port():
 # -- real processes ----------------------------------------------------------
 
 def test_kill_leg_warm_restarts_from_the_cache(tmp_path):
-    """A ``server_main --device cpu`` process is SIGKILLed mid-storm and
-    relaunched over the same spool and compile cache: the successor has
-    the predecessor's fingerprint (it warms every signature) and
-    captures nothing live; loss is bounded by what the killed process
-    held."""
+    """A ``server_main --device cpu`` worker is SIGKILLed mid-storm and
+    its supervisor forks the successor over the same spool and compile
+    cache: the successor has the predecessor's fingerprint (it warms
+    every signature) and captures nothing live, and so does a fresh
+    interpreter started on the same caches after the storm; loss is
+    bounded by what the killed process held (a 2 s drain: answers come
+    within milliseconds of the restart, and a lost record would hold
+    the default 60 s one to its end)."""
     from analytics_zoo_tpu_torch.loadgen.harness import run_kill_leg
 
     sec = run_kill_leg(str(tmp_path / "kill"), qps=20.0, duration_s=6.0,
-                       kill_at_s=2.0, slo_ms=2000.0, seed=29, device="cpu")
+                       kill_at_s=2.0, slo_ms=2000.0, seed=29, device="cpu",
+                       drain_timeout_s=2.0)
     assert sec["offered"] == len(jarr.arrival_times(jarr.Steady(20.0),
                                                     6.0, 29))
     assert sec["cold_compile_count"] >= 3, sec
@@ -408,6 +414,66 @@ def test_kill_leg_warm_restarts_from_the_cache(tmp_path):
     assert sec["lost"] <= 32, sec
     assert sec["answered_ok"] > 0.5 * sec["offered"], sec
     assert sec["server2_exit_rc"] == 0
+    assert sec["server1_exit_rc"] == -signal.SIGKILL, sec
+    assert 0.0 < sec["restart_ready_s"] < 60.0, sec
+    assert sec["fresh_compile_count"] == 0, sec
+    assert sec["fresh_start_ready_s"] > 0.0, sec
+
+
+def test_server_main_worker_restarts_and_stops_with_its_supervisor(
+        tmp_path):
+    """``server_main``'s supervisor forks a successor for a worker that
+    dies by a signal (the successor's status names the death), and a
+    SIGTERM to the supervisor stops the worker and exits 0."""
+    from analytics_zoo_tpu_torch.loadgen.harness import (
+        start_server_process, wait_for_status)
+
+    spool, cache = tmp_path / "spool", tmp_path / "cache"
+    spool.mkdir()
+    cache.mkdir()
+    status = str(tmp_path / "server.status.json")
+    server = start_server_process(str(spool), str(cache), status,
+                                  str(tmp_path / "server.log"),
+                                  device="cpu")
+    try:
+        st1 = wait_for_status(status, timeout_s=60.0, require="ready",
+                              proc=server)
+        assert st1["supervisor_pid"] == server.pid != st1["pid"]
+        assert st1["restarts"] == 0 and st1["previous_exit"] is None
+        os.kill(st1["pid"], signal.SIGSEGV)
+        st2 = wait_for_status(status, timeout_s=60.0, require="ready",
+                              proc=server, not_pid=st1["pid"])
+        assert st2["restarts"] == 1, st2
+        assert st2["previous_exit"] == -signal.SIGSEGV, st2
+        assert st2["compile_count"] == 0 and st2["warm_count"] == 3, st2
+    finally:
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=30)
+    assert rc == 0
+    with pytest.raises(ProcessLookupError):
+        os.kill(st2["pid"], 0)
+
+
+def test_server_caches_bytecode_only_where_torch_ships_none(
+        tmp_path, monkeypatch):
+    import importlib.util
+
+    from analytics_zoo_tpu_torch.loadgen import server_main
+
+    shipped = tmp_path / "shipped.pyc"
+    monkeypatch.setattr(importlib.util, "cache_from_source",
+                        lambda path: str(shipped))
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    assert server_main.cache_bytecode(str(tmp_path)) == str(
+        tmp_path / "bytecode")
+    assert sys.pycache_prefix == str(tmp_path / "bytecode")
+    assert sys.dont_write_bytecode is False
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    shipped.touch()
+    assert server_main.cache_bytecode(str(tmp_path)) is None
+    assert sys.pycache_prefix is None and sys.dont_write_bytecode is True
 
 
 def test_client_main_process_drives_server_main(tmp_path):
