@@ -55,9 +55,21 @@ class ZooConfig:
     nan_backoff_factor: float = 0.5
     # Default cache level of a FeatureSet without one: "HOST" batches on
     # the host and copies each to the device; "DEVICE" holds the whole set
-    # on the device when it fits data_device_budget_bytes (else HOST).
+    # on the device when it fits data_device_budget_bytes, and streams it
+    # above (CacheLevel.STREAM), with host batches as the last fallback.
     data_cache_level: str = "HOST"
     data_device_budget_bytes: int = 4 << 30
+    # STREAM tier: device shard slots alive at once (2 = double
+    # buffering: shard N+1 is copied while the shard program trains on N).
+    data_stream_slots: int = 2
+    # STREAM tier's compressed shards: None keeps the native dtypes;
+    # "uint8" (affine) / "int8" (symmetric) encode float feature arrays
+    # on the host and decode them after the minibatch gather.  Labels and
+    # integer arrays pass unquantized.
+    data_cache_dtype: Optional[str] = None
+    # Rows per shuffle window of a disk-backed FeatureSet's host batches
+    # (FeatureSet.batches(shuffle_buffer=...)).
+    shuffle_buffer: int = 10000
     # Batches the host path prepares ahead of the step on a producer
     # thread (train/prefetch.py); 0 prepares them in line.
     data_prefetch: int = 2
@@ -155,8 +167,8 @@ class ZooConfig:
     # Arm a short torch.profiler trace when the flight recorder trips
     # (written under observe_flight_dir/profile).
     observe_profile_on_breach: bool = False
-    # TensorBoard directory (the serving writer is not ported: setting it
-    # for ClusterServing raises).
+    # TensorBoard directory of ClusterServing's scalars (throughput, stage
+    # p99s, healthy replicas); None = off.
     tensorboard_dir: Optional[str] = None
 
     @classmethod

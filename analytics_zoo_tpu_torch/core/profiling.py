@@ -1,18 +1,25 @@
-"""Host-side timers and event counters.
+"""Host-side timers and event counters, and device traces.
 
 ``TIMERS`` is the process-wide registry of named durations (count,
 total, p50/p99 over a ring of recent samples, which the serving
 pipeline's ``health()`` reads per stage), event counters, and gauges
-(point-in-time levels: replicas healthy, heartbeat ages).  The
-JAX package's ``jax.profiler`` wrappers have no counterpart here: device
-traces come from ``torch.profiler``.
+(point-in-time levels: replicas healthy, heartbeat ages); ``timeit``
+and ``count_event`` feed it.  ``trace`` captures a ``torch.profiler``
+trace of the host and the card (the JAX package's ``jax.profiler``
+wrapper), and ``annotate`` names a region inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
 import threading
+import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Iterator, Optional
+
+logger = logging.getLogger("analytics_zoo_tpu_torch.profiling")
 
 # per-stat reservoir of recent durations for percentile rollups
 _MAX_SAMPLES = 512
@@ -58,6 +65,18 @@ class Timers:
         self._counts: Dict[str, int] = {}
         self._gauges: Dict[str, float] = {}
 
+    @contextlib.contextmanager
+    def scope(self, name: str, log: bool = False) -> Iterator[None]:
+        """Time the block under ``name`` (logged when ``log``)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.observe(name, dt)
+            if log:
+                logger.info("[timeit] %s: %.3fms", name, dt * 1e3)
+
     def observe(self, name: str, seconds: float) -> None:
         """Record one duration measured externally."""
         with self._lock:
@@ -88,6 +107,10 @@ class Timers:
         with self._lock:
             self._gauges[name] = float(value)
 
+    def gauge(self, name: str, default: float = 0.0) -> float:
+        with self._lock:
+            return self._gauges.get(name, default)
+
     def gauges(self) -> Dict[str, float]:
         with self._lock:
             return dict(self._gauges)
@@ -99,6 +122,104 @@ class Timers:
                         "p50_s": v.percentile(50), "p99_s": v.percentile(99)}
                     for k, v in self._stats.items()}
 
+    def reset(self) -> None:
+        with self._lock:
+            self._stats.clear()
+            self._counts.clear()
+            self._gauges.clear()
+
+    def report(self) -> str:
+        """A table of the timers (longest total first), then the counters
+        and gauges: the JAX package's layout."""
+        lines = ["name count total_s mean_ms p50_ms p99_ms max_ms"]
+        for k, v in sorted(self.stats().items(),
+                           key=lambda kv: -kv[1]["total_s"]):
+            lines.append(f"{k} {v['count']} {v['total_s']:.3f} "
+                         f"{v['mean_s'] * 1e3:.2f} {v['p50_s'] * 1e3:.2f} "
+                         f"{v['p99_s'] * 1e3:.2f} {v['max_s'] * 1e3:.2f}")
+        counts = self.counts()
+        if counts:
+            lines.append("-- counters --")
+            for k, n in sorted(counts.items()):
+                lines.append(f"{k} {n}")
+        gauges = self.gauges()
+        if gauges:
+            lines.append("-- gauges --")
+            for k, v in sorted(gauges.items()):
+                lines.append(f"{k} {v:g}")
+        return "\n".join(lines)
+
 
 TIMERS = Timers()
+
+
+def timeit(name: str, log: bool = False):
+    """``with timeit("shard_batch"): ...`` — a scoped wall-clock timer."""
+    return TIMERS.scope(name, log=log)
+
+
+def count_event(name: str, n: int = 1) -> None:
+    """Bump a process-wide event counter (``TIMERS.counts()`` reads it)."""
+    TIMERS.incr(name, n)
+
+
+# one profiler trace per process: a nested trace() raises instead of
+# corrupting the active one
+_trace_lock = threading.Lock()
+_active_trace_dir: Optional[str] = None
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, annotation: Optional[str] = None) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the host and, where there is
+    one, the card into ``log_dir`` (a Chrome trace, ``trace.json``,
+    readable by Perfetto or TensorBoard's profile plugin).
+
+    A nested ``trace()`` raises ``RuntimeError``, and a profiler that
+    failed to start is never stopped.  The profiler runs only on the
+    thread that opened it: a CUDA graph captured inside the block on
+    another thread is not traced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    global _active_trace_dir
+    with _trace_lock:
+        if _active_trace_dir is not None:
+            raise RuntimeError(
+                f"profiling.trace({log_dir!r}) called while a trace into "
+                f"{_active_trace_dir!r} is active; one trace per process "
+                "— end the outer trace first")
+        _active_trace_dir = log_dir
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    started = False
+    try:
+        prof.__enter__()
+        started = True
+        if annotation:
+            with annotate(annotation):
+                yield
+        else:
+            yield
+    finally:
+        with _trace_lock:
+            _active_trace_dir = None
+        if started:
+            prof.__exit__(None, None, None)
+            os.makedirs(log_dir, exist_ok=True)
+            path = os.path.join(log_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            logger.info("profiler trace written to %s", path)
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region on the profiler's timeline
+    (``torch.profiler.record_function``)."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield
 

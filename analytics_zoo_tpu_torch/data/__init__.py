@@ -1,5 +1,7 @@
-"""Host datasets: ``FeatureSet`` with HOST / DEVICE cache levels, the
-MovieLens and text-corpus readers and the text pipeline (``TextSet``)."""
+"""Host datasets: ``FeatureSet`` with its memory tiers and HOST / DEVICE /
+STREAM cache levels (``SlicedFeatureSet`` for slices on disk, the STREAM
+tier in ``streaming``), the MovieLens and text-corpus readers and the text
+pipeline (``TextSet``)."""
 
 from analytics_zoo_tpu_torch.data.datasets import (  # noqa: F401
     generate_movielens_like,
@@ -11,6 +13,8 @@ from analytics_zoo_tpu_torch.data.datasets import (  # noqa: F401
 from analytics_zoo_tpu_torch.data.featureset import (  # noqa: F401
     CacheLevel,
     FeatureSet,
+    SlicedFeatureSet,
+    npy_header,
 )
 from analytics_zoo_tpu_torch.data.text import (  # noqa: F401
     TextFeature,

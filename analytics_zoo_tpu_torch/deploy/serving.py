@@ -29,11 +29,11 @@ surfaced by :meth:`ClusterServing.health`.  The transport is pluggable:
                     a server; the import is gated, and nothing stands in
                     when it fails).
 
-The JAX package's pod-scale mesh replicas and ``PodCoordinator``, image
-records and the serving TensorBoard writer are not ported yet (ROADMAP
-A5, A8, A9): a ``tensorboard_dir`` raises ``NotImplementedError`` naming
-the item, and an image record is answered with a typed ``malformed``
-error.
+``tensorboard_dir`` writes the JAX package's serving scalars (records/s,
+total records, each stage's p99, healthy replicas) as TensorBoard events
+(``core/summary.py``).  The JAX package's pod-scale mesh replicas and
+``PodCoordinator``, and image records, are not ported yet (ROADMAP A8,
+A9): an image record is answered with a typed ``malformed`` error.
 
 Wire format is a per-backend property (``queue.wire``): ``"binary"``
 backends move framed raw tensor bytes (:mod:`deploy.codec`, the JAX
@@ -1633,10 +1633,12 @@ class ClusterServing:
         self.queue = queue
         self._wire = getattr(queue, "wire", "json")
         self.cfg = config or ServingConfig()
+        self._tb = None
+        self._tb_last_t = time.monotonic()
+        self._tb_last_n = 0
         if self.cfg.tensorboard_dir:
-            raise NotImplementedError(
-                "the serving TensorBoard writer (core/summary.py) is not "
-                "ported yet (ROADMAP A5); leave tensorboard_dir unset")
+            from analytics_zoo_tpu_torch.core.summary import SummaryWriter
+            self._tb = SummaryWriter(self.cfg.tensorboard_dir)
         self.preprocess = preprocess
         self._stop = threading.Event()
         self._stopped = False
@@ -2101,6 +2103,8 @@ class ClusterServing:
                 "ClusterServing.stop(): worker thread(s) %s still alive "
                 "after %.1fs — leaked (likely stuck in model forward or "
                 "backend I/O)", leaked or ["device-executor"], timeout)
+        if self._tb is not None:
+            self._tb.flush()
         if self._event_log is not None:
             # one final metrics dump so the log tail always carries the
             # end-of-run registry state
@@ -2399,6 +2403,30 @@ class ClusterServing:
                 self._admission.note(model, e2e)
         with self._count_lock:
             self.records_served += len(prepared)
+        self._maybe_tb_flush()
+
+    def _maybe_tb_flush(self) -> None:
+        """The serving scalars, every 32 records or second at most."""
+        if self._tb is None:
+            return
+        now = time.monotonic()
+        with self._count_lock:
+            n, dt = self.records_served, now - self._tb_last_t
+            if n - self._tb_last_n < 32 and dt < 1.0:
+                return
+            delta = n - self._tb_last_n
+            self._tb_last_t, self._tb_last_n = now, n
+        self._tb.add_scalar("serving_throughput",
+                            delta / dt if dt > 0 else 0.0, n)
+        self._tb.add_scalar("total_records", n, n)
+        for stage in ("queue_wait", "decode", "batch_wait", "device",
+                      "respond", "e2e"):
+            p99 = TIMERS.percentile(f"serving/{stage}", 99)
+            if p99:
+                self._tb.add_scalar(f"serving_{stage}_p99_ms", p99 * 1e3, n)
+        if self._executor is not None:
+            self._tb.add_scalar("serving_replicas_healthy",
+                                self._executor.healthy_replicas(), n)
 
     def _format_result(self, out, err, rec: Dict) -> Any:
         """One result value for the wire: typed error payload, top-N
@@ -2597,6 +2625,7 @@ class ClusterServing:
                                      timeout=self.cfg.poll_timeout_s)
         if not batch:
             return 0
+        t0 = time.perf_counter()
         groups: Dict[Any, List] = {}  # (shape, dtype) -> [(rid, x, native)]
         for rid, rec in batch:
             # root span for the sync path too: _shed/error/success all
@@ -2667,6 +2696,11 @@ class ClusterServing:
         # serve_once can run concurrently with a started pipeline's
         # respond pool, which bumps this counter under _count_lock —
         # an unlocked += here would lose increments (THR-GUARD)
+        dt = time.perf_counter() - t0
         with self._count_lock:
             self.records_served += served
+            total = self.records_served
+        if self._tb is not None and served:
+            self._tb.add_scalar("serving_throughput", served / dt, total)
+            self._tb.add_scalar("total_records", total, total)
         return served

@@ -78,6 +78,10 @@ class ZooModel:
         self.model.set_checkpoint(path, over_write=over_write)
         return self
 
+    def set_tensorboard(self, log_dir: str, app_name: str = "zoo"):
+        self.model.set_tensorboard(log_dir, app_name)
+        return self
+
     @property
     def estimator(self):
         return self.model.estimator

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -29,6 +30,7 @@ class KerasNet(Layer):
         self._estimator = None          # created by compile()
         self._pending_init = None       # set_initial_weights before it
         self._ckpt_dir = None           # set_checkpoint before it
+        self._tb_dir = None             # set_tensorboard before it
 
     def __getstate__(self):
         """A copy (``copy.deepcopy``, pickle) carries the net's weights,
@@ -88,8 +90,8 @@ class KerasNet(Layer):
         context's, else ``cuda``.  Re-compiling keeps the live weights
         (they live in this net); weights staged by ``set_initial_weights``
         — before this call, or on the previous estimator and not yet
-        applied — carry over, and so does a ``set_checkpoint`` made before
-        it."""
+        applied — carry over, and so do a ``set_checkpoint`` and a
+        ``set_tensorboard`` made before it."""
         from analytics_zoo_tpu_torch.train.estimator import Estimator
 
         prev = self._estimator
@@ -104,6 +106,8 @@ class KerasNet(Layer):
             carried, self._pending_init = self._pending_init, None
         if carried is not None:
             self._estimator.set_initial_weights(*carried)
+        if self._tb_dir is not None:
+            self._estimator.set_tensorboard(self._tb_dir)
         if self._ckpt_dir is not None:
             self._estimator.set_checkpoint(self._ckpt_dir)
         return self
@@ -131,6 +135,14 @@ class KerasNet(Layer):
         self._ckpt_dir = path
         if self._estimator is not None:
             self._estimator.set_checkpoint(path, over_write=over_write)
+        return self
+
+    def set_tensorboard(self, log_dir: str, app_name: str = "zoo"):
+        """Training scalars under ``log_dir/app_name`` (before or after
+        ``compile``), as the JAX package lays them out."""
+        self._tb_dir = f"{log_dir.rstrip('/')}/{app_name}"
+        if self._estimator is not None:
+            self._estimator.set_tensorboard(self._tb_dir)
         return self
 
     # -- persistence ------------------------------------------------------
@@ -186,6 +198,30 @@ class KerasNet(Layer):
                         zero_based_label: bool = True):
         return self.estimator.predict_classes(
             x, batch_size=batch_size, zero_based_label=zero_based_label)
+
+    # -- introspection ----------------------------------------------------
+    def summary(self, params=None) -> str:
+        """A table of the layers (name, declared input shape, parameter
+        count) and the total, printed and returned, in the JAX package's
+        layout.  The counts are of ``params`` (a ``{layer: {leaf:
+        array}}`` tree) when given, else of the net's own weights."""
+        tree = self.params() if params is None else params
+        lines = [f"Model: {self.name}", "-" * 64]
+        for layer in self.layers:
+            lines.append(f"{layer.name:<32}{str(layer.input_shape):<24}"
+                         f"{_numel(tree.get(layer.name, {})):>8}")
+        lines.append("-" * 64)
+        lines.append(f"Total params: {_numel(tree)}")
+        out = "\n".join(lines)
+        print(out)
+        return out
+
+
+def _numel(tree) -> int:
+    """Elements in a tree of arrays or tensors."""
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    return int(np.prod(tuple(tree.shape), dtype=np.int64))
 
 
 class Sequential(KerasNet):

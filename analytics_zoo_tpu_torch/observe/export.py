@@ -9,8 +9,10 @@ Three formats, one registry:
 - ``JsonlEventLog`` — an append-only structured event log (one JSON
   object per line: spans as they complete, metric dumps, flight
   records, free-form markers).  Attach to a ``Tracer`` to stream spans.
-(The JAX package's ``publish_to_summary`` waits for the TensorBoard
-writer, ``core/summary.py``: ROADMAP A5.)
+- ``publish_to_summary`` — bridges gauges / counters / histogram
+  percentiles into the no-TF TensorBoard writer (``core/summary.py``)
+  so training dashboards see the same series that serving ``health()``
+  exposes.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from analytics_zoo_tpu_torch.observe.metrics import (METRICS,
                                                      render_series)
 from analytics_zoo_tpu_torch.observe.trace import Tracer
 
-__all__ = ["to_prometheus", "parse_prometheus", "JsonlEventLog"]
+__all__ = ["to_prometheus", "parse_prometheus", "JsonlEventLog",
+           "publish_to_summary"]
 
 
 def _esc(value: str) -> str:
@@ -169,3 +172,32 @@ class JsonlEventLog:
     def close(self) -> None:
         with self._lock:
             self._close_locked()
+
+
+def publish_to_summary(writer, step: int,
+                       registry: Optional[MetricsRegistry] = None,
+                       prefix: str = "") -> int:
+    """Write the registry into a ``core.summary.SummaryWriter``.
+
+    Gauges and counters land under their rendered series name;
+    histograms land as ``<series>/p50`` and ``<series>/p99``.  Returns
+    the number of scalars written.  ``prefix`` filters by metric name
+    (e.g. ``"train_"``).
+    """
+    reg = registry if registry is not None else METRICS
+    wrote = 0
+    for name, kind, _help, series in reg.collect():
+        if prefix and not name.startswith(prefix):
+            continue
+        for labels, value in series:
+            tag = _render(name, labels)
+            if kind == "histogram":
+                for key in ("p50", "p99"):
+                    if value[key] is not None:
+                        writer.add_scalar(f"{tag}/{key}", value[key],
+                                          step)
+                        wrote += 1
+            else:
+                writer.add_scalar(tag, float(value), step)
+                wrote += 1
+    return wrote

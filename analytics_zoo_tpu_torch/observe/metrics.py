@@ -115,9 +115,37 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...]]] = {
     # training
     "train_steps_total": (
         "counter", "optimizer steps dispatched, by dispatch kind "
-        "(1|K|resident)", ("kind",)),
+        "(1|K|resident|shard)", ("kind",)),
     "train_step_seconds": (
         "histogram", "host wall time of one step dispatch", ("kind",)),
+    "train_epoch_seconds": ("histogram", "wall time of one epoch", ()),
+    "train_loss": ("gauge", "last epoch mean loss", ()),
+    "train_throughput_rows_per_s": (
+        "gauge", "last epoch training throughput", ()),
+    "eval_batches_total": (
+        "counter", "evaluate / predict batches dispatched, by program "
+        "(eval|predict)", ("kind",)),
+    # data pipeline (STREAM tier + host prefetch)
+    "data_shard_upload_ms": (
+        "histogram", "host->device staging time per streamed shard "
+        "(read + transforms + encode + pinned copy, paid on the uploader "
+        "thread)", ()),
+    "data_shard_wait_ms": (
+        "histogram", "time the training loop blocked waiting for a "
+        "shard lease (steady-state overlap target: ~0)", ()),
+    "data_stream_overlap_frac": (
+        "gauge", "fraction of shard-upload time hidden behind compute "
+        "over the last epoch (1 - wait/upload, clipped to [0, 1])", ()),
+    "data_decode_bytes_total": (
+        "counter", "compressed shard bytes decoded after the minibatch "
+        "gather, by cache dtype (uint8|int8)", ("dtype",)),
+    "data_stream_fallbacks_total": (
+        "counter", "mid-rotation uploader failures absorbed by the "
+        "host path, by reason", ("reason",)),
+    "data_path_selected_total": (
+        "counter", "FeatureSet input-path router decisions, by chosen "
+        "path and bounded reason code (cache_level_host | fits_budget "
+        "| over_budget | sliced | stream_infeasible)", ("path", "reason")),
     "prefetch_queue_depth": (
         "gauge", "batches queued ahead of the consumer in the prefetch "
         "pipeline", ()),
@@ -133,7 +161,8 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...]]] = {
         "counter", "kernel routing decisions, one per call, by kernel and "
         "chosen path (cuda | reference)", ("kernel", "path")),
     "graph_captures_total": (
-        "counter", "CUDA graphs captured, by owner (train|serving)",
+        "counter", "CUDA graphs captured, by owner "
+        "(train|serving|eval|predict)",
         ("kind",)),
     "graph_capture_seconds": (
         "histogram", "wall time of one CUDA graph capture", ("kind",)),

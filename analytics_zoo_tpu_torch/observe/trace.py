@@ -28,9 +28,10 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "TRACER", "find_orphans"]
+__all__ = ["Span", "Tracer", "TRACER", "span", "find_orphans"]
 
 _DEFAULT_RING = int(os.environ.get("ZOO_OBSERVE_SPAN_RING", "4096"))
 
@@ -204,3 +205,20 @@ def find_orphans(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
 
 
 TRACER = Tracer()
+
+
+@contextmanager
+def span(name: str, trace: Optional[str] = None,
+         parent: Optional[int] = None, tracer: Optional[Tracer] = None,
+         **attrs: Any):
+    """``with span("train/epoch", trace=t, epoch=3) as sp: ...`` — ends
+    with status ``"ok"``, or ``"error"`` if the body raises."""
+    sp = (tracer or TRACER).start(name, trace=trace, parent=parent,
+                                  **attrs)
+    try:
+        yield sp
+    except BaseException as e:
+        sp.end(status="error", error=repr(e))
+        raise
+    else:
+        sp.end()

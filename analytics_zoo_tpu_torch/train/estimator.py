@@ -18,9 +18,20 @@ What carries over from the JAX design:
   batch on a prefetch thread into pinned buffers and copied on a side
   stream (``host_prefetch``, ``train/prefetch.py``, ``data_prefetch``
   batches ahead); tensors are moved to the device once and every epoch's
-  permutation and gathers run there (``device_resident``); a
-  ``FeatureSet`` takes one of the two by its cache level and
-  ``ZooConfig.data_device_budget_bytes``.
+  permutation and gathers run there (``device_resident``).  A
+  ``FeatureSet`` goes through the JAX package's router
+  (``_resolve_data_path``, counted in ``data_path_selected_total``): by
+  its cache level and ``ZooConfig.data_device_budget_bytes`` it trains
+  resident, from host batches (K per dispatch under
+  ``steps_per_execution``), or through the STREAM tier
+  (``data/streaming.py``): budget-sized shards rotate through
+  ``data_stream_slots`` device slots, and each shard trains as one
+  captured program per slot, its rows permuted and gathered on the
+  device, quantized features decoded after the gather.  An upload that
+  fails mid-epoch (faults ``data.shard_upload``, ``data.shard_torn``)
+  finishes the epoch's shards from host batches and is counted in
+  ``data_stream_fallbacks_total``; a preemption flushes the shard
+  cursor, and a resume restarts at that shard.
 - **Layer state** (BatchNormalization's moving statistics,
   ``nn/module.py``): the training forward hands its new values to the
   step, which commits them into the live buffers after the loss is
@@ -68,6 +79,21 @@ What carries over from the JAX design:
   replaced parameters, another frozen set).  An estimator's programs
   capture into one memory pool, since they never replay at once.  On
   the CPU the same static-buffer code runs eagerly.
+- **Evaluation and prediction** run as programs too: one eval and one
+  predict program per input signature, each batch padded to the batch
+  size with a device mask over the padded rows (the JAX package's
+  ``_pad_to_devices`` and eval step): a per-row loss is summed under the
+  mask, a loss that couples rows and takes a mask weighs by its own unit
+  count, one that couples rows without a mask runs on the whole batch.
+  Metric statistics add into device accumulators inside the program, so
+  an ``evaluate`` pass reads the host once and ``predict`` once per
+  batch.  Mid-fit validation goes through them.
+- **Observability** (the JAX package's): ``train/fit``, ``train/epoch``
+  and ``train/step`` spans; ``train_epoch_seconds``, ``train_loss`` and
+  ``train_throughput_rows_per_s``; ``set_tensorboard`` writes each
+  epoch's and each validation's scalars (``core/summary.py``);
+  ``training_report``, ``metrics_text``, ``publish_metrics`` and
+  ``arm_flight_recorder``.
 - **Checkpoints and resume** (``set_checkpoint``, ``fit(resume=True)``,
   ``train/checkpoint.py``): a snapshot holds the parameters and the
   state (the JAX trees), the flat optimizer state, and ``meta`` — the step and epoch
@@ -82,8 +108,8 @@ What carries over from the JAX design:
   from the last checkpoint (``failure_retry_times`` within
   ``failure_retry_interval_s``).
 
-TensorBoard, the stream tier, the distributed checkpoint and multi-GPU
-are not ported yet.
+The distributed checkpoint and multi-GPU training (and with them the
+stream tier's multi-controller parts) are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -96,7 +122,7 @@ import signal
 import threading
 import time
 import weakref
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +137,9 @@ from analytics_zoo_tpu_torch.nn import metrics as metrics_lib
 from analytics_zoo_tpu_torch.nn import module as module_lib
 from analytics_zoo_tpu_torch.nn import objectives
 from analytics_zoo_tpu_torch.observe import metrics as obs
+from analytics_zoo_tpu_torch.observe.export import (publish_to_summary,
+                                                    to_prometheus)
+from analytics_zoo_tpu_torch.observe.trace import TRACER
 from analytics_zoo_tpu_torch.robust import (RetryPolicy, TrainingPreempted,
                                             faults)
 from analytics_zoo_tpu_torch.train import checkpoint as ckpt_lib
@@ -206,10 +235,33 @@ class _ResidentFeed:
         return [a.index_select(0, idx) for a in self.arrays]
 
 
+class _StreamFeed:
+    """One STREAM slot as a shard program's input: its device tensors
+    (rows, or ``(q, scale, zero)`` for a quantized array) and the
+    in-shard permutation.  Step ``j`` gathers rows ``perm[j*B:(j+1)*B]``
+    of every array and decodes the quantized ones after the gather."""
+
+    def __init__(self, slots, slot: int, batch: int):
+        self.views, self.perm = slots.slots[slot].views()
+        self.batch = batch
+        self.key = (slot,) + slots.key
+
+    def rows(self, j: int):
+        from analytics_zoo_tpu_torch.ops.quantization import \
+            dequantize_features
+
+        idx = self.perm[j * self.batch:(j + 1) * self.batch]
+        return [a.index_select(0, idx) if isinstance(a, torch.Tensor)
+                else dequantize_features(a[0].index_select(0, idx), a[1],
+                                         a[2])
+                for a in self.views]
+
+
 class _StepProgram:
     """``k`` train steps over static inputs, as one ``StepGraph``: host
     batches are copied into the program's own buffers before each run;
-    resident batches are gathered inside it from the feed.  The step
+    resident batches are gathered inside it from the feed, and a STREAM
+    shard's from its slot (``_StreamFeed``).  The step
     function holds the estimator weakly and the program not at all, so
     no reference cycle keeps a graph's memory alive after its owner."""
 
@@ -234,10 +286,15 @@ class _StepProgram:
                 for j in range(k):
                     rows = [t[j * b:(j + 1) * b] for t in static]
                     step(params, rows[:-1], rows[-1], mask, nan_scale)
-        else:
+        elif kind == "resident":
             def fn():
                 for _ in range(k):
                     rows = feed.rows()
+                    step(params, rows[:-1], rows[-1], mask, nan_scale)
+        else:
+            def fn():
+                for j in range(k):
+                    rows = feed.rows(j)
                     step(params, rows[:-1], rows[-1], mask, nan_scale)
 
         self.graph = graphs.StepGraph(
@@ -252,6 +309,49 @@ class _StepProgram:
             self.nan_scale.fill_(float("nan") if nan_loss else 1.0)
             self._nan = nan_loss
         self.graph()
+
+
+class _EvalProgram:
+    """One evaluate ("eval") or predict ("predict") batch signature as a
+    ``StepGraph`` over static inputs: the features, and for "eval" the
+    label and the row mask, filled before each run.  "eval" adds the
+    batch's loss and metric statistics into device accumulators (made by
+    the eager warm-up, zeroed by the caller before a pass); "predict"
+    returns its static outputs.  The function holds the estimator
+    weakly and the program not at all."""
+
+    def __init__(self, est: "Estimator", kind: str, specs, batch: int):
+        dev = est.device
+        owner = weakref.ref(est)
+        self.static = static = [torch.empty((batch,) + tuple(shape),
+                                            dtype=dtype, device=dev)
+                                for shape, dtype in specs]
+        self.acc = acc = []
+        if kind == "eval":
+            def fn():
+                with torch.no_grad():
+                    stats = owner()._eval_stats(static[:-2], static[-2],
+                                                static[-1])
+                    if not acc:
+                        acc.extend(torch.zeros_like(t) for t in stats)
+                    torch._foreach_add_(acc, stats)
+        else:
+            def fn():
+                with torch.no_grad():
+                    return owner()._eval_forward(static)
+        self.graph = graphs.StepGraph(
+            fn, dev, pool=est._graph_pool(eval_pool=True),
+            name=f"{kind} (batch {batch})")
+
+    def run(self, tensors):
+        """Fill the static inputs (host rows through pinned memory on the
+        card, so the copy queues behind the last replay without a wait)
+        and run the program."""
+        for t, src in zip(self.static, tensors):
+            if t.is_cuda and not src.is_cuda:
+                src = src.pin_memory()
+            t.copy_(src, non_blocking=True)
+        return self.graph()
 
 
 def _pickled(state) -> np.ndarray:
@@ -361,6 +461,25 @@ class Estimator:
         self._mask = None
         self._feed: Optional[_ResidentFeed] = None
         self._generators: tuple = ()
+        # the STREAM tier: the router's plan and the device slots the
+        # shard programs read (kept while the plan's geometry holds)
+        self._stream_plan = None
+        self._stream_slots = None
+        # evaluate / predict programs by signature, valid while the
+        # tensors they read stay the live ones (_eval_key); their pool
+        self._eval_programs: Dict[tuple, _EvalProgram] = {}
+        self._eval_key = None
+        self._eval_pool = None
+        self._eval_metric_keys: List[List[str]] = []
+        # observability: the TensorBoard writer, the fit's root span and
+        # the current epoch's (step spans parent under it), the metric
+        # snapshot at fit() entry (training_report deltas it), and the
+        # flight recorder checked at epoch ends
+        self._tb_writer = None
+        self._fit_span = None
+        self._epoch_span = None
+        self._fit_metrics_mark = None
+        self._flight_recorder = None
 
     # ------------------------------------------------------------------
     # configuration
@@ -376,6 +495,70 @@ class Estimator:
         if trigger is not None:
             self._ckpt_trigger = trigger
         return self
+
+    def set_tensorboard(self, log_dir: str):
+        """Write each epoch's and each validation's scalars (loss,
+        throughput, ``val_*``) as TensorBoard events under ``log_dir``
+        (``core/summary.py``; ``read_scalars`` reads them back)."""
+        from analytics_zoo_tpu_torch.core.summary import SummaryWriter
+
+        self._tb_writer = SummaryWriter(log_dir)
+        return self
+
+    def arm_flight_recorder(self, *, window_s: float = 5.0,
+                            out_dir: Optional[str] = None,
+                            watch: Optional[Sequence] = None, **kw):
+        """A training-side flight recorder, checked at each epoch's end:
+        a stream-tier fallback (``data_stream_fallbacks_total``) trips a
+        snapshot of the span ring and the metric window.  Extra
+        ``watch`` pairs and ``FlightRecorder`` keywords pass through.
+        Returns the recorder."""
+        from analytics_zoo_tpu_torch.observe.recorder import FlightRecorder
+
+        counters = [("data_stream_fallbacks_total", {})]
+        if watch:
+            counters.extend(watch)
+        self._flight_recorder = FlightRecorder(
+            watch_counters=counters, window_s=window_s, out_dir=out_dir,
+            **kw)
+        self._flight_recorder.check()       # open the first window
+        return self._flight_recorder
+
+    def training_report(self) -> Dict[str, Any]:
+        """The fit() counterpart of serving's ``health()``: progress, the
+        labelled-metric delta since the last ``fit()`` began (step and
+        epoch times, data path, checkpoints, loss and throughput gauges)
+        and the span ring's counts."""
+        report: Dict[str, Any] = {
+            "global_step": self.global_step,
+            "finished_epochs": self.finished_epochs,
+            "last_data_path": self.last_data_path,
+            "history": list(self.history),
+            "spans": {"completed": TRACER.completed_count(),
+                      "active": TRACER.active_count(),
+                      "ring": TRACER.ring_size()},
+        }
+        if self._fit_span is not None:
+            report["fit_trace"] = self._fit_span.trace
+        if self._fit_metrics_mark is not None:
+            report["metrics_delta"] = obs.METRICS.delta(
+                self._fit_metrics_mark)
+        return report
+
+    def metrics_text(self) -> str:
+        """The labelled metric registry in Prometheus text format."""
+        return to_prometheus(obs.METRICS)
+
+    def publish_metrics(self, step: Optional[int] = None) -> int:
+        """The labelled registry into the ``set_tensorboard`` writer (0
+        without one); returns the number of scalars written."""
+        if self._tb_writer is None:
+            return 0
+        wrote = publish_to_summary(self._tb_writer,
+                                   self.global_step if step is None
+                                   else step)
+        self._tb_writer.flush()
+        return wrote
 
     def load_checkpoint(self, directory: str):
         """Restore the newest intact snapshot in ``directory`` (at once
@@ -581,10 +764,17 @@ class Estimator:
             self._programs.clear()
             self._programs_key = key
 
-    def _graph_pool(self):
-        """The step programs' shared graph memory pool (None off the
+    def _graph_pool(self, eval_pool: bool = False):
+        """The step programs' shared graph memory pool, or with
+        ``eval_pool`` the evaluate and predict programs' (None off the
         card)."""
-        if self._pool is None and self.device.type == "cuda":
+        if self.device.type != "cuda":
+            return None
+        if eval_pool:
+            if self._eval_pool is None:
+                self._eval_pool = torch.cuda.graph_pool_handle()
+            return self._eval_pool
+        if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
@@ -607,17 +797,25 @@ class Estimator:
                   mask) -> None:
         """``k`` steps as one program launch.  ``kind`` "host": ``feed``
         is ``[inputs..., label]`` of ``k`` batches stacked along rows;
-        "resident": ``feed`` is the epoch's ``_ResidentFeed``."""
+        "resident": ``feed`` is the epoch's ``_ResidentFeed``; "stream":
+        a ``_StreamFeed`` of the shard's slot, ``k`` its steps."""
         if kind == "host":
             key = ("host", k) + tuple((tuple(t.shape), t.dtype)
                                       for t in feed)
         else:
-            key = ("resident", k) + feed.key
+            key = (kind, k) + feed.key
         prog = self._programs.get(key)
         if prog is None:
             prog = _StepProgram(self, kind, feed, k, params, mask)
             self._programs[key] = prog
-        label = kind if kind == "resident" else ("K" if k > 1 else "1")
+        # the JAX package's kinds: a host dispatch of 1 or K steps, a
+        # stream shard; and the port's resident K-step dispatch
+        label = {"host": "K" if k > 1 else "1", "stream": "shard"}.get(
+            kind, kind)
+        parent = self._epoch_span or self._fit_span
+        sp = (TRACER.start("train/step", trace=parent.trace,
+                           parent=parent.sid, kind=label)
+              if parent is not None else None)
         t0 = time.perf_counter()
         captures = prog.graph.captured
         prog.run(feed, nan_loss)
@@ -628,6 +826,8 @@ class Estimator:
         obs.observe("train_step_seconds", time.perf_counter() - t0,
                     kind=label)
         obs.count("train_steps_total", k, kind=label)
+        if sp is not None:
+            sp.end(steps=k)
 
     def _read_epoch(self):
         """The one host read of an epoch: (mean finite loss, bad steps,
@@ -724,14 +924,28 @@ class Estimator:
         dropouts = [m for m in self.model.modules()
                     if isinstance(m, (Dropout, GaussianSampler))]
         restore_sig = self._install_preempt_handler()
+        # the fit's root span and metric mark: epoch and step spans chain
+        # under it, and training_report() deltas the registry from the mark
+        self._fit_metrics_mark = obs.METRICS.snapshot()
+        self._fit_span = TRACER.start("train/fit", epochs=epochs,
+                                      batch_size=batch_size)
         try:
             if isinstance(x, FeatureSet):
-                return self._fit_featureset(x, batch_size, epochs,
-                                            validation_data, end_trigger,
-                                            shuffle, verbose, dropouts)
-            return self._fit_arrays(x, y, batch_size, epochs,
-                                    validation_data, end_trigger, shuffle,
-                                    verbose, dropouts)
+                out = self._fit_featureset(x, batch_size, epochs,
+                                           validation_data, end_trigger,
+                                           shuffle, verbose, dropouts)
+            else:
+                out = self._fit_arrays(x, y, batch_size, epochs,
+                                       validation_data, end_trigger, shuffle,
+                                       verbose, dropouts)
+            self._fit_span.end(epochs_done=self.finished_epochs)
+            return out
+        except BaseException as e:
+            if self._epoch_span is not None:
+                self._epoch_span.end(status="error", error=str(e))
+                self._epoch_span = None
+            self._fit_span.end(status=type(e).__name__, error=str(e))
+            raise
         finally:
             restore_sig()
             for m in dropouts:
@@ -849,54 +1063,124 @@ class Estimator:
                             validation_data, end_trigger, verbose, dropouts,
                             mid_epoch=False)
 
-    def _fit_featureset(self, fs, batch_size, epochs, validation_data,
-                        end_trigger, shuffle, verbose, dropouts):
-        from analytics_zoo_tpu_torch.data.featureset import CacheLevel
+    def _resolve_data_path(self, fs, batch_size: int) -> Tuple[str, str]:
+        """Which path a FeatureSet trains through, the JAX package's
+        router: ``("device_resident" | "stream" | "host_prefetch",
+        reason)`` by its cache level (else ``data_cache_level``) and
+        ``data_device_budget_bytes``.  HOST → host batches; fits the
+        budget → resident (a STREAM request that fits downgrades);
+        larger, or sliced → the STREAM tier when a shard geometry exists
+        (``plan_stream``), else host batches.  Each decision is counted
+        in ``data_path_selected_total{path,reason}``."""
+        from analytics_zoo_tpu_torch.data import streaming as stream_lib
+        from analytics_zoo_tpu_torch.data.featureset import (
+            CacheLevel, SlicedFeatureSet)
+
+        def pick(path: str, code: str, reason: str) -> Tuple[str, str]:
+            obs.count("data_path_selected_total", path=path, reason=code,
+                      flat=f"estimator/data_path_{path}")
+            return path, reason
 
         cfg = self.ctx.config
+        self._stream_plan = None
         level = fs.cache_level or CacheLevel.normalize(cfg.data_cache_level)
+        if level == CacheLevel.HOST:
+            return pick("host_prefetch", "cache_level_host",
+                        "cache level HOST")
         budget = int(cfg.data_device_budget_bytes)
-        if level == CacheLevel.DEVICE and fs.nbytes <= budget:
+        sliced = isinstance(fs, SlicedFeatureSet)
+        if not sliced and fs.nbytes <= budget:
+            return pick("device_resident", "fits_budget",
+                        "fits device budget")
+        plan, why = stream_lib.plan_stream(
+            fs, budget, batch_size, slots=cfg.data_stream_slots,
+            cache_dtype=cfg.data_cache_dtype)
+        over = ("sliced (beyond-memory) featureset" if sliced else
+                f"dataset {fs.nbytes}B over device budget {budget}B")
+        if plan is None:
+            logger.warning("%s and streaming is infeasible (%s); falling "
+                           "back to host batches", over, why)
+            return pick("host_prefetch", "stream_infeasible",
+                        f"{over}; stream infeasible: {why}")
+        logger.info(
+            "STREAM tier engaged: %s; rotating %d shards of %d rows "
+            "(%.1f MiB a shard on the device, %d slots%s)", over,
+            plan.n_shards, plan.shard_rows, plan.device_shard_bytes / 2 ** 20,
+            plan.slots, f", {plan.cache_dtype} device cache"
+            if plan.cache_dtype else "")
+        self._stream_plan = plan
+        return pick("stream", "sliced" if sliced else "over_budget",
+                    f"{over}; streaming {plan.n_shards} shards of "
+                    f"{plan.shard_rows} rows")
+
+    def _fit_featureset(self, fs, batch_size, epochs, validation_data,
+                        end_trigger, shuffle, verbose, dropouts):
+        path, reason = self._resolve_data_path(fs, batch_size)
+        self.last_data_path, self.last_data_path_reason = path, reason
+        if path == "device_resident":
             arrays = fs.device_arrays(self.device)
             if len(arrays) < 2:
                 raise ValueError("training needs (inputs..., label) arrays")
             self._ensure_built(arrays[:-1])
-            self.last_data_path = "device_resident"
-            self.last_data_path_reason = "fits device budget"
             steps = self._steps_per_epoch(len(fs), batch_size)
             return self._fit_resident(arrays[:-1], arrays[-1], batch_size,
                                       steps, epochs, validation_data,
                                       end_trigger, shuffle, verbose,
                                       dropouts)
-        self.last_data_path = "host_prefetch"
-        if level == CacheLevel.HOST:
-            self.last_data_path_reason = "cache level HOST"
-        else:
-            self.last_data_path_reason = (
-                f"dataset {fs.nbytes}B over device budget {budget}B")
-            logger.warning("%s; training from host batches (the stream "
-                           "tier is not ported)", self.last_data_path_reason)
+        if path == "stream":
+            return self._fit_stream(fs, batch_size, epochs, validation_data,
+                                    end_trigger, shuffle, verbose, dropouts)
+        return self._fit_host_featureset(fs, batch_size, epochs,
+                                         validation_data, end_trigger,
+                                         shuffle, verbose, dropouts)
+
+    def _fit_host_featureset(self, fs, batch_size, epochs, validation_data,
+                             end_trigger, shuffle, verbose, dropouts):
+        """Host batches from ``fs.batches``, K of them stacked into one
+        copy and one K-step dispatch under ``steps_per_execution`` (an
+        epoch's last ``steps % K`` one at a time), as in the JAX
+        package.  A disk-backed set shuffles within windows of
+        ``ZooConfig.shuffle_buffer`` rows."""
+        cfg = self.ctx.config
         steps = self._steps_per_epoch(len(fs), batch_size)
         peek = next(iter(fs.batches(batch_size)))
         self._ensure_built(list(peek[:-1]))
         depth = int(cfg.data_prefetch)
         stager = prefetch_lib.HostStager(self.device, slots=depth + 2)
+        k = self._steps_per_execution()
+        shuffle_buffer = (cfg.shuffle_buffer if fs.memory_type != "DRAM"
+                          else None)
 
-        def prep(batch):
+        def chunked(it):
+            """Groups of ``k`` batches, then the leftover one by one."""
+            buf = []
+            for b in it:
+                buf.append(b)
+                if len(buf) == k:
+                    yield [np.concatenate([bb[j] for bb in buf])
+                           for j in range(len(buf[0]))], k
+                    buf = []
+            for b in buf:
+                yield list(b), 1
+
+        def prep(item):
+            batch, n_steps = item
             arrays = [np.asarray(a) for a in batch]
             nan = self._step_fault(arrays)
             tensors, event = stager.stage(arrays, np.arange(len(arrays[0])),
                                           nan=nan)
-            return tensors, event, nan and not _has_float(arrays)
+            return tensors, n_steps, event, nan and not _has_float(arrays)
 
         def batches(epoch, start):
             it = prefetch_lib.prefetch(
-                fs.batches(batch_size, shuffle=shuffle, drop_remainder=True),
+                chunked(fs.batches(batch_size, shuffle=shuffle,
+                                   drop_remainder=True,
+                                   shuffle_buffer=shuffle_buffer)),
                 prep, depth=depth)
             try:
-                for tensors, event, nan_loss in it:
+                for tensors, n_steps, event, nan_loss in it:
                     stager.ready(event)
-                    yield "host", tensors, 1, nan_loss
+                    yield "host", tensors, n_steps, nan_loss
             finally:
                 if hasattr(it, "close"):
                     it.close()
@@ -906,6 +1190,135 @@ class Estimator:
         return self._epochs(batches, steps, batch_size, epochs,
                             validation_data, end_trigger, verbose, dropouts,
                             mid_epoch=False)
+
+    def _stream_slots_for(self, plan):
+        """The plan's device slots, kept across epochs and fits while its
+        geometry holds (the shard programs hold their addresses); new
+        slots drop the old slots' programs."""
+        from analytics_zoo_tpu_torch.data.streaming import StreamSlots
+
+        slots = self._stream_slots
+        if slots is None or slots.key != plan.key + (plan.slots,):
+            self._programs = {k: v for k, v in self._programs.items()
+                              if k[0] != "stream"}
+            self._stream_slots = slots = StreamSlots(plan, self.device)
+        return slots
+
+    def _fit_stream(self, fs, batch_size, epochs, validation_data,
+                    end_trigger, shuffle, verbose, dropouts):
+        """The STREAM tier: budget-sized shards rotate through device slots
+        (``data/streaming.py``) while each shard trains as one program of
+        ``steps_per_shard`` steps, captured once per slot and replayed for
+        every shard and epoch.  An uploader failure finishes the epoch's
+        remaining shards from host batches, each in the order the shard
+        program would have gathered it, into the same accumulators (the
+        epoch is never lost) and counts ``data_stream_fallbacks_total``;
+        the next epoch starts a fresh uploader.  A preemption flushes the
+        shard cursor (``shards_done * steps_per_shard`` in-epoch steps),
+        and a resume re-derives the epoch's shard order from (seed, epoch)
+        and restarts at that shard."""
+        from analytics_zoo_tpu_torch.data import streaming as stream_lib
+
+        cfg = self.ctx.config
+        plan = self._stream_plan
+        if plan is None:
+            plan, why = stream_lib.plan_stream(
+                fs, int(cfg.data_device_budget_bytes), batch_size,
+                slots=cfg.data_stream_slots,
+                cache_dtype=cfg.data_cache_dtype)
+            if plan is None:
+                raise ValueError(f"stream fit infeasible: {why}")
+        self._ensure_built(plan.probe_inputs(fs))
+        slots = self._stream_slots_for(plan)
+        steps = plan.steps_per_shard
+        pair = getattr(self.loss_fn, "batch_structured", False)
+        depth = int(cfg.data_prefetch)
+        stager = prefetch_lib.HostStager(self.device, slots=depth + 2)
+        if self._val_trigger is not None:
+            logger.warning("stream path dispatches whole shards; "
+                           "validation_trigger is evaluated at shard "
+                           "boundaries")
+
+        def host_tail(order, first, perm_fn):
+            """Shards ``order[first:]`` as host batches, one step each."""
+            for pos in range(first, plan.n_shards):
+                sid = int(order[pos])
+                arrays = [np.asarray(a)[perm_fn(sid)]
+                          for a in plan.load_shard(fs, sid)]
+                for j in range(steps):
+                    nan = self._step_fault(arrays)
+                    tensors, event = stager.stage(
+                        arrays, np.arange(j * plan.eff_batch,
+                                          (j + 1) * plan.eff_batch),
+                        nan=nan)
+                    stager.ready(event)
+                    yield "host", tensors, 1, nan and not _has_float(arrays)
+
+        def batches(epoch, start):
+            order = plan.epoch_order(cfg.seed, epoch, shuffle)
+
+            def perm_fn(shard_id):
+                return plan.shard_perm(cfg.seed, epoch, shard_id,
+                                       shuffle=shuffle, pair_structured=pair)
+
+            pos = min(start // steps, plan.n_shards)
+            if pos:
+                logger.info("stream resume: epoch %d restarts at shard "
+                            "%d/%d", epoch + 1, pos, plan.n_shards)
+            uploader = stream_lib.ShardUploader(fs, plan, order, slots,
+                                                start=pos, perm_fn=perm_fn)
+            wait_ms = 0.0
+            try:
+                while pos < plan.n_shards:
+                    tw = time.perf_counter()
+                    try:
+                        lease = uploader.get()
+                    except stream_lib.StreamUploadError as e:
+                        obs.count("data_stream_fallbacks_total",
+                                  reason="upload_error",
+                                  flat="estimator/stream_fallbacks")
+                        logger.warning(
+                            "shard uploader failed mid-rotation (%s); "
+                            "finishing epoch %d from host batches (%d/%d "
+                            "shards remain)", e, epoch + 1,
+                            plan.n_shards - pos, plan.n_shards)
+                        uploader.close()
+                        yield from host_tail(order, pos, perm_fn)
+                        return
+                    wait_ms += (time.perf_counter() - tw) * 1e3
+                    lease.wait(self.device)
+                    yield ("stream", _StreamFeed(slots, lease.slot,
+                                                 plan.eff_batch), steps,
+                           False)
+                    lease.release(after=self._stream_event())
+                    if plan.decode_bytes_per_shard:
+                        obs.count("data_decode_bytes_total",
+                                  plan.decode_bytes_per_shard,
+                                  dtype=plan.cache_dtype,
+                                  flat="stream/decode_bytes")
+                    pos += 1
+                # 1 - (time blocked on uploads / upload time): 1.0 when the
+                # uploads hide behind the shard programs
+                up = uploader.stats()["upload_ms_total"]
+                obs.set_gauge("data_stream_overlap_frac",
+                              1.0 if up <= 0 else min(
+                                  1.0, max(0.0, 1.0 - wait_ms / up)),
+                              flat="stream/overlap_frac")
+            finally:
+                uploader.close()
+
+        return self._epochs(batches, plan.n_shards * steps, batch_size,
+                            epochs, validation_data, end_trigger, verbose,
+                            dropouts, mid_epoch=True)
+
+    def _stream_event(self):
+        """An event after the work queued so far on the current stream
+        (None off the card): a released slot's overwrite waits on it."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
 
     def _steps_per_execution(self) -> int:
         k = max(1, int(self.ctx.config.steps_per_execution))
@@ -941,12 +1354,6 @@ class Estimator:
             raise plan.exc
         return plan.action == "nan"
 
-    def _to_device(self, a) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
     def _epochs(self, batches, steps, batch_size, epochs, validation_data,
                 end_trigger, verbose, dropouts, mid_epoch):
         """The epoch loop shared by every data path: ``batches(epoch,
@@ -973,6 +1380,9 @@ class Estimator:
             it = None
             try:
                 t0 = time.time()
+                self._epoch_span = TRACER.start(
+                    "train/epoch", trace=self._fit_span.trace,
+                    parent=self._fit_span.sid, epoch=epoch + 1)
                 start, saved = 0, None
                 pending, self._pending_resume = self._pending_resume, None
                 if pending is not None and pending[0] == epoch:
@@ -1011,11 +1421,16 @@ class Estimator:
                                                     epoch + 1, batch_size)
                 mean_loss, bad, max_consec = self._read_epoch()
                 if self._check_nan_guard(bad, max_consec, done - start):
+                    self._epoch_span.end(status="rollback")
+                    self._epoch_span = None
                     epoch = self.finished_epochs        # rolled back
                     continue
                 epoch += 1
                 self.finished_epochs = epoch
-                if self._epoch_end(epoch, mean_loss, time.time() - t0,
+                dt = time.time() - t0
+                self._epoch_span.end(loss=mean_loss)
+                self._epoch_span = None
+                if self._epoch_end(epoch, mean_loss, dt,
                                    (done - start) * batch_size,
                                    validation_data,
                                    batch_size, verbose, end_trigger):
@@ -1030,6 +1445,9 @@ class Estimator:
             except Exception as e:
                 if it is not None:
                     it.close()
+                if self._epoch_span is not None:
+                    self._epoch_span.end(status="retry", error=str(e))
+                    self._epoch_span = None
                 if self._ckpt_mgr is not None:
                     # land an in-flight write so the retry sees it
                     self._ckpt_mgr.wait(raise_errors=False)
@@ -1051,6 +1469,9 @@ class Estimator:
         """History row, validation, checkpoint trigger; True when
         ``end_trigger`` fired."""
         rec = {"epoch": epoch, "loss": mean_loss, "throughput": rows / dt}
+        obs.observe("train_epoch_seconds", dt)
+        obs.set_gauge("train_loss", mean_loss)
+        obs.set_gauge("train_throughput_rows_per_s", rec["throughput"])
         tstate = TriggerState(epoch=epoch, iteration=self.global_step,
                               epoch_finished=True, loss=mean_loss)
         if validation_data is not None and (
@@ -1063,12 +1484,25 @@ class Estimator:
             tstate.score = val.get(
                 self.metrics[0].name if self.metrics else "loss")
         self.history.append(rec)
+        self._write_scalars(rec, "epoch")
         if verbose:
             logger.info("epoch %d: %s", epoch,
                         {k: v for k, v in rec.items() if k != "epoch"})
         if self._ckpt_mgr is not None and self._ckpt_trigger(tstate):
             self._save_checkpoint()
+        if self._flight_recorder is not None:
+            self._flight_recorder.check()
         return end_trigger is not None and end_trigger(tstate)
+
+    def _write_scalars(self, rec: Dict[str, float], skip: str) -> None:
+        """A history row's values (all but its ``skip`` key) at the global
+        step, into the TensorBoard writer when there is one."""
+        if self._tb_writer is None:
+            return
+        for k, v in rec.items():
+            if k != skip:
+                self._tb_writer.add_scalar(k, v, self.global_step)
+        self._tb_writer.flush()
 
     def _maybe_midepoch_validation(self, validation_data, epoch: int,
                                    batch_size: int) -> None:
@@ -1088,6 +1522,7 @@ class Estimator:
         rec = {"iteration": self.global_step}
         rec.update({f"val_{k}": v for k, v in val.items()})
         self.history.append(rec)
+        self._write_scalars(rec, "iteration")
 
     # ------------------------------------------------------------------
     # preemption and resume
@@ -1249,52 +1684,124 @@ class Estimator:
     # ------------------------------------------------------------------
     # evaluate / predict
     # ------------------------------------------------------------------
-    def _rows(self, a, sl) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a[sl].to(self.device)
-        return self._to_device(np.asarray(a)[sl])
+    def _eval_forward(self, xs):
+        """The inference forward at ``compute_dtype``, answering in f32."""
+        return self._forward_fn()(*xs)
 
-    def _loss_stats(self, y, preds, rows: int) -> dict:
-        """One batch's loss sum and its count of units.  A loss that
-        couples rows and takes a mask (``rank_hinge``) is weighted by its
-        own unit count (pairs), and a pair it cannot complete in the batch
-        counts for nothing, as the JAX package's masked evaluation counts
-        it; any other loss by its rows."""
+    def _eval_stats(self, xs, y, mask) -> List[torch.Tensor]:
+        """One padded batch's statistics, flat: the loss sum and its unit
+        count, then each metric's values in ``_metric_keys`` order.  The
+        JAX eval step's rules: a per-row loss is summed under the mask; a
+        loss that couples rows and takes a mask (``rank_hinge``) weighs
+        by its own unit count (pairs); one that couples rows and takes no
+        mask runs on the whole batch, weighed by the real rows.  Records
+        each metric's statistic names for ``evaluate``'s finalize."""
+        preds = self._eval_forward(xs)
         fn = self.loss_fn
-        if getattr(fn, "batch_structured", False) and getattr(
-                fn, "supports_mask", False):
-            mask = torch.ones((rows,), dtype=torch.float32,
-                              device=self.device)
-            count = (fn.mask_count(mask) if getattr(fn, "mask_count", None)
-                     else torch.sum(mask))
-            return {"sum": fn(y, preds, mask=mask) * count, "count": count}
-        return {"sum": fn(y, preds) * rows,
-                "count": torch.full((), float(rows), device=self.device)}
+        if getattr(fn, "batch_structured", False):
+            if getattr(fn, "supports_mask", False):
+                count = (fn.mask_count(mask)
+                         if getattr(fn, "mask_count", None)
+                         else torch.sum(mask))
+                loss_sum = fn(y, preds, mask=mask) * count
+            else:
+                count = torch.sum(mask)
+                loss_sum = fn(y, preds) * count
+        else:
+            def row(yt, yp):
+                return fn(*torch.utils._pytree.tree_map(
+                    lambda t: t[None], (yt, yp)))
+
+            per = torch.func.vmap(row)(y, preds)
+            loss_sum = torch.sum(per * mask)
+            count = torch.sum(mask)
+        out = [loss_sum, count]
+        keys = []
+        for m in self.metrics:
+            stats = m.update(y, preds, mask)
+            keys.append(sorted(stats))
+            out.extend(stats[k] for k in keys[-1])
+        self._eval_metric_keys = keys
+        return out
+
+    def _eval_program(self, kind: str, specs, batch: int) -> _EvalProgram:
+        """The ``kind`` program of this signature, kept while the tensors
+        it reads (parameters, layer state) and what it computes (compute
+        dtype, loss, metrics) stay the same."""
+        key = (tuple(p.data_ptr() for p in self.model.parameters()),
+               tuple(t.data_ptr() for t in _leaves(self.model.state())),
+               self.compute_dtype, id(self.loss_fn),
+               tuple(id(m) for m in self.metrics))
+        if key != self._eval_key:
+            self._eval_programs.clear()
+            self._eval_key = key
+        sig = (kind, batch) + tuple((tuple(s), d) for s, d in specs)
+        prog = self._eval_programs.get(sig)
+        if prog is None:
+            prog = _EvalProgram(self, kind, specs, batch)
+            self._eval_programs[sig] = prog
+        return prog
+
+    def _run_eval_program(self, prog: _EvalProgram, kind: str, tensors):
+        captures = prog.graph.captured
+        out = prog.run(tensors)
+        if not captures and prog.graph.captured:
+            obs.count("graph_captures_total", kind=kind)
+            obs.observe("graph_capture_seconds", prog.graph.capture_s,
+                        kind=kind)
+        obs.count("eval_batches_total", kind=kind)
+        return out
+
+    @staticmethod
+    def _padded(a, sl: slice, batch: int):
+        """Rows ``sl`` of ``a`` padded with zero rows to ``batch`` rows (a
+        tensor on ``a``'s device, or a CPU tensor over host rows)."""
+        if isinstance(a, torch.Tensor):
+            rows = a[sl]
+            if rows.shape[0] == batch:
+                return rows
+            return torch.cat([rows, rows.new_zeros(
+                (batch - rows.shape[0],) + tuple(rows.shape[1:]))])
+        rows = np.asarray(a[sl])
+        if rows.shape[0] < batch:
+            rows = np.concatenate([rows, np.zeros(
+                (batch - rows.shape[0],) + rows.shape[1:], rows.dtype)])
+        return torch.from_numpy(np.ascontiguousarray(rows))
+
+    @staticmethod
+    def _spec(a) -> tuple:
+        """(row shape, torch dtype) of an array or tensor."""
+        if isinstance(a, torch.Tensor):
+            return tuple(a.shape[1:]), a.dtype
+        a = np.asarray(a)
+        return tuple(a.shape[1:]), torch.from_numpy(a[:0]).dtype
 
     def evaluate(self, x, y=None, batch_size: int = 32) -> Dict[str, float]:
-        """Loss and metrics over every row (the last batch may be short);
-        statistics sum on the device and are read back once."""
+        """Loss and metrics over every row: each batch padded to
+        ``batch_size`` rows and masked (one program per signature, a CUDA
+        graph on the card), statistics summed on the device and read back
+        once."""
         xs = _as_list(x)
         self._ensure_built(xs)
         n = int(xs[0].shape[0])
         self.model.train(False)
-        agg = None
-        with torch.inference_mode():
-            forward = self._forward_fn()
-            for s in range(int(math.ceil(n / batch_size))):
-                sl = slice(s * batch_size, min((s + 1) * batch_size, n))
-                preds = forward(*[self._rows(a, sl) for a in xs])
-                by = self._rows(y, sl)
-                stats = {"loss": self._loss_stats(by, preds,
-                                                  sl.stop - sl.start)}
-                for m in self.metrics:
-                    stats[m.name] = m.update(by, preds)
-                agg = stats if agg is None else {
-                    k: {j: agg[k][j] + v[j] for j in v}
-                    for k, v in stats.items()}
-            out = {"loss": agg["loss"]["sum"] / agg["loss"]["count"]}
-            for m in self.metrics:
-                out[m.name] = m.finalize(agg[m.name])
+        specs = [self._spec(a) for a in xs + [y]] + [((), torch.float32)]
+        prog = self._eval_program("eval", specs, batch_size)
+        for t in prog.acc:
+            t.zero_()
+        mask = np.ones(batch_size, np.float32)
+        for s in range(int(math.ceil(n / batch_size))):
+            sl = slice(s * batch_size, min((s + 1) * batch_size, n))
+            mask[sl.stop - sl.start:] = 0.0
+            self._run_eval_program(prog, "eval", [
+                self._padded(a, sl, batch_size) for a in xs + [y]]
+                + [torch.from_numpy(mask)])
+        loss_sum, count, *rest = prog.acc
+        out = {"loss": loss_sum / count}
+        for m, keys in zip(self.metrics, self._eval_metric_keys):
+            out[m.name] = m.finalize(dict(zip(keys, rest[:len(keys)])))
+            rest = rest[len(keys):]
+        with torch.no_grad():
             vals = torch.stack([v.to(torch.float32).reshape(())
                                 for v in out.values()]).tolist()
         return dict(zip(out, vals))
@@ -1315,22 +1822,26 @@ class Estimator:
 
     def predict_raw(self, x, batch_size: int = 32) -> List[np.ndarray]:
         """One host array per model output (a 1-list for single-output
-        models); each batch's predictions come back to the host, which
-        bounds device memory for any ``n``."""
+        models): each batch padded to ``batch_size`` rows through one
+        predict program per signature (a CUDA graph on the card), its real
+        rows read back per batch, which bounds device memory for any
+        ``n``."""
         xs = _as_list(x)
         self._ensure_built(xs)
         n = int(xs[0].shape[0])
         self.model.train(False)
+        prog = self._eval_program("predict", [self._spec(a) for a in xs],
+                                  batch_size)
         outs: Optional[List[List[np.ndarray]]] = None
-        with torch.inference_mode():
-            forward = self._forward_fn()
-            for s in range(int(math.ceil(n / batch_size))):
-                sl = slice(s * batch_size, min((s + 1) * batch_size, n))
-                preds = forward(*[self._rows(a, sl) for a in xs])
-                if not isinstance(preds, (list, tuple)):
-                    preds = [preds]
-                if outs is None:
-                    outs = [[] for _ in preds]
-                for o, p in zip(outs, preds):
-                    o.append(p.float().cpu().numpy())
+        for s in range(int(math.ceil(n / batch_size))):
+            sl = slice(s * batch_size, min((s + 1) * batch_size, n))
+            preds = self._run_eval_program(
+                prog, "predict", [self._padded(a, sl, batch_size)
+                                  for a in xs])
+            if not isinstance(preds, (list, tuple)):
+                preds = [preds]
+            if outs is None:
+                outs = [[] for _ in preds]
+            for o, p in zip(outs, preds):
+                o.append(p[:sl.stop - sl.start].float().cpu().numpy())
         return [np.concatenate(o, axis=0) for o in outs]

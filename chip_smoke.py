@@ -402,7 +402,36 @@
    flap.  ``loadgen``, ``loadgen_report`` and ``loadgen_summary`` lines
    carry the numbers and the wall seconds by part, with the card's name
    and power limit.
-14. Prints the kernels JSON line and, last, the ok line.
+14. Training-surface phase (the STREAM tier, graphed evaluate / predict,
+   AUC, TensorBoard).  (a) NeuralCF at phase 4's ML-1M width (two
+   classes, implicit labels) trains for three epochs at batch 2048 from
+   ``generate_movielens_like(ratings_per_user=166)`` (1,002,640
+   positives, ML-1M's count) and as many negatives sampled on the card
+   (``presample_implicit_epochs``), written as 8 ``.npy`` slices and read
+   back through ``FeatureSet.from_npy_slices(...).cache("STREAM")`` with
+   ``data_device_budget_bytes`` half the slices' bytes: four shards
+   through two slots.  It must take the stream path, its loss must fall,
+   the shard programs must capture once per slot and then only replay,
+   with no fallback; the overlap share is printed.  With
+   ``shuffle=False`` two epochs through the stream are held against two
+   resident epochs of the same rows (within 1e-5 relative; the line says
+   whether they match bit for bit); an injected ``data.shard_upload``
+   crash on the third shard's upload must still train the epoch's every
+   step, one fallback counted; a stream epoch inside
+   ``profiling.trace()`` must capture its slots too.  (b) The trained
+   model's ``evaluate(metrics=["auc", "accuracy"])`` and ``predict`` on
+   100,001 held-out rows (a ragged last batch), graphed against eager on
+   the plain path within ``SURFACE_EVAL_TOL``, with no capture after the
+   first pass; the AUC against the exact rank AUC within the bound its
+   200-threshold histogram allows (``histogram_auc_bound``).  (c)
+   BERT-Base evaluate and predict at L=128, batch 32, on 135 rows,
+   graphed against graphs off within phase 5's 1e-3, with ms per batch
+   both ways.  (d) TensorBoard: ``read_scalars`` gives (a)'s per-epoch
+   losses, and ``publish_metrics`` writes scalars.  Kernels 1 and 2 must
+   launch 4 times a step in (a), kernel 1 4 times a batch in (b), kernel
+   4 12 times a batch in (c).  The ``training_surface`` line carries the
+   numbers with the card's name and power limit.
+15. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -5658,6 +5687,404 @@ def headline(cases, name, route, src, tpu, launches, pick):
             "cases": cases}
 
 
+# ---------------------------------------------------------------------------
+# training-surface phase (the STREAM tier, graphed evaluate / predict, AUC,
+# TensorBoard)
+
+# ML-1M's 1,000,209 ratings over 6,040 users: 166 a user, about 1.0 M
+# positives and as many sampled negatives; batch 2048 as phase 4, the
+# stream trimmed to four shards' worth of whole batches
+SURFACE_RATINGS_PER_USER = 166
+SURFACE_SHARDS = 4
+SURFACE_EPOCHS = 3
+# held-out rows: ragged at batch 2048 (a last batch of 1,697 rows)
+SURFACE_HELD_OUT = 100_001
+SURFACE_BERT = dict(rows=4 * 32 + 7, length=128, batch=32)
+# graphed against eager on the plain path: the same f32 kernels but the
+# bag's, summed in other orders
+SURFACE_EVAL_TOL = 1e-6
+
+
+def surface_ncf(torch, init, budget):
+    """NeuralCF at the ML-1M width (phase 4's, with the implicit task's
+    two classes) from ``init``, under a context with ``budget``."""
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    init_zoo_context(data_device_budget_bytes=budget)
+    reset_name_scope()
+    ncf = NeuralCF(USERS, ITEMS, class_num=2, user_embed=20, item_embed=20,
+                   hidden_layers=(40, 20, 10), mf_embed=20, device="cuda")
+    load_jax_params(ncf.model, init)
+    ncf.compile(optimizer=Adam(lr=1e-3),
+                loss="sparse_categorical_crossentropy",
+                metrics=["auc", "accuracy"])
+    return ncf
+
+
+def surface_data(torch, root):
+    """ML-1M-sized implicit data: two epochs of sampled negatives drawn
+    on the card; the first written as 8 ``.npy`` slices (users, items,
+    labels), the second's head kept as the held-out set."""
+    from analytics_zoo_tpu_torch.data import generate_movielens_like
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        presample_implicit_epochs
+
+    users, items, _ = generate_movielens_like(
+        ratings_per_user=SURFACE_RATINGS_PER_USER, seed=SEED)
+    u, i, y = presample_implicit_epochs(
+        users, items, ITEMS, epochs=2, user_count=USERS,
+        trim_multiple=SURFACE_SHARDS * TRAIN_BATCH, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    u, i, y = (t.cpu().numpy() for t in (u, i, y))
+    n = u.shape[1]
+    paths = []
+    for k, sl in enumerate(np.array_split(np.arange(n), 8)):
+        row = []
+        for name, a in (("u", u[0, sl, None]), ("i", i[0, sl, None]),
+                        ("y", y[0, sl])):
+            path = os.path.join(root, f"{name}{k}.npy")
+            np.save(path, np.ascontiguousarray(a))
+            row.append(path)
+        paths.append(row)
+    h = SURFACE_HELD_OUT
+    return (paths, len(users), n,
+            ([u[1, :h, None], i[1, :h, None]], y[1, :h]))
+
+
+def rank_auc(scores, labels):
+    """The exact ROC AUC from ranks (ties averaged), in float64."""
+    order = np.argsort(scores, kind="stable")
+    s = scores[order]
+    ranks = np.empty(len(s), np.float64)
+    starts = np.r_[0, np.flatnonzero(np.diff(s)) + 1]
+    ends = np.r_[starts[1:], len(s)]
+    for a, b in zip(starts, ends):
+        ranks[a:b] = (a + b + 1) / 2.0
+    r = np.empty_like(ranks)
+    r[order] = ranks
+    pos = labels == 1
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return (r[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg)
+
+
+def histogram_auc_bound(scores, labels, num_thresholds=200):
+    """How far the 200-threshold histogram AUC may lie from the rank AUC:
+    a (positive, negative) pair whose two scores fall between the same
+    two thresholds gets half credit from the trapezoid against 0, 1/2 or
+    1, so the bound is half the share of such pairs."""
+    edges = np.linspace(0.0, 1.0, num_thresholds)
+    bucket = np.searchsorted(edges, scores, side="right")
+    pos = np.bincount(bucket[labels == 1], minlength=num_thresholds + 1)
+    neg = np.bincount(bucket[labels == 0], minlength=num_thresholds + 1)
+    return 0.5 * float((pos.astype(np.float64) * neg).sum()) / (
+        float(pos.sum()) * float(neg.sum()))
+
+
+def surface_counts(eb, fa):
+    return {"embedding_bag_fwd": eb.LAUNCHES.value,
+            "embedding_bag_bwd": eb.BWD_LAUNCHES.value,
+            "flash_attention_fwd": fa.LAUNCHES.value}
+
+
+def stream_leg(torch, eb, dq, fa, init, paths, root):
+    """Phase 14 (a) and (d): NCF through the STREAM tier from the
+    slices, with TensorBoard scalars; then the parity, fault and
+    profiler legs.  Returns the trained model and the leg's numbers."""
+    from analytics_zoo_tpu_torch.core import profiling, summary
+    from analytics_zoo_tpu_torch.data import CacheLevel, FeatureSet
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.robust import FaultInjector
+
+    fs = FeatureSet.from_npy_slices(paths).cache(CacheLevel.STREAM)
+    budget = fs.nbytes // 2
+    fallbacks = 'data_stream_fallbacks_total{reason="upload_error"}'
+    tb = os.path.join(root, "tb")
+    ncf = surface_ncf(torch, init, budget)
+    ncf.set_tensorboard(tb)
+    est = ncf.estimator
+    # the main path's window: counts start at 0 here
+    reset_counts(eb, dq, fa)
+    window = METRICS.snapshot()
+    t0 = time.perf_counter()
+    hist = [dict(h) for h in ncf.fit(fs, batch_size=TRAIN_BATCH,
+                                     epochs=SURFACE_EPOCHS, verbose=False)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = surface_counts(eb, fa)
+    delta = METRICS.delta(window)
+    plan = est._stream_plan
+    # program keys: ("stream", steps, slot, ...)
+    progs = {k[2]: p.graph for k, p in est._programs.items()
+             if k[0] == "stream"}
+    gauges = METRICS.snapshot().gauges
+    main = {
+        "rows": len(fs), "slices": len(paths), "bytes": fs.nbytes,
+        "budget_bytes": budget, "path": est.last_data_path,
+        "reason": est.last_data_path_reason,
+        "plan": {"n_shards": plan.n_shards, "shard_rows": plan.shard_rows,
+                 "steps_per_shard": plan.steps_per_shard,
+                 "slots": plan.slots, "dropped_rows": plan.dropped_rows,
+                 "device_shard_bytes": plan.device_shard_bytes},
+        "epoch_loss": [h["loss"] for h in hist],
+        "samples_per_s_epochs": [h["throughput"] for h in hist],
+        "ms_per_step_epochs": [1e3 * TRAIN_BATCH / h["throughput"]
+                               for h in hist],
+        "wall_s": wall,
+        "captures": delta["counters"].get(
+            'graph_captures_total{kind="train"}', 0),
+        "replays_by_slot": {str(k): g.replays for k, g in progs.items()},
+        "captured_by_slot": {str(k): g.captured for k, g in progs.items()},
+        "fallbacks": delta["counters"].get(fallbacks, 0),
+        "overlap_frac": gauges.get(("data_stream_overlap_frac", ())),
+        "shard_upload_ms": delta["histograms"].get("data_shard_upload_ms"),
+        "shard_wait_ms": delta["histograms"].get("data_shard_wait_ms"),
+        "launches": launches}
+    # (d) TensorBoard: one loss point per epoch, the history's
+    tb_loss = summary.read_scalars(os.path.join(tb, "zoo"), "loss")
+    published = est.publish_metrics()
+    main["tensorboard"] = {"loss_points": tb_loss,
+                           "scalars_published": published}
+
+    # parity: shuffle=False through the stream against the resident fit
+    # of the same rows, two epochs each
+    def plain_fit(level, budget_bytes, src):
+        m = surface_ncf(torch, init, budget_bytes)
+        h = m.fit(src.cache(level), batch_size=TRAIN_BATCH, epochs=2,
+                  shuffle=False, verbose=False)
+        return ([r["loss"] for r in h], m.estimator.last_data_path,
+                h[-1]["throughput"])
+
+    s_loss, s_path, s_rate = plain_fit(CacheLevel.STREAM, budget, fs)
+    arrays = [np.concatenate([np.load(p) for p in col])
+              for col in zip(*paths)]
+    r_loss, r_path, r_rate = plain_fit(
+        CacheLevel.DEVICE, 10 * fs.nbytes,
+        FeatureSet.from_ndarrays(arrays[:2], arrays[2]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s_loss, r_loss))
+    # epoch 2's rows/s: the stream's against the resident epoch's, which
+    # moves no bytes (the uploads' cost to the card)
+    parity = {"stream_loss": s_loss, "resident_loss": r_loss,
+              "paths": [s_path, r_path], "bit_for_bit": s_loss == r_loss,
+              "max_rel_diff": rel,
+              "epoch2_samples_per_s": {"stream": s_rate,
+                                       "resident": r_rate}}
+
+    # an uploader crash on the third shard's upload: the epoch still
+    # trains every step, from host batches for its last two shards
+    fault_ncf = surface_ncf(torch, init, budget)
+    mark = METRICS.snapshot()
+    fi = FaultInjector().plan("data.shard_upload", at=2,
+                              exc=RuntimeError("injected upload crash"))
+    with fi:
+        fh = fault_ncf.fit(fs, batch_size=TRAIN_BATCH, epochs=1,
+                           verbose=False)
+    fault = {"fired": fi.fired.get("data.shard_upload", 0),
+             "steps": fault_ncf.estimator.global_step,
+             "want_steps": plan.n_shards * plan.steps_per_shard,
+             "loss": fh[-1]["loss"],
+             "fallbacks": METRICS.delta(mark)["counters"].get(fallbacks, 0)}
+
+    # a stream fit inside profiling.trace(): the slots' captures run with
+    # the profiler on and the uploader thread copying
+    prof_ncf = surface_ncf(torch, init, budget)
+    mark = METRICS.snapshot()
+    with profiling.trace(os.path.join(root, "trace")):
+        ph = prof_ncf.fit(fs, batch_size=TRAIN_BATCH, epochs=1,
+                          verbose=False)
+    traced = {"path": prof_ncf.estimator.last_data_path,
+              "loss": ph[-1]["loss"],
+              "captures": METRICS.delta(mark)["counters"].get(
+                  'graph_captures_total{kind="train"}', 0),
+              "trace_bytes": os.path.getsize(
+                  os.path.join(root, "trace", "trace.json"))}
+    return ncf, {"main": main, "parity": parity, "fault": fault,
+                 "traced": traced}
+
+
+def surface_eval_leg(torch, eb, dq, fa, ncf, held):
+    """Phase 14 (b): graphed NCF evaluate / predict on the held-out rows
+    against eager on the plain path, and the AUC against the rank AUC."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+
+    xs, y = held
+    b = TRAIN_BATCH
+    reset_counts(eb, dq, fa)
+    ev = ncf.evaluate(xs, y, batch_size=b)          # warm-up and capture
+    pred = ncf.predict(xs, batch_size=b)
+    mark = METRICS.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev2 = ncf.evaluate(xs, y, batch_size=b)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred2 = ncf.predict(xs, batch_size=b)
+    pred_s = time.perf_counter() - t0
+    launches = surface_counts(eb, fa)
+    replay_captures = METRICS.delta(mark)["counters"].get(
+        'graph_captures_total{kind="eval"}', 0) + METRICS.delta(
+        mark)["counters"].get('graph_captures_total{kind="predict"}', 0)
+    with graphs.disabled(), forced(PATH_REFERENCE):
+        t0 = time.perf_counter()
+        ev_e = ncf.evaluate(xs, y, batch_size=b)
+        eager_eval_s = time.perf_counter() - t0
+        pred_e = ncf.predict(xs, batch_size=b)
+    scores = pred[:, 0].astype(np.float64)
+    exact = rank_auc(scores, y)
+    bound = histogram_auc_bound(pred[:, 0], y)
+    batches = -(-len(y) // b)
+    out = {"rows": len(y), "batch": b, "last_batch_rows": len(y) % b,
+           "graphed": ev, "eager_plain": ev_e,
+           "max_abs_diff": max(abs(ev[k] - ev_e[k]) for k in ev),
+           "pred_max_abs_diff": float(np.abs(pred - pred_e).max()),
+           "repeat_equal": ev2 == ev and bool(np.array_equal(pred, pred2)),
+           "captures_after_first_pass": replay_captures,
+           "auc_rank_exact": exact, "auc_bound": bound,
+           "auc_minus_exact": ev["auc"] - exact,
+           "eval_ms_per_batch": 1e3 * eval_s / batches,
+           "predict_ms_per_batch": 1e3 * pred_s / batches,
+           "eager_plain_eval_ms_per_batch": 1e3 * eager_eval_s / batches,
+           "launches": launches}
+    return out
+
+
+def surface_bert_leg(torch, eb, dq, fa):
+    """Phase 14 (c): BERT-Base evaluate and predict, graphed against
+    eager (graphs off, the same kernels), over a ragged last batch."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    cfg = SURFACE_BERT
+    init_zoo_context()
+    reset_name_scope()
+    net = BERTClassifier(num_classes=2, bert_config=BERT_BASE,
+                         generator=torch.Generator().manual_seed(SEED))
+    net.compile("adam", "sparse_categorical_crossentropy_with_logits",
+                metrics=["accuracy"], device="cuda")
+    ids, seg, y = bert_train_data(cfg["rows"], cfg["length"], SEED + 9)
+    xs, b = [ids, seg], cfg["batch"]
+    batches = -(-cfg["rows"] // b)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0) / batches
+
+    reset_counts(eb, dq, fa)
+    net.evaluate(xs, y, batch_size=b)               # warm-up and capture
+    net.predict(xs, batch_size=b)
+    ev, ev_ms = timed(lambda: net.evaluate(xs, y, batch_size=b))
+    pred, pred_ms = timed(lambda: net.predict(xs, batch_size=b))
+    launches = surface_counts(eb, fa)
+    with graphs.disabled():
+        ev_e, ev_e_ms = timed(lambda: net.evaluate(xs, y, batch_size=b))
+        pred_e, pred_e_ms = timed(lambda: net.predict(xs, batch_size=b))
+    return {"rows": cfg["rows"], "length": cfg["length"], "batch": b,
+            "last_batch_rows": cfg["rows"] % b, "graphed": ev,
+            "eager": ev_e, "pred_shape": list(pred.shape),
+            "pred_max_abs_diff": float(np.abs(pred - pred_e).max()),
+            "loss_abs_diff": abs(ev["loss"] - ev_e["loss"]),
+            "evaluate_ms_per_batch": {"graphed": ev_ms, "eager": ev_e_ms},
+            "predict_ms_per_batch": {"graphed": pred_ms, "eager": pred_e_ms},
+            "programs_captured": all(
+                p.graph.captured
+                for p in net.estimator._eval_programs.values()),
+            "launches": launches}
+
+
+def training_surface_phase(torch, eb, dq, fa, card):
+    """Phase 14 (docstring item 14): the STREAM tier, graphed evaluate /
+    predict with AUC, and TensorBoard.  Returns the launches by path."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="zoo_surface_")
+    try:
+        t0 = time.perf_counter()
+        paths, positives, rows, held = surface_data(torch, root)
+        data_s = time.perf_counter() - t0
+        reset_name_scope()
+        init = export_params(NeuralCF(
+            USERS, ITEMS, class_num=2, user_embed=20, item_embed=20,
+            hidden_layers=(40, 20, 10), mf_embed=20, device="cpu",
+            generator=torch.Generator().manual_seed(SEED)).model)
+        ncf, stream = stream_leg(torch, eb, dq, fa, init, paths, root)
+        ev = surface_eval_leg(torch, eb, dq, fa, ncf, held)
+        del ncf
+        bert = surface_bert_leg(torch, eb, dq, fa)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"card": card, "positives": positives, "rows": rows,
+           "data_s": data_s, "stream": stream, "ncf_eval": ev,
+           "bert_eval": bert, "phase_s": time.perf_counter() - t_phase}
+    log("training_surface", json.dumps(out))
+    main, par, fault, traced = (stream[k] for k in ("main", "parity",
+                                                     "fault", "traced"))
+    steps = main["plan"]["n_shards"] * main["plan"]["steps_per_shard"]
+    slots = main["plan"]["slots"]
+    want_replays = SURFACE_EPOCHS * main["plan"]["n_shards"] // slots - 1
+    if (main["path"] != "stream" or main["plan"]["n_shards"] < 4
+            or slots != 2 or main["captures"] != slots
+            or not all(main["captured_by_slot"].values())
+            or sorted(main["replays_by_slot"].values())
+            != [want_replays] * slots or main["fallbacks"]):
+        raise AssertionError(f"stream leg: {main}")
+    if not main["epoch_loss"][-1] < main["epoch_loss"][0]:
+        raise AssertionError(f"stream loss did not fall: "
+                             f"{main['epoch_loss']}")
+    ml = main["launches"]
+    if (ml["embedding_bag_fwd"] != 4 * SURFACE_EPOCHS * steps
+            or ml["embedding_bag_bwd"] != 4 * SURFACE_EPOCHS * steps
+            or ml["flash_attention_fwd"]):
+        raise AssertionError(f"stream launches {ml} over "
+                             f"{SURFACE_EPOCHS * steps} steps")
+    tb = main["tensorboard"]
+    if ([v for _, v in tb["loss_points"]]
+            != [float(np.float32(v)) for v in main["epoch_loss"]]
+            or not tb["scalars_published"] > 0):
+        raise AssertionError(f"tensorboard: {tb}")
+    if par["paths"] != ["stream", "device_resident"] or \
+            par["max_rel_diff"] > 1e-5:
+        raise AssertionError(f"stream against resident: {par}")
+    if (fault["fired"] != 1 or fault["steps"] != fault["want_steps"]
+            or fault["fallbacks"] != 1 or not np.isfinite(fault["loss"])):
+        raise AssertionError(f"upload fault leg: {fault}")
+    if (traced["path"] != "stream" or traced["captures"] != slots
+            or not np.isfinite(traced["loss"])):
+        raise AssertionError(f"stream fit inside trace(): {traced}")
+    nb = -(-SURFACE_HELD_OUT // TRAIN_BATCH)
+    if (ev["max_abs_diff"] > SURFACE_EVAL_TOL
+            or ev["pred_max_abs_diff"] > SURFACE_EVAL_TOL
+            or not ev["repeat_equal"] or ev["captures_after_first_pass"]
+            or abs(ev["auc_minus_exact"]) > ev["auc_bound"] + 1e-5
+            or ev["launches"]["embedding_bag_fwd"] != 4 * 4 * nb):
+        raise AssertionError(f"graphed NCF evaluation: {ev}")
+    nb = -(-SURFACE_BERT["rows"] // SURFACE_BERT["batch"])
+    if (bert["pred_max_abs_diff"] > 1e-3 or bert["loss_abs_diff"] > 1e-3
+            or bert["pred_shape"] != [SURFACE_BERT["rows"], 2]
+            or not bert["programs_captured"]
+            or bert["launches"]["flash_attention_fwd"]
+            != 4 * BERT_BASE["n_block"] * nb):
+        raise AssertionError(f"graphed BERT evaluation: {bert}")
+    return {"training_surface_stream": ml,
+            "training_surface_ncf_eval": ev["launches"],
+            "training_surface_bert_eval": bert["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -5735,6 +6162,8 @@ def main() -> int:
     text = text_phase(torch, eb, dq, card)
     reset_counts(eb, dq, fa)
     loadgen = loadgen_phase(torch, eb, dq, fa, card, shm_records_per_s)
+    reset_counts(eb, dq, fa)
+    surface = training_surface_phase(torch, eb, dq, fa, card)
     rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
                  "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
@@ -5744,8 +6173,12 @@ def main() -> int:
                    "cluster_serving": cluster["embedding_bag_fwd"],
                    "loadgen": loadgen["embedding_bag_fwd"],
                    **{p: rec[p]["embedding_bag_fwd"] for p in rec_paths},
-                   **{p: v["embedding_bag_fwd"] for p, v in text.items()}}
+                   **{p: v["embedding_bag_fwd"] for p, v in text.items()},
+                   **{p: v["embedding_bag_fwd"] for p, v in surface.items()
+                      if p != "training_surface_bert_eval"}}
     bwd_by_path = {"training": trained["embedding_bag_bwd"],
+                   "training_surface_stream": surface[
+                       "training_surface_stream"]["embedding_bag_bwd"],
                    "fault_tolerant_ncf": ft_ncf["embedding_bag_bwd"],
                    **{p: rec[p]["embedding_bag_bwd"] for p in rec_paths
                       if p.endswith("_training")},
@@ -5787,7 +6220,9 @@ def main() -> int:
                  "fault_tolerant_no_grad": ft_bert_launches[
                      "flash_attention_fwd"],
                  "cluster_serving": cluster["flash_attention_fwd"],
-                 "loadgen": loadgen["flash_attention_fwd"]}
+                 "loadgen": loadgen["flash_attention_fwd"],
+                 "training_surface_bert_eval": surface[
+                     "training_surface_bert_eval"]["flash_attention_fwd"]}
     flash_rows = [
         (fl_cases, "flash_attention_fwd", FLASH_SRC, FLASH_TPU, fwd_paths,
          "bert_l128"),

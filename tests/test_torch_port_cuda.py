@@ -2344,3 +2344,108 @@ def test_capture_in_another_thread_than_the_warm_up(cuda_device):
     # the 4-row signature, warmed up here, was captured in the thread
     assert any(p.graph.captured and p.inputs[0].shape[0] == 4
                for p in m._programs.values())
+
+
+def _small_ncf(device, init=None, **ctx):
+    """A small NeuralCF on ``device`` under a fresh context, its weights
+    ``init`` when given."""
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.core import context
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    context.init_zoo_context(**ctx)
+    reset_name_scope()
+    m = NeuralCF(300, 200, class_num=2, user_embed=8, item_embed=8,
+                 hidden_layers=(16, 8), mf_embed=8, device=device)
+    if init is not None:
+        load_jax_params(m.model, init)
+    m.compile("adam", "sparse_categorical_crossentropy",
+              metrics=["accuracy", "auc"])
+    return m
+
+
+def _ncf_rows(n, seed):
+    rs = np.random.RandomState(seed)
+    return ([rs.randint(1, 301, (n, 1)).astype(np.int32),
+             rs.randint(1, 201, (n, 1)).astype(np.int32)],
+            rs.randint(0, 2, n).astype(np.int32))
+
+
+@pytest.mark.cuda
+def test_stream_shard_programs_graphed_match_eager_on_card(cuda_device):
+    """NCF through the STREAM tier (4 shards through 2 slots): the shard
+    programs capture once per slot and then replay, with no fallback; the
+    losses and weights equal graphs off (the bag backward is
+    deterministic), and with ``shuffle=False`` the resident fit's."""
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.core import context, graphs
+    from analytics_zoo_tpu_torch.data import CacheLevel, FeatureSet
+    from analytics_zoo_tpu_torch.observe import metrics as obs
+
+    xs, y = _ncf_rows(4096, 1)
+    fs = FeatureSet.from_ndarrays(xs, y)
+    init = export_params(_small_ncf("cpu").model)
+
+    def run(level, budget, shuffle):
+        m = _small_ncf(cuda_device, init, data_device_budget_bytes=budget)
+        hist = m.fit(fs.cache(level), batch_size=256, epochs=3,
+                     shuffle=shuffle, verbose=False)
+        return [h["loss"] for h in hist], export_params(m.model), m.estimator
+
+    key = ("data_stream_fallbacks_total", (("reason", "upload_error"),))
+    try:
+        mark = obs.METRICS.snapshot()
+        b0 = teb.BWD_LAUNCHES.value
+        loss, got, est = run(CacheLevel.STREAM, fs.nbytes // 2, True)
+        assert est.last_data_path == "stream"
+        assert est._stream_plan.n_shards == 4
+        progs = [p for k, p in est._programs.items() if k[0] == "stream"]
+        assert len(progs) == 2 and all(p.graph.captured for p in progs)
+        # 12 shards: each slot's first eager, its second captured, replays
+        assert sorted(p.graph.replays for p in progs) == [5, 5]
+        assert teb.BWD_LAUNCHES.value - b0 == 4 * 48
+        assert obs.METRICS.snapshot().counters.get(key, 0) == \
+            mark.counters.get(key, 0)
+        with graphs.disabled():
+            eager_loss, want, _ = run(CacheLevel.STREAM, fs.nbytes // 2,
+                                      True)
+        assert loss == eager_loss and loss[-1] < loss[0]
+        assert _tree_rel_diff(got, want) == 0.0
+        s_loss, _, _ = run(CacheLevel.STREAM, fs.nbytes // 2, False)
+        r_loss, _, est_r = run(CacheLevel.DEVICE, 10 ** 9, False)
+        assert est_r.last_data_path == "device_resident"
+        assert s_loss == r_loss
+    finally:
+        context.set_zoo_context(None)
+
+
+@pytest.mark.cuda
+def test_graphed_evaluate_and_predict_match_eager_on_card(cuda_device):
+    """Graphed evaluate (accuracy, AUC) and predict over a ragged last
+    batch against graphs off: within 1e-6; after the first pass the
+    programs only replay."""
+    from analytics_zoo_tpu_torch.core import context, graphs
+    from analytics_zoo_tpu_torch.observe import metrics as obs
+
+    xs, y = _ncf_rows(1000, 2)
+    try:
+        m = _small_ncf(cuda_device)
+        got = m.evaluate(xs, y, batch_size=128)
+        pred = m.predict(xs, batch_size=128)
+        mark = obs.METRICS.snapshot()
+        again = m.evaluate(xs, y, batch_size=128)
+        m.predict(xs, batch_size=128)
+        delta = obs.METRICS.delta(mark)["counters"]
+        assert not any(k.startswith("graph_captures_total") for k in delta)
+        assert again == got
+        progs = m.estimator._eval_programs.values()
+        assert all(p.graph.captured for p in progs)
+        with graphs.disabled():
+            want = m.evaluate(xs, y, batch_size=128)
+            want_pred = m.predict(xs, batch_size=128)
+    finally:
+        context.set_zoo_context(None)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(pred, want_pred, rtol=0, atol=1e-6)

@@ -369,8 +369,10 @@ def test_port_imports_no_jax():
     and the bf16 codec, training and serving a small WideAndDeep and
     SessionRecommender, the load harness (every ``loadgen`` module, and
     ``server_main``'s model fitted and served), ``from_function``,
-    ``load_torch`` and the Redis queue, through the port, load neither
-    jax, ml_dtypes nor the JAX package."""
+    ``load_torch``, the Redis queue, and NCF trained through the STREAM
+    tier from ``.npy`` slices with TensorBoard scalars and evaluated
+    with AUC, through the port, load neither jax, ml_dtypes nor the JAX
+    package."""
     code = (
         "import sys, numpy as np\n"
         "import analytics_zoo_tpu_torch.train.estimator\n"
@@ -444,6 +446,28 @@ def test_port_imports_no_jax():
         "tm = InferenceModel.load_torch(torch.nn.Linear(3, 2), device='cpu')\n"
         "assert tm.predict(np.ones((2, 3), np.float32)).shape == (2, 2)\n"
         "from analytics_zoo_tpu_torch.deploy import RedisQueue\n"
+        "import tempfile\n"
+        "from analytics_zoo_tpu_torch.core import profiling, summary\n"
+        "from analytics_zoo_tpu_torch.data import FeatureSet, streaming\n"
+        "from analytics_zoo_tpu_torch.train import LocalEstimator\n"
+        "from analytics_zoo_tpu_torch.observe import span,"
+        " publish_to_summary\n"
+        "d = tempfile.mkdtemp()\n"
+        "u8 = np.ones((64, 1), np.int32)\n"
+        "np.save(d + '/u.npy', u8); np.save(d + '/y.npy', np.ones(64,"
+        " np.int32))\n"
+        "fs = FeatureSet.from_npy_slices([(d + '/u.npy', d + '/u.npy',"
+        " d + '/y.npy')]).cache('STREAM')\n"
+        "ncf.estimator.ctx.config.data_device_budget_bytes = 400\n"
+        "ncf.set_tensorboard(d)\n"
+        "ncf.compile('adam', 'sparse_categorical_crossentropy',"
+        " metrics=['auc'])\n"
+        "ncf.set_tensorboard(d)\n"
+        "ncf.fit(fs, batch_size=8, epochs=1, verbose=False)\n"
+        "assert ncf.estimator.last_data_path == 'stream'\n"
+        "assert summary.read_scalars(d + '/zoo', 'loss')\n"
+        "assert 'auc' in ncf.evaluate([u8, u8], np.ones(64, np.int32),"
+        " batch_size=16)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')"
         " or m == 'ml_dtypes']\n"

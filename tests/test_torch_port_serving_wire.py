@@ -202,9 +202,17 @@ def test_make_queue_lowers_the_ported_backends(tmp_path, monkeypatch):
     sc = ServingConfig.from_zoo(ZooConfig(serving_batch_size=7,
                                           serving_breaker_threshold=1))
     assert (sc.batch_size, sc.breaker_threshold) == (7, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        ClusterServing({"m": SimpleNamespace()}, MemoryQueue(),
-                       ServingConfig(tensorboard_dir=str(tmp_path)))
+    # tensorboard_dir: the JAX package's serving scalars, as TensorBoard
+    # events that read_scalars reads back
+    from analytics_zoo_tpu_torch.core.summary import read_scalars
+
+    cs = ClusterServing({"m": SimpleNamespace()}, MemoryQueue(),
+                        ServingConfig(tensorboard_dir=str(tmp_path / "tb")))
+    cs.records_served = 40
+    cs._maybe_tb_flush()
+    cs.stop()
+    assert read_scalars(str(tmp_path / "tb"), "total_records") == [(40, 40.0)]
+    assert len(read_scalars(str(tmp_path / "tb"), "serving_throughput")) == 1
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         ServingConfig(mesh_replicas=1)
 

@@ -12,17 +12,24 @@ import pytest
 import torch
 
 from analytics_zoo_tpu.data.featureset import FeatureSet as JaxFS
+from analytics_zoo_tpu.data.featureset import SlicedFeatureSet as JaxSliced
 from analytics_zoo_tpu.data.text import TextSet as JaxTextSet
 from analytics_zoo_tpu.deploy.inference import InferenceModel as JaxIM
 from analytics_zoo_tpu.nn.topology import KerasNet as JaxKerasNet
+from analytics_zoo_tpu.models.common import ZooModel as JaxZooModel
 from analytics_zoo_tpu.train.estimator import Estimator as JaxEstimator
+from analytics_zoo_tpu.train.local_estimator import \
+    LocalEstimator as JaxLocalEstimator
 
 from analytics_zoo_tpu_torch.core import context
-from analytics_zoo_tpu_torch.data.featureset import FeatureSet
+from analytics_zoo_tpu_torch.data.featureset import (FeatureSet,
+                                                     SlicedFeatureSet)
 from analytics_zoo_tpu_torch.data.text import TextSet
 from analytics_zoo_tpu_torch.deploy import InferenceModel
 from analytics_zoo_tpu_torch.nn import Dense, Sequential, reset_name_scope
 from analytics_zoo_tpu_torch.nn.topology import KerasNet
+from analytics_zoo_tpu_torch.models.common import ZooModel
+from analytics_zoo_tpu_torch.train import LocalEstimator
 from analytics_zoo_tpu_torch.train.estimator import Estimator
 
 # (name, JAX callable, port callable, the port's extras after the JAX ones)
@@ -41,6 +48,31 @@ SIGNATURES = [
     ("FeatureSet.batches", JaxFS.batches, FeatureSet.batches, ()),
     ("TextSet.to_feature_set", JaxTextSet.to_feature_set,
      TextSet.to_feature_set, ("cache_level",)),
+    ("FeatureSet.from_npy_files", JaxFS.from_npy_files,
+     FeatureSet.from_npy_files, ()),
+    ("FeatureSet.from_npy_slices", JaxFS.from_npy_slices,
+     FeatureSet.from_npy_slices, ()),
+    ("FeatureSet.from_parquet", JaxFS.from_parquet, FeatureSet.from_parquet,
+     ()),
+    ("FeatureSet.read_rows", JaxFS.read_rows, FeatureSet.read_rows, ()),
+    ("SlicedFeatureSet.__init__", JaxSliced.__init__,
+     SlicedFeatureSet.__init__, ()),
+    ("KerasNet.set_tensorboard", JaxKerasNet.set_tensorboard,
+     KerasNet.set_tensorboard, ()),
+    ("KerasNet.summary", JaxKerasNet.summary, KerasNet.summary, ()),
+    ("Estimator.set_tensorboard", JaxEstimator.set_tensorboard,
+     Estimator.set_tensorboard, ()),
+    ("Estimator.arm_flight_recorder", JaxEstimator.arm_flight_recorder,
+     Estimator.arm_flight_recorder, ()),
+    ("Estimator.publish_metrics", JaxEstimator.publish_metrics,
+     Estimator.publish_metrics, ()),
+    ("Estimator.evaluate", JaxEstimator.evaluate, Estimator.evaluate, ()),
+    ("Estimator.predict_raw", JaxEstimator.predict_raw,
+     Estimator.predict_raw, ()),
+    ("ZooModel.set_tensorboard", JaxZooModel.set_tensorboard,
+     ZooModel.set_tensorboard, ()),
+    ("LocalEstimator.__init__", JaxLocalEstimator.__init__,
+     LocalEstimator.__init__, ()),
 ]
 
 
@@ -201,11 +233,22 @@ def test_transforms_apply_as_in_jax():
 
 @pytest.mark.parametrize("memory_type", ["DISK_AND_DRAM", "DIRECT"])
 def test_disk_memory_types_raise_naming_the_roadmap_item(memory_type):
-    x, y = _arrays(4)
-    with pytest.raises(NotImplementedError, match="A5.6"):
-        FeatureSet([x, y], memory_type=memory_type)
-    with pytest.raises(NotImplementedError, match="A5.6"):
-        FeatureSet.from_ndarrays(x, y, memory_type)
+    """The disk tiers, once raising naming ROADMAP A5.6, are ported: the
+    rows are spilled to mapped ``.npy`` files and batch as in the JAX
+    package, positionally and by keyword."""
+    x, y = _arrays(23)
+    for got, want in (
+            (FeatureSet([x, y], memory_type=memory_type, seed=2),
+             JaxFS([x, y], memory_type=memory_type, seed=2)),
+            (FeatureSet.from_ndarrays(x, y, memory_type, 2),
+             JaxFS.from_ndarrays(x, y, memory_type, 2))):
+        assert got.memory_type == memory_type
+        assert all(isinstance(a, np.memmap) for a in got.arrays)
+        for a, b in zip(got.batches(5, shuffle=True, shuffle_buffer=8),
+                        want.batches(5, shuffle=True, shuffle_buffer=8),
+                        strict=True):
+            for u, v in zip(a, b, strict=True):
+                np.testing.assert_array_equal(u, v)
 
 
 def test_text_set_to_feature_set_takes_memory_type_first():
