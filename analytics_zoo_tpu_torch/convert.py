@@ -9,6 +9,11 @@ a leading ``n_block`` dim, and entries that are not layers (BERTClassifier's
 ``"head"``).  A quantized ``{"q"|"q4", "scale"}`` dict is a leaf wherever
 it sits.
 
+Every leaf travels by key path and shape, so a layer's leaves need no
+code here: ``Deconvolution2D``'s kernel (kh, kw, in, out), the locally
+connected layers' per-position kernels ((positions, patch, out)) and
+biases, SSD's convolution and BN leaves load as ResNet-50's do.
+
 State trees (BatchNormalization's moving statistics, ``{layer_name:
 {"moving_mean", "moving_var"}}``) load and export the same way, beside
 the parameters; sub-trees without leaves (stateless layers, listed by

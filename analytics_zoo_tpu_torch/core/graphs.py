@@ -49,23 +49,35 @@ per thread (cuBLAS, cuBLASLt, cuDNN), and making one inside a capture
 invalidates it, so a thread makes its handles before its first capture
 (``_thread_handles``): a serving signature's warm-up may have run in
 another thread than the one that captures it.
+
+A capture runs on a stream no other code is handed: ``torch.cuda.
+Stream()`` deals out a pool of 32 streams round-robin, so PyTorch's
+default capture stream comes back to a later caller, such as the
+prefetch thread's copy stream, whose copies and events would then join
+a capture underway in another thread.  ``private_stream`` draws each
+named stream once from the high-priority pool, which nothing else here
+draws from.  Python's cycle collector is held off for the length of a
+capture (``collector_off``): a collection inside it could free an old
+graph, and destroying a graph is a call the capturing thread may not
+make.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import threading
 import time
 import traceback
-from typing import Callable, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
 from analytics_zoo_tpu_torch.ops import dispatch
 
 __all__ = ["StepGraph", "GraphCaptureError", "disabled", "enabled",
-           "CAPTURE_ERROR_MODE"]
+           "collector_off", "private_stream", "CAPTURE_ERROR_MODE"]
 
 CAPTURE_ERROR_MODE = "thread_local"
 
@@ -74,6 +86,8 @@ _DISABLED_LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
 _THREAD = threading.local()
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PRIVATE: Dict[Tuple[int, str], "torch.cuda.Stream"] = {}
+_PRIVATE_LOCK = threading.Lock()
 
 
 class GraphCaptureError(RuntimeError):
@@ -94,11 +108,40 @@ def disabled() -> Iterator[None]:
             _DISABLED -= 1
 
 
+@contextlib.contextmanager
+def collector_off() -> Iterator[None]:
+    """Python's cycle collector held off for the length of a block: a
+    capture (see the module docstring)."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def enabled(device) -> bool:
     """Whether a graph on ``device`` is captured and replayed: a CUDA
     device, outside ``disabled()`` and ``dispatch.forced``."""
     return (torch.device(device).type == "cuda" and _DISABLED == 0
             and dispatch.forced_path() is None)
+
+
+def private_stream(device, name: str) -> "torch.cuda.Stream":
+    """``device``'s stream named ``name`` (the graphs' capture stream, the
+    serving stream): drawn once from the high-priority pool, so no
+    ``torch.cuda.Stream()`` elsewhere is ever handed the same one (the
+    pool holds 32, more than the names in use)."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    with _PRIVATE_LOCK:
+        stream = _PRIVATE.get((index, name))
+        if stream is None:
+            stream = _PRIVATE[(index, name)] = torch.cuda.Stream(
+                torch.device("cuda", index), priority=-1)
+        return stream
 
 
 def _culprit(exc: BaseException) -> str:
@@ -194,8 +237,8 @@ class StepGraph:
 
     def capture(self, stream=None) -> None:
         """Capture ``fn`` into a CUDA graph, after the eager warm-up if it
-        has not run (run now on a side stream): on ``stream``, or on
-        PyTorch's default capture stream.  Graphs captured on one stream
+        has not run (run now on a side stream): on ``stream``, or on the
+        device's private capture stream.  Graphs captured on one stream
         share its library workspaces, so graphs that may replay at once
         on different streams are captured on different ones."""
         if not enabled(self.device):
@@ -205,12 +248,14 @@ class StepGraph:
             if not self._warmed:
                 self.warm_up()
             _thread_handles(self.device)
+            if stream is None:
+                stream = private_stream(self.device, "capture")
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             try:
                 for gen in self.generators:
                     graph.register_generator_state(gen)
-                with dispatch.recording() as rec:
+                with dispatch.recording() as rec, collector_off():
                     with torch.cuda.graph(
                             graph, pool=self.pool, stream=stream,
                             capture_error_mode=CAPTURE_ERROR_MODE):

@@ -1,13 +1,17 @@
 """Host datasets: ``FeatureSet`` with its memory tiers and HOST / DEVICE /
 STREAM cache levels (``SlicedFeatureSet`` for slices on disk, the STREAM
-tier in ``streaming``), the MovieLens and text-corpus readers and the text
-pipeline (``TextSet``)."""
+tier in ``streaming``), the MovieLens, VOC / COCO and text-corpus
+readers, the image pipeline (``ImageSet``) and the text pipeline
+(``TextSet``)."""
 
 from analytics_zoo_tpu_torch.data.datasets import (  # noqa: F401
+    VOC_CLASSES,
     generate_movielens_like,
     generate_text_classification,
     movielens_featureset,
+    read_coco,
     read_movielens_1m,
+    read_pascal_voc,
     read_text_folder,
 )
 from analytics_zoo_tpu_torch.data.featureset import (  # noqa: F401
@@ -15,6 +19,11 @@ from analytics_zoo_tpu_torch.data.featureset import (  # noqa: F401
     FeatureSet,
     SlicedFeatureSet,
     npy_header,
+)
+from analytics_zoo_tpu_torch.data.image import (  # noqa: F401
+    ImageFeature,
+    ImagePreprocessing,
+    ImageSet,
 )
 from analytics_zoo_tpu_torch.data.text import (  # noqa: F401
     TextFeature,

@@ -1,19 +1,23 @@
 """Readers copied from the JAX package's ``data/datasets.py`` (numpy
 only): the ml-1m ``ratings.dat`` parser, its MovieLens-1M-shaped
 synthetic stand-in, and both as an Estimator-ready ``FeatureSet``; the
-folder-per-class text corpus reader and its synthetic stand-in.
+Pascal VOC (XML per image) and COCO (instances JSON) detection
+annotation readers; the folder-per-class text corpus reader and its
+synthetic stand-in.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, List, Optional, Tuple
+import xml.etree.ElementTree as ET
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 __all__ = ["read_movielens_1m", "generate_movielens_like",
-           "movielens_featureset", "read_text_folder",
-           "generate_text_classification"]
+           "movielens_featureset", "VOC_CLASSES", "read_pascal_voc",
+           "read_coco", "read_text_folder", "generate_text_classification"]
 
 
 def read_movielens_1m(path: str) -> Tuple[np.ndarray, np.ndarray,
@@ -69,6 +73,86 @@ def movielens_featureset(path: Optional[str] = None,
     return FeatureSet.from_ndarrays(
         [users[:, None].astype(np.int32), items[:, None].astype(np.int32)],
         ratings, cache_level=cache_level)
+
+
+# ---------------------------------------------------------------------------
+# Pascal VOC (an XML annotation per image)
+# ---------------------------------------------------------------------------
+
+VOC_CLASSES = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
+               "car", "cat", "chair", "cow", "diningtable", "dog", "horse",
+               "motorbike", "person", "pottedplant", "sheep", "sofa",
+               "train", "tvmonitor")
+
+
+def read_pascal_voc(annotations_dir: str,
+                    class_names: Sequence[str] = VOC_CLASSES,
+                    keep_difficult: bool = False) -> List[Dict]:
+    """Parse VOC XML annotations -> list of records
+    {file, width, height, bboxes (N,4 pixels x1y1x2y2), labels (N,
+    1-based), difficult (N,)}."""
+    cls_idx = {c: i + 1 for i, c in enumerate(class_names)}
+    out = []
+    for fn in sorted(os.listdir(annotations_dir)):
+        if not fn.endswith(".xml"):
+            continue
+        root = ET.parse(os.path.join(annotations_dir, fn)).getroot()
+        size = root.find("size")
+        boxes, labels, difficult = [], [], []
+        for obj in root.findall("object"):
+            name = obj.findtext("name")
+            if name not in cls_idx:
+                continue
+            diff = int(obj.findtext("difficult") or 0)
+            if diff and not keep_difficult:
+                continue
+            bb = obj.find("bndbox")
+            boxes.append([float(bb.findtext("xmin")),
+                          float(bb.findtext("ymin")),
+                          float(bb.findtext("xmax")),
+                          float(bb.findtext("ymax"))])
+            labels.append(cls_idx[name])
+            difficult.append(diff)
+        out.append({
+            "file": root.findtext("filename") or fn.replace(".xml", ".jpg"),
+            "width": int(size.findtext("width")) if size is not None else 0,
+            "height": int(size.findtext("height")) if size is not None
+            else 0,
+            "bboxes": np.asarray(boxes, np.float32).reshape(-1, 4),
+            "labels": np.asarray(labels, np.int64),
+            "difficult": np.asarray(difficult, np.int64),
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# COCO (an instances JSON)
+# ---------------------------------------------------------------------------
+
+def read_coco(annotation_file: str) -> List[Dict]:
+    """Parse a COCO instances JSON -> per-image records
+    {file, width, height, bboxes (N,4 pixels x1y1x2y2), labels (N,)}."""
+    with open(annotation_file) as f:
+        blob = json.load(f)
+    images = {im["id"]: im for im in blob.get("images", [])}
+    recs = {im_id: {"file": im.get("file_name", ""),
+                    "width": im.get("width", 0),
+                    "height": im.get("height", 0),
+                    "bboxes": [], "labels": []}
+            for im_id, im in images.items()}
+    for ann in blob.get("annotations", []):
+        rec = recs.get(ann["image_id"])
+        if rec is None:
+            continue
+        x, y, w, h = ann["bbox"]                   # coco xywh
+        rec["bboxes"].append([x, y, x + w, y + h])
+        rec["labels"].append(ann["category_id"])
+    out = []
+    for rec in recs.values():
+        rec["bboxes"] = np.asarray(rec["bboxes"], np.float32).reshape(-1, 4)
+        rec["labels"] = np.asarray(rec["labels"], np.int64)
+        out.append(rec)
+    return out
 
 
 def read_text_folder(path: str, encoding: str = "utf-8"

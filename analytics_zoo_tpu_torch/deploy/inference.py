@@ -221,27 +221,6 @@ def plan_buckets(n: int, buckets: Sequence[int],
     return out
 
 
-_SERVING_STREAMS: Dict[int, tuple] = {}
-_SERVING_STREAMS_LOCK = threading.Lock()
-
-
-def _serving_streams(device: torch.device) -> tuple:
-    """The device's (serving stream, serving capture stream), both from
-    the high-priority pool, which nothing else here draws from (PyTorch's
-    capture stream and the warm-up side streams come from the other
-    one)."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    with _SERVING_STREAMS_LOCK:
-        pair = _SERVING_STREAMS.get(index)
-        if pair is None:
-            dev = torch.device("cuda", index)
-            pair = _SERVING_STREAMS[index] = (
-                torch.cuda.Stream(dev, priority=-1),
-                torch.cuda.Stream(dev, priority=-1))
-        return pair
-
-
 def _torch_dtype(name: str) -> torch.dtype:
     """The tensor dtype of a signature's dtype name (``bfloat16`` is the
     codec's wire name)."""
@@ -415,8 +394,10 @@ class _BucketProgram:
         cuda = device.type == "cuda"
         self.staging = ([torch.empty_like(t, device="cpu").pin_memory()
                          for t in inputs] if cuda else None)
-        self.stream, self.capture_stream = (_serving_streams(device) if cuda
-                                            else (None, None))
+        self.stream, self.capture_stream = (
+            (graphs.private_stream(device, "serving"),
+             graphs.private_stream(device, "serving_capture")) if cuda
+            else (None, None))
         self._staged: Optional[torch.cuda.Event] = None
         # recorded by the graph at its start and end at every replay
         self.timing = ((torch.cuda.Event(enable_timing=True, external=True),

@@ -32,8 +32,15 @@ surfaced by :meth:`ClusterServing.health`.  The transport is pluggable:
 ``tensorboard_dir`` writes the JAX package's serving scalars (records/s,
 total records, each stage's p99, healthy replicas) as TensorBoard events
 (``core/summary.py``).  The JAX package's pod-scale mesh replicas and
-``PodCoordinator``, and image records, are not ported yet (ROADMAP A8,
-A9): an image record is answered with a typed ``malformed`` error.
+``PodCoordinator`` are not ported yet (ROADMAP A9).
+
+Image records (``InputQueue.enqueue_image``) carry raw pixels (``codec``
+"raw": an ndarray on binary backends, a base64 tensor on JSON ones) or
+a compressed file's bytes (``codec`` "file": jpg/png, as the reference
+client sends them).  Decoding the latter needs ``cv2``, as in the JAX
+package; where it is missing the record is answered with the code the
+JAX worker gives when its ``import cv2`` fails, ``decode_error``, its
+message naming ``cv2`` (``data.image.Cv2Unavailable``).
 
 Wire format is a per-backend property (``queue.wire``): ``"binary"``
 backends move framed raw tensor bytes (:mod:`deploy.codec`, the JAX
@@ -81,7 +88,8 @@ from analytics_zoo_tpu_torch.robust.errors import (DeadlineExpired,
 __all__ = ["MemoryQueue", "FileQueue", "RedisQueue", "make_queue",
            "make_queue_from_zoo", "InputQueue", "OutputQueue",
            "ServingConfig", "ClusterServing", "DeviceExecutor", "encode_tensor", "decode_tensor",
-           "error_payload", "MalformedRecordError"]
+           "encode_image", "decode_image", "error_payload",
+           "MalformedRecordError"]
 
 
 def error_payload(code: str, message: Any, uri: Optional[str] = None
@@ -153,6 +161,38 @@ def decode_tensor(payload, writable: bool = False) -> np.ndarray:
     obs.observe("serving_codec_seconds", time.perf_counter() - t0,
                 codec="json_b64", op="decode")
     return a
+
+
+def encode_image(image, wire: str = "json") -> Dict[str, Any]:
+    """ndarray (H, W, C) float/uint8, or a file's path -> wire payload:
+    raw pixels (``codec`` "raw"), or the file's bytes in base64
+    (``codec`` "file")."""
+    if isinstance(image, str):
+        with open(image, "rb") as f:
+            return {"image": base64.b64encode(f.read()).decode("ascii"),
+                    "codec": "file"}
+    if wire == "binary":
+        return {"codec": "raw", "image": np.asarray(image)}
+    return {"codec": "raw", "image": encode_tensor(image)}
+
+
+def decode_image(payload: Dict[str, Any]) -> np.ndarray:
+    """An image record's pixels: raw pixels as they rode, compressed
+    file bytes (jpg/png) decoded by ``cv2`` into BGR (raising
+    ``Cv2Unavailable`` where it is not installed)."""
+    img = payload.get("image")
+    if isinstance(img, np.ndarray):  # binary wire: already decoded
+        return img
+    if payload.get("codec") == "raw":
+        return decode_tensor(payload["image"])
+    raw = base64.b64decode(img)
+    from analytics_zoo_tpu_torch.data.image import require_cv2
+
+    cv2 = require_cv2("decoding a compressed (jpg/png) image record")
+    img = cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError("undecodable image payload")
+    return img
 
 
 # ---------------------------------------------------------------------------
@@ -507,8 +547,8 @@ class RedisQueue:
                 else:
                     # reference-client wire shape: flat fields
                     # {uri, image: b64(jpg bytes)} (client.py:102-110),
-                    # lifted into the worker's record schema (image
-                    # records are answered ``malformed`` until ROADMAP A8)
+                    # lifted into the worker's record schema (the b64
+                    # file codec is decode_image's "file" path)
                     rec = dict(fields)
                     rid = rec.get("uri") or eid
                     if "image" in rec and not isinstance(rec["image"],
@@ -661,6 +701,16 @@ class InputQueue:
             except Exception as e:
                 raise MalformedRecordError(
                     f"field {k!r} is not tensor-encodable: {e}") from e
+        return self.queue.push(rec)
+
+    def enqueue_image(self, uri: Optional[str] = None, image=None,
+                      ttl_ms: Optional[float] = None) -> str:
+        """Enqueue one image (a path, or an ndarray of pixels)."""
+        rec = {"uri": uri or uuid.uuid4().hex, "ts": time.time(),
+               "fmt": "tensor", **encode_image(image, wire=self.wire)}
+        ttl = self._validated_ttl(ttl_ms)
+        if ttl is not None:
+            rec["ttl_ms"] = ttl
         return self.queue.push(rec)
 
 
@@ -859,15 +909,13 @@ class ServingConfig:
 def _decode_record(rec: Dict) -> Dict[str, np.ndarray]:
     """Tensor fields of a claimed record, whatever wire they rode:
     binary-backend ndarrays pass through untouched (zero-copy views on
-    shm), legacy ``{"b64": ...}`` payloads decode read-only.  Image
-    records are not ported yet (ROADMAP A8) and raise
-    :class:`MalformedRecordError`."""
-    if "image" in rec:
-        raise MalformedRecordError(
-            "image records are not ported yet (ROADMAP A8)")
+    shm), legacy ``{"b64": ...}`` payloads decode read-only, and an
+    image record's pixels come first, under ``image``."""
     out = {}
+    if "image" in rec:
+        out["image"] = decode_image(rec)
     for k, v in rec.items():
-        if k.startswith("_"):
+        if k == "image" or k.startswith("_"):
             continue
         if isinstance(v, np.ndarray):
             out[k] = v
@@ -2248,7 +2296,8 @@ class ClusterServing:
                                     stage="decode", model=model,
                                     flat="serving/decode"):
                     decoded = _decode_record(rec)
-                    # the first tensor field is the model's input
+                    # the image, else the first tensor field, is the
+                    # model's input
                     x = next(iter(decoded.values()), None)
                     if x is None:
                         raise MalformedRecordError(

@@ -6,6 +6,9 @@ from analytics_zoo_tpu_torch.models.recommendation import (  # noqa: F401
     WideAndDeep,
 )
 from analytics_zoo_tpu_torch.models.image import ImageClassifier  # noqa: F401
+from analytics_zoo_tpu_torch.models.objectdetection import (  # noqa: F401
+    ObjectDetector,
+)
 from analytics_zoo_tpu_torch.models.text import (  # noqa: F401
     KNRM,
     Ranker,

@@ -9,15 +9,16 @@ builder returns a built ``Model`` whose weights are drawn on the CPU
 from ``generator`` (default seeded from ``ZooConfig.seed``); ``compile``
 moves them to its device.
 
-``ImageClassifier.preprocessing`` and ``predict_image_set`` need the
-host image pipeline (``data/image.py``, OpenCV), which is not ported
-yet (ROADMAP A8): they raise.
+``ImageClassifier.preprocessing`` is the architecture's host chain
+(``data/image.py``: aspect scale, centre crop, channel normalisation),
+and ``predict_image_set`` classifies an ``ImageSet`` through it.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.core.context import get_zoo_context
@@ -252,17 +253,24 @@ class ImageClassifier(ZooModel):
                 "input_shape": list(self.input_shape)}
 
     def preprocessing(self):
-        """The architecture's inference preprocessing chain: needs the
-        host image pipeline (``data/image.py``), not ported yet."""
-        raise NotImplementedError(
-            "ImageClassifier.preprocessing needs the host image pipeline "
-            "(data/image.py), which is not ported yet (ROADMAP A8)")
+        """The architecture's inference preprocessing chain."""
+        from analytics_zoo_tpu_torch.data.image import (
+            ImageAspectScale, ImageCenterCrop, ImageChannelNormalize,
+            ImageSetToSample)
+
+        cfg = PREPROCESS_CONFIG[self.model_name]
+        size = self.input_shape[0]
+        return (ImageAspectScale(int(size * 256 / 224))
+                | ImageCenterCrop(size, size)
+                | ImageChannelNormalize(*cfg["mean"], *cfg["std"])
+                | ImageSetToSample())
 
     def predict_image_set(self, image_set, batch_size: int = 32,
-                          top_k: int = 1):
-        """Classify an ImageSet: needs the host image pipeline
-        (``data/image.py``), not ported yet."""
-        raise NotImplementedError(
-            "ImageClassifier.predict_image_set needs the host image "
-            "pipeline (data/image.py), which is not ported yet "
-            "(ROADMAP A8)")
+                          top_k: int = 1) -> np.ndarray:
+        """Classify an ImageSet -> (N, top_k) class indices (0-based),
+        through ``preprocessing`` and ``predict`` (which needs
+        ``compile``, as in the JAX package)."""
+        ims = image_set.transform(self.preprocessing())
+        x, _ = ims.to_arrays()
+        logits = self.model.predict(x, batch_size=batch_size)
+        return np.argsort(-logits, axis=-1)[:, :top_k]

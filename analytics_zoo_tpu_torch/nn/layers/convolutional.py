@@ -17,13 +17,18 @@ is split with the smaller half before.  When the halves differ (the
 7x7/s2 stem on 224 pads (2, 3)), the input is padded explicitly:
 PyTorch's symmetric ``padding=`` would shift the output by a position.
 
-Deconvolution2D, the locally connected layers, ZeroPadding, Cropping,
-UpSampling, ResizeBilinear and ShareConvolution2D are not ported yet
-(ROADMAP A8).
+The rest of the JAX module follows: ``Deconvolution2D`` (``lax.conv_transpose``
+without a kernel flip: a convolution over the input dilated by the
+strides, padded as ``lax`` pads a transpose), the locally connected
+layers (patches times a weight per output position), ZeroPadding,
+Cropping, UpSampling, ``ResizeBilinear`` (``jax.image.resize``'s
+half-pixel, antialiased-when-shrinking bilinear, or corner-aligned) and
+``ShareConvolution2D``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Sequence, Tuple, Union
 
@@ -332,3 +337,421 @@ class SeparableConvolution2D(Layer):
         if self.activation is not None:
             y = self.activation(y)
         return channels_back(y, self.dim_ordering)
+
+
+def transpose_pads(k: int, s: int, border_mode: str) -> Tuple[int, int]:
+    """``lax.conv_transpose``'s padding of the stride-dilated input,
+    (before, after), for one spatial dim."""
+    if border_mode == "same":
+        total = k + s - 2
+        before = k - 1 if s > k - 1 else math.ceil(total / 2)
+    else:
+        total = k + s - 2 + max(k - s, 0)
+        before = k - 1
+    return before, total - before
+
+
+def _act(layer, y):
+    return layer.activation(y) if layer.activation is not None else y
+
+
+class Deconvolution2D(Layer):
+    """Transposed 2-D convolution, ``lax.conv_transpose`` with
+    ``transpose_kernel=False``: leaves ``kernel`` (kh, kw, in, nb_filter)
+    and ``bias``.  The input, dilated by the strides (zeros between its
+    rows and columns) and padded as ``lax`` pads a transpose, is
+    cross-correlated with the kernel as it stands; the output has ``n *
+    s`` positions ("same") or ``n * s + max(k - s, 0)`` ("valid")."""
+
+    def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
+                 activation=None, subsample: IntOrPair = (1, 1),
+                 border_mode: str = "valid", init="glorot_uniform",
+                 bias: bool = True, dim_ordering: str = "tf",
+                 dtype=torch.float32, **kw):
+        super().__init__(**kw)
+        check_orderings(dim_ordering, border_mode)
+        self.nb_filter = nb_filter
+        self.kernel_size = (nb_row, nb_col)
+        self.activation = activations.get(activation)
+        self.strides = _tuple(subsample, 2)
+        self.border_mode = border_mode
+        self.initializer = initializers.get(init)
+        self.use_bias = bias
+        self.dim_ordering = dim_ordering
+        self.dtype = dtype
+
+    def build(self, generator, input_shape):
+        in_ch = (input_shape[1] if self.dim_ordering == "th"
+                 else input_shape[-1])
+        self.set_leaf("kernel", self.initializer(
+            generator, self.kernel_size + (in_ch, self.nb_filter),
+            self.dtype))
+        if self.use_bias:
+            self.set_leaf("bias", torch.zeros((self.nb_filter,),
+                                              dtype=self.dtype))
+
+    def output_shape(self, input_shape):
+        th = self.dim_ordering == "th"
+        sizes = input_shape[2:] if th else input_shape[1:-1]
+        out = tuple(n * s + (max(k - s, 0) if self.border_mode == "valid"
+                             else 0)
+                    for n, k, s in zip(sizes, self.kernel_size,
+                                       self.strides))
+        if th:
+            return (input_shape[0], self.nb_filter) + out
+        return (input_shape[0],) + out + (self.nb_filter,)
+
+    def forward(self, x):
+        xc = channels_first(x, self.dim_ordering)
+        b, c, h, w = xc.shape
+        sh, sw = self.strides
+        if (sh, sw) != (1, 1):
+            dil = xc.new_zeros((b, c, (h - 1) * sh + 1, (w - 1) * sw + 1))
+            dil[:, :, ::sh, ::sw] = xc
+            xc = dil
+        pads = [transpose_pads(k, s, self.border_mode)
+                for k, s in zip(self.kernel_size, self.strides)]
+        y = conv(pad_spatial(xc, pads), self.leaf("kernel"), (1, 1), (1, 1),
+                 "valid",
+                 bias=self.leaf("bias") if self.use_bias else None)
+        return channels_back(_act(self, y), self.dim_ordering)
+
+
+class LocallyConnected1D(Layer):
+    """A 1-D convolution with a weight per output position: leaves
+    ``kernel`` (out_len, filter_length * in, nb_filter) and ``bias``
+    (out_len, nb_filter).  Patches (B, out_len, filter_length * in),
+    position-major, times each position's weight (one batched matmul)."""
+
+    def __init__(self, nb_filter: int, filter_length: int, activation=None,
+                 subsample_length: int = 1, border_mode: str = "valid",
+                 init="glorot_uniform", bias: bool = True,
+                 dtype=torch.float32, **kw):
+        super().__init__(**kw)
+        if border_mode != "valid":
+            raise ValueError(
+                "LocallyConnected1D supports only border_mode='valid'")
+        self.nb_filter = nb_filter
+        self.filter_length = filter_length
+        self.activation = activations.get(activation)
+        self.stride = subsample_length
+        self.initializer = initializers.get(init)
+        self.use_bias = bias
+        self.dtype = dtype
+
+    def _out_len(self, length: int) -> int:
+        return (length - self.filter_length) // self.stride + 1
+
+    def build(self, generator, input_shape):
+        _, length, in_ch = input_shape
+        out_len = self._out_len(length)
+        self.set_leaf("kernel", self.initializer(
+            generator, (out_len, self.filter_length * in_ch,
+                        self.nb_filter), self.dtype))
+        if self.use_bias:
+            self.set_leaf("bias", torch.zeros((out_len, self.nb_filter),
+                                              dtype=self.dtype))
+
+    def output_shape(self, input_shape):
+        return (input_shape[0], self._out_len(input_shape[1]),
+                self.nb_filter)
+
+    def forward(self, x):
+        b, length, _ = x.shape
+        out_len = self._out_len(length)
+        idx = (torch.arange(out_len, device=x.device)[:, None] * self.stride
+               + torch.arange(self.filter_length, device=x.device)[None])
+        patches = x[:, idx, :].reshape(b, out_len, -1)
+        kernel = self.leaf("kernel").to(x.dtype)
+        y = torch.einsum("bok,okf->bof", patches, kernel)
+        if self.use_bias:
+            y = y + self.leaf("bias").to(x.dtype)
+        return _act(self, y)
+
+
+class LocallyConnected2D(Layer):
+    """A 2-D convolution with a weight per output position: leaves
+    ``kernel`` (oh * ow, kh * kw * in, nb_filter) and ``bias`` (oh, ow,
+    nb_filter); patches flattened (kh, kw, in), row-major positions."""
+
+    def __init__(self, nb_filter: int, nb_row: int, nb_col: int,
+                 activation=None, subsample: IntOrPair = (1, 1),
+                 border_mode: str = "valid", init="glorot_uniform",
+                 bias: bool = True, dim_ordering: str = "tf",
+                 dtype=torch.float32, **kw):
+        super().__init__(**kw)
+        if border_mode != "valid":
+            raise ValueError(
+                "LocallyConnected2D supports only border_mode='valid'")
+        check_orderings(dim_ordering, border_mode)
+        self.nb_filter = nb_filter
+        self.kernel_size = (nb_row, nb_col)
+        self.activation = activations.get(activation)
+        self.strides = _tuple(subsample, 2)
+        self.initializer = initializers.get(init)
+        self.use_bias = bias
+        self.dim_ordering = dim_ordering
+        self.dtype = dtype
+
+    def _out_hw(self, h: int, w: int) -> Tuple[int, int]:
+        (kh, kw_), (sh, sw) = self.kernel_size, self.strides
+        return (h - kh) // sh + 1, (w - kw_) // sw + 1
+
+    def _hwc(self, input_shape):
+        if self.dim_ordering == "th":
+            _, c, h, w = input_shape
+        else:
+            _, h, w, c = input_shape
+        return h, w, c
+
+    def build(self, generator, input_shape):
+        h, w, in_ch = self._hwc(input_shape)
+        oh, ow = self._out_hw(h, w)
+        kh, kw_ = self.kernel_size
+        self.set_leaf("kernel", self.initializer(
+            generator, (oh * ow, kh * kw_ * in_ch, self.nb_filter),
+            self.dtype))
+        if self.use_bias:
+            self.set_leaf("bias", torch.zeros((oh, ow, self.nb_filter),
+                                              dtype=self.dtype))
+
+    def output_shape(self, input_shape):
+        h, w, _ = self._hwc(input_shape)
+        oh, ow = self._out_hw(h, w)
+        if self.dim_ordering == "th":
+            return (input_shape[0], self.nb_filter, oh, ow)
+        return (input_shape[0], oh, ow, self.nb_filter)
+
+    def forward(self, x):
+        x = channels_first(x, self.dim_ordering).movedim(1, -1)
+        b, h, w, c = x.shape
+        (kh, kw_), (sh, sw) = self.kernel_size, self.strides
+        oh, ow = self._out_hw(h, w)
+        ar = functools.partial(torch.arange, device=x.device)
+        ridx = ar(oh)[:, None] * sh + ar(kh)[None]
+        cidx = ar(ow)[:, None] * sw + ar(kw_)[None]
+        # (B, oh, kh, W, C) -> (B, oh, kh, ow, kw, C) -> positions
+        patches = x[:, ridx][:, :, :, cidx].permute(0, 1, 3, 2, 4, 5)
+        patches = patches.reshape(b, oh * ow, kh * kw_ * c)
+        y = torch.einsum("bok,okf->bof", patches,
+                         self.leaf("kernel").to(x.dtype))
+        y = y.reshape(b, oh, ow, self.nb_filter)
+        if self.use_bias:
+            y = y + self.leaf("bias").to(x.dtype)
+        y = _act(self, y)
+        return y if self.dim_ordering == "tf" else y.movedim(-1, 1)
+
+
+class ZeroPaddingND(Layer):
+    """Zero padding of the spatial dims: ``padding`` holds an int or a
+    (before, after) pair per dim."""
+
+    spatial = 2
+
+    def __init__(self, padding, dim_ordering: str = "tf", **kw):
+        super().__init__(**kw)
+        check_orderings(dim_ordering, "valid")
+        self.padding = [(p, p) if isinstance(p, int) else tuple(p)
+                        for p in padding]
+        self.dim_ordering = dim_ordering
+
+    def output_shape(self, input_shape):
+        out = list(input_shape)
+        first = 2 if self.dim_ordering == "th" else 1
+        for i, (a, b) in enumerate(self.padding):
+            out[first + i] += a + b
+        return tuple(out)
+
+    def forward(self, x):
+        y = pad_spatial(channels_first(x, self.dim_ordering), self.padding)
+        return channels_back(y, self.dim_ordering)
+
+
+class ZeroPadding1D(ZeroPaddingND):
+    spatial = 1
+
+    def __init__(self, padding: int = 1, **kw):
+        super().__init__([padding], **kw)
+
+
+class ZeroPadding2D(ZeroPaddingND):
+    spatial = 2
+
+    def __init__(self, padding: IntOrPair = (1, 1), **kw):
+        super().__init__(list(_tuple(padding, 2)), **kw)
+
+
+class ZeroPadding3D(ZeroPaddingND):
+    spatial = 3
+
+    def __init__(self, padding: IntOrPair = (1, 1, 1), **kw):
+        super().__init__(list(_tuple(padding, 3)), **kw)
+
+
+class CroppingND(Layer):
+    """Crop (before, after) positions off each spatial dim.  As in the
+    JAX layer, a dim whose ``size - after`` is 0 keeps everything from
+    ``before`` on (Python's ``slice(before, 0 or None)``)."""
+
+    spatial = 2
+
+    def __init__(self, cropping, dim_ordering: str = "tf", **kw):
+        super().__init__(**kw)
+        check_orderings(dim_ordering, "valid")
+        self.cropping = [tuple(c) for c in cropping]
+        self.dim_ordering = dim_ordering
+
+    def _slices(self, sizes):
+        return [slice(lo, n - hi or None) for n, (lo, hi)
+                in zip(sizes, self.cropping)]
+
+    def output_shape(self, input_shape):
+        out = list(input_shape)
+        first = 2 if self.dim_ordering == "th" else 1
+        for i, sl in enumerate(self._slices(input_shape[first:])):
+            out[first + i] = len(range(*sl.indices(out[first + i])))
+        return tuple(out)
+
+    def forward(self, x):
+        xc = channels_first(x, self.dim_ordering)
+        y = xc[(slice(None), slice(None)) + tuple(self._slices(
+            xc.shape[2:]))]
+        return channels_back(y, self.dim_ordering)
+
+
+class Cropping1D(CroppingND):
+    spatial = 1
+
+    def __init__(self, cropping=(1, 1), **kw):
+        super().__init__([tuple(cropping)], **kw)
+
+
+class Cropping2D(CroppingND):
+    spatial = 2
+
+    def __init__(self, heightCrop=(0, 0), widthCrop=(0, 0), **kw):
+        super().__init__([tuple(heightCrop), tuple(widthCrop)], **kw)
+
+
+class Cropping3D(CroppingND):
+    spatial = 3
+
+    def __init__(self, dim1Crop=(1, 1), dim2Crop=(1, 1), dim3Crop=(1, 1),
+                 **kw):
+        super().__init__([tuple(dim1Crop), tuple(dim2Crop),
+                          tuple(dim3Crop)], **kw)
+
+
+class UpSamplingND(Layer):
+    """Repeat each spatial position ``size`` times along its dim."""
+
+    spatial = 2
+
+    def __init__(self, size, dim_ordering: str = "tf", **kw):
+        super().__init__(**kw)
+        check_orderings(dim_ordering, "valid")
+        self.size = tuple(size)
+        self.dim_ordering = dim_ordering
+
+    def output_shape(self, input_shape):
+        out = list(input_shape)
+        first = 2 if self.dim_ordering == "th" else 1
+        for i, s in enumerate(self.size):
+            out[first + i] *= s
+        return tuple(out)
+
+    def forward(self, x):
+        y = channels_first(x, self.dim_ordering)
+        for axis, s in enumerate(self.size, start=2):
+            y = torch.repeat_interleave(y, s, dim=axis)
+        return channels_back(y, self.dim_ordering)
+
+
+class UpSampling1D(UpSamplingND):
+    spatial = 1
+
+    def __init__(self, length: int = 2, **kw):
+        super().__init__((length,), **kw)
+
+
+class UpSampling2D(UpSamplingND):
+    spatial = 2
+
+    def __init__(self, size: IntOrPair = (2, 2), **kw):
+        super().__init__(_tuple(size, 2), **kw)
+
+
+class UpSampling3D(UpSamplingND):
+    spatial = 3
+
+    def __init__(self, size: IntOrPair = (2, 2, 2), **kw):
+        super().__init__(_tuple(size, 3), **kw)
+
+
+# Keras-2 names
+Conv1D = Convolution1D
+Conv2D = Convolution2D
+Conv3D = Convolution3D
+
+
+class ResizeBilinear(Layer):
+    """Bilinear resize of the spatial dims to (output_height,
+    output_width).  ``align_corners=False`` is ``jax.image.resize(...,
+    "bilinear")``: half-pixel centres, and a triangle filter widened by
+    the scale (antialiasing) along a dim that shrinks, which is
+    ``F.interpolate(..., antialias=True)``; a dim that grows takes the
+    plain half-pixel bilinear.  ``align_corners=True`` maps the corner
+    pixels onto each other (the BigDL / TF-v1 convention)."""
+
+    def __init__(self, output_height: int, output_width: int,
+                 align_corners: bool = False, dim_ordering: str = "tf",
+                 **kw):
+        super().__init__(**kw)
+        check_orderings(dim_ordering, "valid")
+        self.output_height = output_height
+        self.output_width = output_width
+        self.align_corners = align_corners
+        self.dim_ordering = dim_ordering
+
+    def output_shape(self, input_shape):
+        if self.dim_ordering == "th":
+            return tuple(input_shape[:2]) + (self.output_height,
+                                             self.output_width)
+        return (input_shape[0], self.output_height, self.output_width,
+                input_shape[-1])
+
+    def forward(self, x):
+        xc = channels_first(x, self.dim_ordering)
+        ih, iw = xc.shape[2:]
+        oh, ow = self.output_height, self.output_width
+        if not self.align_corners:
+            y = xc
+            # one dim at a time: each takes its own filter width
+            if oh != ih:
+                y = F.interpolate(y, size=(oh, iw), mode="bilinear",
+                                  align_corners=False, antialias=oh < ih)
+            if ow != iw:
+                y = F.interpolate(y, size=(oh, ow), mode="bilinear",
+                                  align_corners=False, antialias=ow < iw)
+            return channels_back(y, self.dim_ordering)
+        ys = torch.linspace(0.0, ih - 1.0, oh, device=xc.device)
+        xs = torch.linspace(0.0, iw - 1.0, ow, device=xc.device)
+        y0 = torch.floor(ys).long().clamp(0, ih - 1)
+        x0 = torch.floor(xs).long().clamp(0, iw - 1)
+        y1 = (y0 + 1).clamp(max=ih - 1)
+        x1 = (x0 + 1).clamp(max=iw - 1)
+        wy = (ys - y0).reshape(1, 1, oh, 1).to(xc.dtype)
+        wx = (xs - x0).reshape(1, 1, 1, ow).to(xc.dtype)
+
+        def g(yy, xx):
+            return xc[:, :, yy][:, :, :, xx]
+
+        y = ((1 - wy) * (1 - wx) * g(y0, x0) + (1 - wy) * wx * g(y0, x1)
+             + wy * (1 - wx) * g(y1, x0) + wy * wx * g(y1, x1))
+        return channels_back(y, self.dim_ordering)
+
+
+class ShareConvolution2D(Convolution2D):
+    """The JAX package's name for a plain ``Convolution2D`` (the
+    reference's ShareConvolution2D shared JVM workspace buffers; PyTorch's
+    caching allocator owns buffer reuse)."""

@@ -1,6 +1,6 @@
 """Normalization layers: ``BatchNormalization`` (and its ghost-batch
-form) and ``LayerNorm``.  LRN2D and WithinChannelLRN2D are not ported
-yet (ROADMAP A8)."""
+form), ``LayerNorm``, and the local response normalizations ``LRN2D``
+(across channels) and ``WithinChannelLRN2D`` (over a spatial window)."""
 
 from __future__ import annotations
 
@@ -130,3 +130,55 @@ class LayerNorm(Layer):
         var = x.var(dim=-1, unbiased=False, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.leaf("gamma") + self.leaf("beta")
+
+
+class LRN2D(Layer):
+    """Local response normalization across channels (AlexNet's):
+    ``x / (k + alpha / n * sum(x^2 over n neighbouring channels))^beta``,
+    the window padded ``(n // 2, n - 1 - n // 2)`` along the channel axis
+    (1 when ``dim_ordering="th"``, else the last)."""
+
+    def __init__(self, alpha: float = 1e-4, k: float = 1.0,
+                 beta: float = 0.75, n: int = 5, dim_ordering: str = "tf",
+                 **kw):
+        super().__init__(**kw)
+        self.alpha, self.k, self.beta, self.n = alpha, k, beta, n
+        self.dim_ordering = dim_ordering
+
+    def forward(self, x):
+        axis = 1 if self.dim_ordering == "th" else x.ndim - 1
+        sq = torch.square(x).movedim(axis, -1)
+        half = self.n // 2
+        padded = F.pad(sq, (half, self.n - 1 - half))
+        c = x.shape[axis]
+        summed = padded[..., 0:c]
+        for i in range(1, self.n):
+            summed = summed + padded[..., i:i + c]
+        denom = torch.pow(self.k + self.alpha / self.n * summed, self.beta)
+        return x / denom.movedim(-1, axis)
+
+
+class WithinChannelLRN2D(Layer):
+    """Local response normalization within each channel over a ``size``
+    x ``size`` spatial window (SAME: the window padded with zeros, the
+    smaller half before): ``x / (1 + alpha / size^2 * sum(x^2))^beta``.
+    Channels-last (NHWC) always, as the JAX layer is."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0,
+                 beta: float = 0.75, **kw):
+        super().__init__(**kw)
+        self.size, self.alpha, self.beta = size, alpha, beta
+
+    def forward(self, x):
+        n = self.size
+        sq = torch.square(x).movedim(-1, 1)
+        lo = (n - 1) // 2
+        padded = F.pad(sq, (lo, n - 1 - lo, lo, n - 1 - lo))
+        h, w = sq.shape[2:]
+        summed = None
+        for i in range(n):
+            for j in range(n):
+                win = padded[:, :, i:i + h, j:j + w]
+                summed = win if summed is None else summed + win
+        denom = torch.pow(1.0 + self.alpha / (n ** 2) * summed, self.beta)
+        return x / denom.movedim(1, -1)

@@ -431,7 +431,41 @@
    launch 4 times a step in (a), kernel 1 4 times a batch in (b), kernel
    4 12 times a batch in (c).  The ``training_surface`` line carries the
    numbers with the card's name and power limit.
-15. Prints the kernels JSON line and, last, the ok line.
+15. Detection phase (SSD300 on PASCAL VOC's shape, and image records).
+   (a) 1,280 VOC-shaped uint8 scenes (375x500, 1-4 objects of 20
+   classes, each a box of its class's colour and stripes) drawn from the
+   seed, their annotations written as VOC XML and read back through
+   ``read_pascal_voc``; 1,024 go through SSD's augmentation
+   (``RandomSampler | ImageRandomPreprocessing(RoiHFlip(normalized=
+   False)) | RoiResize(300, 300) | RoiNormalize |
+   ImageChannelNormalize``, boxes padded to the largest count) and
+   train the full-width ``ObjectDetector(21)`` (8,732 priors) through
+   ``fit_detection`` on the card: bf16, Adam 1e-3, batch 32, graphed,
+   device-resident, ``SSD_TRAIN`` epochs (the first timed dispatch by
+   dispatch, the rest by wall clock, one more under ``torch.profiler``:
+   device ms by kind); the loss must fall.  (b) ``detect`` (score 0.01,
+   NMS 0.45, 100 boxes) on the 256 held-out scenes at batch 32, graphed,
+   against graphs off (equal labels and boxes, scores within 1e-6); the
+   card's f32 head outputs against the port on the CPU for 4 images
+   (``SSD_CPU_REL``) and the card's decode, softmax and class NMS on
+   them against the CPU's (equal labels, boxes and scores within 1e-6);
+   ``PascalVocEvaluator``'s mAP at init and after training, which must
+   rise.  An f32 run from the init, graphed and eager over the same 8
+   steps with cuDNN deterministic, within ``GRAPHED_REL``.  (c) The
+   trained detector behind ``InferenceModel(detection_forward)`` and
+   ``ClusterServing`` over a ShmQueue (the JAX example
+   streaming_od_example.py's setup), a client process (``python3
+   chip_smoke.py --detect-client SEGMENT OUT SPEC``) streaming raw
+   300x300 uint8 frames through ``enqueue_image``: every answer equal
+   to offline ``detect`` on the same frames.  (d) int8 ResNet-50
+   (``ImageClassifier("resnet-50")``) behind ClusterServing with its
+   ``preprocessing()`` chain as the host preprocess, raw 375x500 frames
+   through ``enqueue_image`` from a client thread, top-5 on the card,
+   equal to offline ``predict_image_set`` of the same int8 net; kernel
+   3's launches in the served run count under ``image_records``.
+   ``detection_*`` and ``image_records`` lines carry the numbers with
+   the card's name and power limit.
+16. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -537,6 +571,8 @@ def device_ms(torch, fn, iters):
     """Device milliseconds per call of ``fn``: ``iters`` calls captured
     into one CUDA graph, replayed and timed by CUDA events, so the host's
     launch cost is out of the number."""
+    from analytics_zoo_tpu_torch.core.graphs import collector_off
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -544,7 +580,7 @@ def device_ms(torch, fn, iters):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_off(), torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -716,13 +752,15 @@ def zipf_ids(torch, gen, vocab, shape, s=1.0):
 def replayed(torch, fn):
     """``fn()``'s result from one replay of a CUDA graph that captured it
     (after a warm-up call on a side stream, as ``device_ms`` does)."""
+    from analytics_zoo_tpu_torch.core.graphs import collector_off
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_off(), torch.cuda.graph(graph):
         out = fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -6085,6 +6123,750 @@ def training_surface_phase(torch, eb, dq, fa, card):
             "training_surface_bert_eval": bert["launches"]}
 
 
+
+# ---------------------------------------------------------------------------
+# detection phase (SSD300 on VOC-shaped scenes; image records served)
+
+# SSD300 on PASCAL VOC (Liu et al. 2016): 20 classes and the background,
+# 300x300 inputs, batch 32 as the paper trains, bf16 compute here; VOC's
+# common image size, 375x500, with 1-4 objects an image
+SSD_CLASSES = 21
+SSD_DATA = dict(train=1024, held=256, height=375, width=500, max_boxes=4)
+SSD_TRAIN = dict(batch=32, epochs=10, lr=1e-3)
+# detection as the JAX package's ObjectDetector sets it for evaluation
+SSD_DETECT = dict(batch=32, score_threshold=0.01, nms_threshold=0.45,
+                  max_detections=100)
+SSD_MEANS = (123.0, 117.0, 104.0)       # ImageChannelNormalize (R, G, B)
+# f32 graphed against eager from one init, cuDNN deterministic on both
+# sides (GRAPHED_REL as phase 10): 2 epochs of 4 steps
+SSD_GRAPHED = dict(rows=128, epochs=2)
+# the card's f32 head outputs against the port on the CPU (cuDNN's f32
+# sums against oneDNN's through 24 convolutions): 1e-3 of the largest
+SSD_CPU_REL = 1e-3
+SSD_CPU_IMAGES = 4
+# served detector: frames streamed by a client process, one frame a
+# program replay (``batch``).  A frame's detections depend on its place
+# in a larger batch on the card (cuDNN's bf16 convolutions sum a tile's
+# products in an order that follows the tile, and a frame's pixels fall
+# on other tiles at another place: at batch 32 a served frame's
+# detections can part from offline ``detect``'s), so the served model
+# and the offline reference both run each frame alone
+SSD_SERVE = dict(frames=96, size=300, batch=1)
+# int8 ResNet-50 on raw VOC-sized frames (phase 10's net, BASELINE
+# config #2, random weights from the seed)
+RECORD_RESNET = dict(frames=128, buckets=(8, 32))
+# (convolutions before gather / scatter: cuDNN's weight-gradient kernels
+# are named ``..._wgrad_indexed_implicit_gemm_...``)
+DETECT_KERNEL_KINDS = KERNEL_KINDS[:2] + (
+    ("sort", ("sort", "radix")),
+    ("gather_scatter", ("gather", "scatter", "index")),) + KERNEL_KINDS[2:]
+
+# class textures of the VOC-shaped scenes: a BGR colour per class, and a
+# stripe period and direction that set classes of near colours apart
+_CLASS_COLOURS = np.array(
+    [[(37 * c) % 256, (91 * c + 60) % 256, (151 * c + 120) % 256]
+     for c in range(1, 21)], np.int16)
+
+
+def voc_scenes(n, seed, height=375, width=500, max_boxes=4):
+    """``n`` uint8 BGR scenes of VOC's shape with 1-``max_boxes`` objects
+    each: dark noise (0-63), then each object a box of its class's colour
+    with stripes of its class's period and direction.  Returns (images, [boxes (k, 4)
+    pixels x1 y1 x2 y2], [labels (k,) 1-20])."""
+    rs = np.random.RandomState(seed)
+    imgs = np.empty((n, height, width, 3), np.uint8)
+    boxes, labels = [], []
+    rows, cols = np.ogrid[:height, :width]
+    for i in range(n):
+        img = (np.frombuffer(rs.bytes(height * width * 3), np.uint8)
+               .reshape(height, width, 3) & 63).astype(np.int16)
+        k = 1 + rs.randint(max_boxes)
+        b = np.zeros((k, 4), np.float32)
+        lab = rs.randint(1, 21, k)
+        for j in range(k):
+            bw = rs.randint(width // 8, width // 2)
+            bh = rs.randint(height // 8, height // 2)
+            x1 = rs.randint(0, width - bw)
+            y1 = rs.randint(0, height - bh)
+            c = lab[j] - 1
+            period = 4 + 3 * (c % 5)
+            axis = rows if (c // 5) % 2 else cols
+            part = (rows[y1:y1 + bh] if axis is rows
+                    else cols[:, x1:x1 + bw])
+            stripe = ((part // period) % 2) * 50
+            img[y1:y1 + bh, x1:x1 + bw] = (_CLASS_COLOURS[c]
+                                           - stripe[..., None])
+            b[j] = (x1, y1, x1 + bw, y1 + bh)
+        imgs[i] = np.clip(img, 0, 255).astype(np.uint8)
+        boxes.append(b)
+        labels.append(lab)
+    return imgs, boxes, labels
+
+
+def write_voc_annotations(root, boxes, labels, height, width):
+    """One VOC XML annotation per image under ``root``."""
+    import os
+
+    from analytics_zoo_tpu_torch.data import VOC_CLASSES
+
+    os.makedirs(root, exist_ok=True)
+    for i, (b, lab) in enumerate(zip(boxes, labels)):
+        objs = "".join(
+            f"<object><name>{VOC_CLASSES[c - 1]}</name><difficult>0"
+            f"</difficult><bndbox><xmin>{int(x1)}</xmin><ymin>{int(y1)}"
+            f"</ymin><xmax>{int(x2)}</xmax><ymax>{int(y2)}</ymax></bndbox>"
+            f"</object>" for (x1, y1, x2, y2), c in zip(b, lab))
+        with open(os.path.join(root, f"{i:06d}.xml"), "w") as f:
+            f.write(f"<annotation><filename>{i:06d}.jpg</filename><size>"
+                    f"<width>{width}</width><height>{height}</height>"
+                    f"<depth>3</depth></size>{objs}</annotation>")
+
+
+def padded_boxes(feats, max_boxes):
+    """Augmented features -> (images (N, 300, 300, 3) f32, boxes (N, G, 4)
+    normalised, labels (N, G) int32; label 0 pads)."""
+    g = max(max_boxes, max(len(f["bboxes"]) for f in feats))
+    x = np.stack([f["sample"] if "sample" in f else f.image for f in feats]
+                 ).astype(np.float32)
+    b = np.zeros((len(feats), g, 4), np.float32)
+    lab = np.zeros((len(feats), g), np.int32)
+    for i, f in enumerate(feats):
+        k = len(f["bboxes"])
+        b[i, :k] = f["bboxes"]
+        lab[i, :k] = np.asarray(f["label"]).reshape(-1)
+    return x, b, lab
+
+
+def ssd_data(root):
+    """The phase's data: VOC-shaped scenes written as VOC XML and read
+    back through ``read_pascal_voc``; the training images through SSD's
+    augmentation (``RandomSampler | ImageRandomPreprocessing(RoiHFlip(
+    normalized=False)) | RoiResize(300, 300) | RoiNormalize |
+    ImageChannelNormalize``), the held-out ones resized and
+    normalised."""
+    import os
+
+    from analytics_zoo_tpu_torch.data import read_pascal_voc
+    from analytics_zoo_tpu_torch.data import image as dimg
+
+    cfg = SSD_DATA
+    n = cfg["train"] + cfg["held"]
+    t0 = time.perf_counter()
+    imgs, boxes, labels = voc_scenes(n, SEED + 31, cfg["height"],
+                                     cfg["width"], cfg["max_boxes"])
+    make_s = time.perf_counter() - t0
+    ann = os.path.join(root, "Annotations")
+    write_voc_annotations(ann, boxes, labels, cfg["height"], cfg["width"])
+    recs = read_pascal_voc(ann)
+    if len(recs) != n or not all(
+            np.array_equal(r["bboxes"], b) and np.array_equal(r["labels"], lab)
+            and (r["height"], r["width"]) == (cfg["height"], cfg["width"])
+            for r, b, lab in zip(recs, boxes, labels)):
+        raise AssertionError("read_pascal_voc did not give back the "
+                             "written annotations")
+    norm = dimg.ImageChannelNormalize(*SSD_MEANS)
+    # the boxes are still in pixels where the flip runs (RoiNormalize
+    # comes after it), so it flips them about the image's width; half of
+    # the images, as SSD augments
+    augment = (dimg.RandomSampler()
+               | dimg.ImageRandomPreprocessing(
+                   dimg.RoiHFlip(normalized=False), 0.5)
+               | dimg.RoiResize(300, 300) | dimg.RoiNormalize() | norm)
+    plain = dimg.RoiResize(300, 300) | dimg.RoiNormalize() | norm
+
+    def image_set(rows, chain):
+        feats = [dimg.ImageFeature(image=imgs[i], bboxes=recs[i]["bboxes"],
+                                   label=recs[i]["labels"]) for i in rows]
+        return dimg.ImageSet(feats).transform(chain)
+
+    t0 = time.perf_counter()
+    train = image_set(range(cfg["train"]), augment).transformed()
+    augment_s = time.perf_counter() - t0
+    held = image_set(range(cfg["train"], n), plain).transformed()
+    out = {"make_s": make_s, "augment_s": augment_s,
+           "augment_ms_per_image": 1e3 * augment_s / cfg["train"],
+           "boxes_per_image": float(np.mean([len(b) for b in boxes])),
+           "boxes_kept_per_image": float(np.mean([len(f["bboxes"])
+                                                  for f in train]))}
+    return (padded_boxes(train, cfg["max_boxes"]),
+            padded_boxes(held, cfg["max_boxes"]), out)
+
+
+def ssd_detector(torch, init=None, device="cuda"):
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.models.objectdetection import ObjectDetector
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    reset_name_scope()
+    det = ObjectDetector(SSD_CLASSES, device=device)
+    if init is not None:
+        load_jax_params(det.model, *init)
+    return det
+
+
+def voc_map(dets, boxes, labels):
+    """VOC-2007 11-point mAP (``PascalVocEvaluator``) of ``dets`` against
+    the padded ground truth (label 0 pads)."""
+    from analytics_zoo_tpu_torch.models.objectdetection import (
+        PascalVocEvaluator)
+
+    ev = PascalVocEvaluator()
+    for (db, ds, dl), gb, gl in zip(dets, boxes, labels):
+        ev.add(db, ds, dl, gb[gl > 0], gl[gl > 0])
+    return ev.summary()["mAP"]
+
+
+def ssd_training(torch, det, x, b, lab):
+    """SSD300 trained graphed in bf16 on device-resident data: the first
+    epoch's dispatches timed one by one (eager, then the capture), the
+    rest of the epochs' wall time per step, one more epoch under
+    ``torch.profiler`` (device ms by kind)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = SSD_TRAIN
+    det.compile(Adam(lr=cfg["lr"]), det.loss(), compute_dtype="bfloat16")
+    est = det.model.estimator
+    steps = x.shape[0] // cfg["batch"]
+    dispatch_s = []
+    plain_dispatch = est._dispatch
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        plain_dispatch(*a, **kw)
+        torch.cuda.synchronize()
+        dispatch_s.append(time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    targets = det.assigner(b, lab)
+    torch.cuda.synchronize()
+    assign_s = time.perf_counter() - t0
+    est._dispatch = timed
+    det.model.fit(x, targets, batch_size=cfg["batch"], epochs=1,
+                  verbose=False)
+    est._dispatch = plain_dispatch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # ``epochs`` counts from the estimator's first: epochs 2 .. E
+    det.model.fit(x, targets, batch_size=cfg["batch"],
+                  epochs=cfg["epochs"], verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        det.model.fit(x, targets, batch_size=cfg["batch"],
+                      epochs=cfg["epochs"] + 1, verbose=False)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    events = kernel_events(torch, prof)
+    busy = sum(device_us(e) for e in events) / 1e3
+    by_kind, heaviest = {}, {}
+    for e in events:
+        kind = next((k for k, words in DETECT_KERNEL_KINDS if any(
+            w in e.key.lower() for w in words)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + device_us(e) / 1e3 / steps
+        if device_us(e) > heaviest.get(kind, ("", 0.0))[1]:
+            heaviest[kind] = (e.key[:80], device_us(e))
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    ms = 1e3 * wall / (steps * (cfg["epochs"] - 1))
+    losses = [h["loss"] for h in est.history]
+    progs = programs_of(est._programs)
+    out = {"steps_per_epoch": steps, "epochs": cfg["epochs"] + 1,
+           "assign_targets_s": assign_s,
+           "ms_per_step_wall": ms, "imgs_per_s": cfg["batch"] / (ms / 1e3),
+           "ms_per_step_device": busy / steps,
+           "device_busy_share": busy / (1e3 * prof_wall),
+           "device_ms_per_step_by_kind": by_kind,
+           "heaviest_kernel_by_kind": {k: v[0] for k, v in heaviest.items()},
+           "kernels_per_step": sum(e.count for e in events) / steps,
+           "top_device_ms_per_step": {e.key[:60]: device_us(e) / 1e3 / steps
+                                      for e in top},
+           "first_epoch_dispatch_s": dispatch_s[:3],
+           "eager_first_step_s": dispatch_s[0],
+           "captures": len(progs),
+           "replays": sum(p["replays"] for p in progs.values()),
+           "graph_launches": graph_launches(prof),
+           "peak_allocated_gib": peak,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "epoch_loss": losses}
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"SSD300 loss did not fall: {losses}")
+    if len(progs) != 1 or out["replays"] < steps * cfg["epochs"] - 2:
+        raise AssertionError(f"SSD300 training did not replay one step "
+                             f"graph: {progs}")
+    return out
+
+
+def ssd_graphed_vs_eager(torch, init, x, b, lab):
+    """The f32 step graphed and eager from one init over the same
+    batches, cuDNN deterministic: per-epoch losses, and the parameters'
+    and BN statistics' distance against how far they moved."""
+    import contextlib
+
+    from analytics_zoo_tpu_torch.convert import export_params, export_state
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = SSD_GRAPHED
+    rows = slice(0, cfg["rows"])
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, ctx in (("graphed", contextlib.nullcontext()),
+                          ("eager", graphs.disabled())):
+            det = ssd_detector(torch, init)
+            det.compile(Adam(lr=SSD_TRAIN["lr"]), det.loss())
+            with ctx:
+                hist = det.fit_detection(x[rows], b[rows], lab[rows],
+                                         batch_size=SSD_TRAIN["batch"],
+                                         nb_epoch=cfg["epochs"],
+                                         shuffle=False, verbose=False)
+            torch.cuda.synchronize()
+            runs[name] = ([h["loss"] for h in hist],
+                          export_params(det.model), export_state(det.model))
+            del det
+            free_card(torch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (gl, gp, gs), (el, ep, es) = runs["graphed"], runs["eager"]
+    p_diff, p_equal = tree_diff(gp, ep)
+    s_diff, s_equal = tree_diff(gs, es)
+    out = {"steps": cfg["rows"] // SSD_TRAIN["batch"] * cfg["epochs"],
+           "graphed_loss": gl, "eager_loss": el,
+           "max_loss_rel_diff": max(abs(a - c) / abs(c)
+                                    for a, c in zip(gl, el)),
+           "params_l2_rel": l2(gp, ep) / max(l2(gp, init[0]), 1e-30),
+           "state_l2_rel": l2(gs, es) / max(l2(gs, init[1]), 1e-30),
+           "params_max_abs_diff": p_diff, "state_max_abs_diff": s_diff,
+           "bit_equal": p_equal and s_equal and gl == el,
+           "tolerance_l2_rel": GRAPHED_REL}
+    if (out["params_l2_rel"] > GRAPHED_REL
+            or out["state_l2_rel"] > GRAPHED_REL
+            or not all(np.isfinite(gl))):
+        raise AssertionError(f"graphed SSD300 left the eager run: {out}")
+    return out
+
+
+def ssd_detection_checks(torch, det, held_x, held_b, held_lab):
+    """``detect`` on the held-out images (graphed) against graphs off on
+    the card, and the card's f32 head outputs and post-processing against
+    the port on the CPU for a few images."""
+    from analytics_zoo_tpu_torch.convert import export_params, export_state
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.models.objectdetection import decode_boxes
+    from analytics_zoo_tpu_torch.models.objectdetection.nms import (
+        class_nms_batch)
+
+    kw = {k: v for k, v in SSD_DETECT.items() if k != "batch"}
+    bs = SSD_DETECT["batch"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = det.detect(held_x, batch_size=bs, **kw)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = det.detect(held_x, batch_size=bs, **kw)
+    graphed_s = time.perf_counter() - t0
+    with graphs.disabled():
+        t0 = time.perf_counter()
+        eager = det.detect(held_x, batch_size=bs, **kw)
+        eager_s = time.perf_counter() - t0
+    same_labels = all(np.array_equal(g[2], e[2]) for g, e in zip(got, eager))
+    same_boxes = all(np.array_equal(g[0], e[0]) for g, e in zip(got, eager))
+    score_diff = max((float(np.abs(g[1] - e[1]).max()) if len(g[1]) else 0.0)
+                     for g, e in zip(got, eager)) if same_labels else None
+    progs = list(det._detect_programs.values())
+    # the card's f32 head outputs and post-processing against the CPU's
+    k = SSD_CPU_IMAGES
+    cpu = ssd_detector(torch, (export_params(det.model),
+                               export_state(det.model)), device="cpu")
+    cpu.model.eval()
+    det.model.eval()
+    xs = torch.from_numpy(held_x[:k])
+    with torch.no_grad():
+        t_loc, t_conf = det.model(xs.cuda())
+        c_loc, c_conf = cpu.model(xs)
+    head_err = max(float((t_loc.cpu() - c_loc).abs().max()
+                         / c_loc.abs().max()),
+                   float((t_conf.cpu() - c_conf).abs().max()
+                         / c_conf.abs().max()))
+    post = []
+    for loc, conf, pri in ((t_loc, t_conf, det.priors_t),
+                           (t_loc.cpu(), t_conf.cpu(), cpu.priors_t)):
+        with torch.no_grad():
+            post.append([t.cpu().numpy() for t in class_nms_batch(
+                decode_boxes(loc, pri), torch.softmax(conf, -1),
+                kw["nms_threshold"], kw["score_threshold"], 50,
+                kw["max_detections"])])
+    post_equal = (np.array_equal(post[0][2], post[1][2])
+                  and float(np.abs(post[0][0] - post[1][0]).max()) <= 1e-6
+                  and float(np.abs(post[0][1] - post[1][1]).max()) <= 1e-6)
+    out = {"images": len(held_x), "batch": bs, **kw,
+           "first_call_s": first_s, "graphed_s": graphed_s,
+           "eager_s": eager_s,
+           "graphed_ms_per_batch": 1e3 * graphed_s / -(-len(held_x) // bs),
+           "eager_ms_per_batch": 1e3 * eager_s / -(-len(held_x) // bs),
+           "graphed_equals_eager": {"labels": same_labels,
+                                    "boxes": same_boxes,
+                                    "max_score_diff": score_diff},
+           "detect_programs": len(progs),
+           "detect_replays": sum(p.graph.replays for p in progs),
+           "detections_per_image": float(np.mean([len(g[2]) for g in got])),
+           "cpu_head_rel_err": head_err, "cpu_head_tolerance": SSD_CPU_REL,
+           "cpu_post_processing_equal": post_equal}
+    if (not same_labels or not same_boxes or score_diff is None
+            or score_diff > 1e-6 or len(progs) != 1
+            or not progs[0].graph.captured):
+        raise AssertionError(f"graphed detect left eager detect: {out}")
+    if head_err > SSD_CPU_REL or not post_equal:
+        raise AssertionError(f"the card's SSD300 left the CPU port: {out}")
+    return got, out
+
+
+def detection_frames(n, size, seed):
+    """The served detector's frames: VOC-like scenes at size x size."""
+    return voc_scenes(n, seed, size, size)[0]
+
+
+def ssd_preprocess(img):
+    """The served detector's host preprocessing of one raw uint8 frame."""
+    from analytics_zoo_tpu_torch.data import image as dimg
+
+    feat = dimg.ImageChannelNormalize(*SSD_MEANS).apply(
+        dimg.ImageFeature(image=np.asarray(img)), None)
+    return feat.image
+
+
+def detections_array(dets, rows=SSD_DETECT["max_detections"]):
+    """Per-image detections as one (N, rows, 6) f32 array: x1 y1 x2 y2
+    score label, zero rows after the last."""
+    out = np.zeros((len(dets), rows, 6), np.float32)
+    for i, (bx, sc, lb) in enumerate(dets):
+        out[i, :len(sc), :4] = bx
+        out[i, :len(sc), 4] = sc
+        out[i, :len(sc), 5] = lb
+    return out
+
+
+def detect_client(segment, out_path, spec_json):
+    """The detector's client process (``chip_smoke.py --detect-client
+    SEGMENT OUT SPEC``): attaches to the worker's ShmQueue, pushes raw
+    uint8 frames through ``enqueue_image`` from one thread while it reads
+    the answers, writes them to ``OUT`` (npz) and prints one JSON line
+    with records/s and the latencies it saw.  It never touches CUDA."""
+    import torch
+
+    from analytics_zoo_tpu_torch.deploy import (InputQueue, OutputQueue,
+                                                ShmQueue)
+
+    spec = json.loads(spec_json)
+    frames = detection_frames(spec["frames"], spec["size"], spec["seed"])
+    q = ShmQueue.attach(segment, push_timeout_s=120.0)
+    iq, oq = InputQueue(q), OutputQueue(q)
+    sent, errors = {}, []
+
+    def push():
+        try:
+            for i, f in enumerate(frames):
+                sent[f"frame{i}"] = time.perf_counter()
+                iq.enqueue_image(f"frame{i}", image=f)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    answers, seen = {}, {}
+    t0 = time.perf_counter()
+    pusher = threading.Thread(target=push)
+    pusher.start()
+    deadline = time.monotonic() + 300
+    while len(answers) < len(frames) and time.monotonic() < deadline:
+        got = oq.dequeue(timeout=0.5)
+        now = time.perf_counter()
+        for uri, a in got.items():
+            answers[uri] = a
+            seen[uri] = now
+    wall = time.perf_counter() - t0
+    pusher.join(timeout=60)
+    arr = np.full((len(frames), SSD_DETECT["max_detections"], 6), np.nan,
+                  np.float32)
+    for i in range(len(frames)):
+        a = answers.get(f"frame{i}")
+        if a is not None and not isinstance(a, dict):
+            arr[i] = np.asarray(a, np.float32)
+    np.savez(out_path, answers=arr)
+    q.stop()
+    lat = [1e3 * (seen[u] - sent[u]) for u in seen if u in sent]
+    print(json.dumps({
+        "frames": len(frames), "answered": len(answers), "wall_s": wall,
+        "records_per_s": len(frames) / wall,
+        "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+        "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+        "errors": [a for a in answers.values() if isinstance(a, dict)][:3],
+        "push_errors": errors,
+        "cuda_initialized": torch.cuda.is_initialized()}))
+    return 0 if len(answers) == len(frames) and not errors else 1
+
+
+def ssd_serving(torch, det):
+    """The trained detector behind ``InferenceModel(detection_forward)``
+    and ``ClusterServing`` over a ShmQueue, as
+    examples/objectdetection/streaming_od_example.py serves it; a client
+    process streams raw uint8 frames; every answer held against offline
+    ``detect`` on the same frames."""
+    import os
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.deploy import (ClusterServing,
+                                                InferenceModel,
+                                                ServingConfig, ShmQueue)
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+
+    cfg = SSD_SERVE
+    kw = {k: v for k, v in SSD_DETECT.items() if k != "batch"}
+    bs = cfg["batch"]
+    frames = detection_frames(cfg["frames"], cfg["size"], SEED + 41)
+    offline = detections_array(det.detect(
+        np.stack([ssd_preprocess(f) for f in frames]), batch_size=bs, **kw))
+    lock = threading.Lock()
+
+    def detection_forward(xs):
+        # one caller at a time: a detect program's graph is not
+        # thread-safe
+        with lock:
+            return detections_array(det.detect(np.asarray(xs[0]),
+                                               batch_size=bs, **kw))
+
+    im = InferenceModel(detection_forward, batch_buckets=(bs,),
+                        name="ssd300")
+    queue = ShmQueue(name="smoke_ssd", slots=128,
+                     slot_bytes=1 << 19, result_slots=256,
+                     result_slot_bytes=1 << 13)
+    scfg = ServingConfig(batch_size=8, max_batch_delay_ms=5.0,
+                         decode_workers=4)
+    cs = ClusterServing(im, queue, scfg, preprocess=ssd_preprocess)
+    root = tempfile.mkdtemp(prefix="zoo_ssd_")
+    out_path = os.path.join(root, "answers.npz")
+    spec = json.dumps({"frames": cfg["frames"], "size": cfg["size"],
+                       "seed": SEED + 41})
+    try:
+        cs.start()
+        window = METRICS.snapshot()
+        client = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--detect-client",
+             queue.segment, out_path, spec],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = client.communicate(timeout=400)
+        finally:
+            if client.poll() is None:
+                client.kill()
+                client.communicate()
+        delta = METRICS.delta(window)
+    finally:
+        cs.stop(timeout=30)
+        del cs
+        queue.stop()
+    if client.returncode != 0:
+        raise AssertionError(f"the detector's client failed (rc "
+                             f"{client.returncode}): {stdout[-2000:]} "
+                             f"{stderr[-3000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    with np.load(out_path) as f:
+        got = f["answers"]
+    shutil.rmtree(root, ignore_errors=True)
+    equal = bool(np.array_equal(got, offline))
+    differ = np.nonzero(np.any(got != offline, axis=(1, 2)))[0]
+    out = {**summary, "answers_equal_offline_detect": equal,
+           "frames_differing": differ.tolist()[:10],
+           "max_abs_diff": float(np.nanmax(np.abs(got - offline))),
+           "stages": stage_rollup(delta).get("ssd300")}
+    if not equal or summary["cuda_initialized"]:
+        raise AssertionError(f"served SSD300 left offline detect: {out}")
+    return out
+
+
+def image_record_serving(torch, dq):
+    """int8 ResNet-50 (``ImageClassifier("resnet-50")``, random weights
+    from the seed) behind ClusterServing over a ShmQueue, its
+    ``preprocessing()`` chain as the worker's host preprocess, raw
+    375x500 frames from a client thread through ``enqueue_image``, top-5
+    on the card; held against offline ``predict_image_set`` of the same
+    int8 net on the same frames.  Kernel 3's launches are read over the
+    served run only."""
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.data import image as dimg
+    from analytics_zoo_tpu_torch.deploy import (ClusterServing,
+                                                InferenceModel, InputQueue,
+                                                OutputQueue, ServingConfig,
+                                                ShmQueue)
+    from analytics_zoo_tpu_torch.models.image import ImageClassifier
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+
+    cfg = RECORD_RESNET
+    top_n = 5
+    frames = voc_scenes(cfg["frames"], SEED + 47)[0]
+    reset_name_scope()
+    clf = ImageClassifier("resnet-50", class_num=1000, device="cuda")
+    im = InferenceModel.from_keras_net(clf.model, device="cuda",
+                                       weight_dtype="int8",
+                                       batch_buckets=cfg["buckets"],
+                                       name="resnet50_int8")
+    # offline: the same int8 tree in the classifier's own net
+    load_jax_params(clf.model, im.params(), im._net.state())
+    clf.compile("sgd", "sparse_categorical_crossentropy_with_logits")
+    chain = clf.preprocessing()
+    t0 = time.perf_counter()
+    offline_top = clf.predict_image_set(dimg.ImageSet.from_arrays(frames),
+                                        batch_size=32, top_k=top_n)
+    offline_s = time.perf_counter() - t0
+    logits = clf.model.predict(dimg.ImageSet.from_arrays(frames).transform(
+        chain).to_arrays()[0], batch_size=32)
+
+    def preprocess(img):
+        return chain.apply(dimg.ImageFeature(image=np.asarray(img)),
+                           None)["sample"]
+
+    queue = ShmQueue(name="smoke_records", slots=256, slot_bytes=1 << 20,
+                     result_slots=256, result_slot_bytes=1 << 10)
+    scfg = ServingConfig(postprocess_top_n=top_n, batch_size=32,
+                         max_batch_delay_ms=5.0, decode_workers=6)
+    cs = ClusterServing(im, queue, scfg, preprocess=preprocess)
+    iq, oq = InputQueue(queue), OutputQueue(queue)
+    answers, sent, seen = {}, {}, {}
+    try:
+        cs.start()
+        # one pass to capture the bucket graphs, outside the counted run
+        for b in cfg["buckets"]:
+            im.predict(np.stack([preprocess(f) for f in frames[:b]]))
+        window = METRICS.snapshot()
+        dq.LAUNCHES.reset()
+        t0 = time.perf_counter()
+
+        def push():
+            for i, f in enumerate(frames):
+                sent[f"img{i}"] = time.perf_counter()
+                iq.enqueue_image(f"img{i}", image=f)
+
+        pusher = threading.Thread(target=push)
+        pusher.start()
+        deadline = time.monotonic() + 120
+        while len(answers) < len(frames) and time.monotonic() < deadline:
+            got = oq.dequeue(timeout=0.5)
+            now = time.perf_counter()
+            for uri, a in got.items():
+                answers[uri] = a
+                seen[uri] = now
+        wall = time.perf_counter() - t0
+        pusher.join(timeout=60)
+        torch.cuda.synchronize()
+        launches = dq.LAUNCHES.value
+        delta = METRICS.delta(window)
+    finally:
+        cs.stop(timeout=30)
+        del cs
+        queue.stop()
+    served = np.full((len(frames), top_n), -1, np.int64)
+    for i in range(len(frames)):
+        a = answers.get(f"img{i}")
+        if isinstance(a, list) and len(a) == top_n:
+            served[i] = [p[0] for p in a]
+    # images whose top-6 logits all part by more than the int8 path's
+    # rounding between two batch shapes (1e-5 of the largest) decide
+    # their top-5 order; the rest are counted
+    srt = np.sort(logits, axis=-1)[:, ::-1][:, :top_n + 1]
+    gaps = np.diff(srt, axis=-1).min(axis=-1) * -1
+    decided = gaps > 1e-5 * np.abs(logits).max()
+    equal = bool(np.array_equal(served[decided], offline_top[decided]))
+    lat = [1e3 * (seen[u] - sent[u]) for u in seen if u in sent]
+    out = {"frames": len(frames), "answered": len(answers),
+           "wall_s": wall, "records_per_s": len(frames) / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "top5_equal_predict_image_set": equal,
+           "top5_equal_all": bool(np.array_equal(served, offline_top)),
+           "decided_images": int(decided.sum()),
+           "offline_predict_image_set_s": offline_s,
+           "dequant_matmul_launches": launches,
+           "compile_count": im.compile_count,
+           "stages": stage_rollup(delta).get("resnet50_int8"),
+           "device_busy": device_busy(delta, wall)}
+    if (len(answers) != len(frames) or not equal or launches <= 0
+            or decided.sum() < len(frames) // 2):
+        raise AssertionError(f"int8 ResNet-50 image records failed: {out}")
+    del im, clf
+    free_card(torch)
+    return out
+
+
+def detection_phase(torch, dq, card):
+    """Phase 15: SSD300 (VOC, 21 classes) trained in bf16 from VOC-shaped
+    scenes through the ROI pipeline, evaluated (mAP at init and after),
+    detect graphed against eager and the CPU, served from raw frames;
+    int8 ResNet-50 answering image records on kernel 3."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.convert import export_params, export_state
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="zoo_voc_")
+    try:
+        (x, b, lab), (hx, hb, hl), data = ssd_data(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("detection_data", json.dumps(data))
+    det = ssd_detector(torch)
+    n_params = sum(p.numel() for p in det.model.parameters())
+    init = (export_params(det.model), export_state(det.model))
+    det.compile("sgd", det.loss(), compute_dtype="bfloat16")
+    kw = {k: v for k, v in SSD_DETECT.items() if k != "batch"}
+    map_init = voc_map(det.detect(hx, batch_size=SSD_DETECT["batch"], **kw),
+                       hb, hl)
+    xt = torch.from_numpy(x).cuda()
+    bt, lt = torch.from_numpy(b).cuda(), torch.from_numpy(lab).cuda()
+    training = ssd_training(torch, det, xt, bt, lt)
+    training.update(parameters=n_params, priors=int(det.priors.shape[0]),
+                    card=card)
+    log("detection_training", json.dumps(training))
+    got, detection = ssd_detection_checks(torch, det, hx, hb, hl)
+    detection.update(map_init=map_init, map_trained=voc_map(got, hb, hl),
+                     card=card)
+    log("detection_eval", json.dumps(detection))
+    if not detection["map_trained"] > detection["map_init"]:
+        raise AssertionError(f"SSD300's mAP did not rise: {detection}")
+    compare = ssd_graphed_vs_eager(torch, init, xt, bt, lt)
+    log("detection_graphed_vs_eager", json.dumps(compare))
+    del xt, bt, lt
+    free_card(torch)
+    serving = ssd_serving(torch, det)
+    serving["card"] = card
+    log("detection_serving", json.dumps(serving))
+    del det
+    free_card(torch)
+    records = image_record_serving(torch, dq)
+    records["card"] = card
+    log("image_records", json.dumps(records))
+    summary = {"card": card, "seconds": time.perf_counter() - t_phase,
+               "train_ms_per_step_wall": training["ms_per_step_wall"],
+               "train_imgs_per_s": training["imgs_per_s"],
+               "train_ms_per_step_device": training["ms_per_step_device"],
+               "loss": [training["first_loss"], training["last_loss"]],
+               "map": [detection["map_init"], detection["map_trained"]],
+               "detect_ms_per_batch": detection["graphed_ms_per_batch"],
+               "served_records_per_s": serving["records_per_s"],
+               "served_p50_ms": serving["p50_ms"],
+               "image_records_per_s": records["records_per_s"],
+               "image_records_p50_ms": records["p50_ms"],
+               "augment_ms_per_image": data["augment_ms_per_image"]}
+    log("detection_summary", json.dumps(summary))
+    return {"image_records": records["dequant_matmul_launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -6164,6 +6946,8 @@ def main() -> int:
     loadgen = loadgen_phase(torch, eb, dq, fa, card, shm_records_per_s)
     reset_counts(eb, dq, fa)
     surface = training_surface_phase(torch, eb, dq, fa, card)
+    reset_counts(eb, dq, fa)
+    detection = detection_phase(torch, dq, card)
     rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
                  "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
@@ -6190,6 +6974,7 @@ def main() -> int:
                   "cluster_serving": cluster["dequant_matmul"],
                   "loadgen": loadgen["dequant_matmul"],
                   "resnet50_serving": image["dequant_matmul"],
+                  "image_records": detection["image_records"],
                   **{p: rec[p]["dequant_matmul"] for p in rec_paths
                      if p.endswith("_serving")},
                   **{p: v["dequant_matmul"] for p, v in text.items()
@@ -6270,4 +7055,6 @@ if __name__ == "__main__":
         sys.exit(serve_client(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--loadgen-client"]:
         sys.exit(loadgen_client(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--detect-client"]:
+        sys.exit(detect_client(*sys.argv[2:5]))
     sys.exit(main())

@@ -215,13 +215,15 @@ def test_bag_backward_kernel_matches_plain_on_card(cuda_device, combiner,
 
 def _replayed(fn):
     """``fn()``'s result from one replay of a CUDA graph that captured it."""
+    from analytics_zoo_tpu_torch.core.graphs import collector_off
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_off(), torch.cuda.graph(graph):
         out = fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -1313,6 +1315,88 @@ def test_ncf_fit_graphed_matches_eager_on_card(cuda_device, path, k):
 
 
 @pytest.mark.cuda
+def test_fit_copy_stream_is_never_the_capture_stream_on_card(cuda_device):
+    """``torch.cuda.Stream()`` deals out a pool of 32 streams round-robin.
+    A fit's host copy stream once came back as PyTorch's default capture
+    stream every 32nd draw, and the prefetch thread's copies and events
+    then joined the step's capture (``cudaStreamWaitEvent``: invalid
+    argument).  Captures now run on a private stream: no draw is handed
+    it, and a host-array fit with graphs runs from each of the pool's 32
+    positions."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    rs = np.random.RandomState(0)
+    u = rs.randint(1, 201, (1024, 1)).astype(np.int32)
+    i = rs.randint(1, 151, (1024, 1)).astype(np.int32)
+    y = rs.randint(0, 5, 1024).astype(np.int32)
+    private = {graphs.private_stream(cuda_device, name).cuda_stream
+               for name in ("capture", "serving", "serving_capture")}
+    assert len(private) == 3
+    assert not private & {torch.cuda.Stream(cuda_device).cuda_stream
+                          for _ in range(64)}
+    ref = torch.cuda.Stream(cuda_device).cuda_stream
+    for turn in range(32):
+        while torch.cuda.Stream(cuda_device).cuda_stream != ref:
+            pass
+        for _ in range(turn):
+            torch.cuda.Stream(cuda_device)
+        reset_name_scope()
+        ncf = NeuralCF(200, 150, device=cuda_device)
+        ncf.compile("adam", "sparse_categorical_crossentropy")
+        hist = ncf.fit([u, i], y, batch_size=128, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        assert all(p.graph.captured for p in ncf.estimator._programs.values())
+        assert np.isfinite([h["loss"] for h in hist]).all()
+
+
+@pytest.mark.cuda
+def test_collection_inside_a_capture_frees_no_graph_on_card(cuda_device):
+    """A graph that only a garbage cycle holds is not freed by a cycle
+    collection inside another graph's capture (destroying a graph is a
+    call the capturing thread may not make, and it spoils the capture):
+    the capture holds the collector off, and the old graph goes at the
+    next collection."""
+    import gc
+    import weakref
+
+    from analytics_zoo_tpu_torch.core import graphs
+
+    x = torch.arange(8.0, device=cuda_device)
+    old = graphs.StepGraph(lambda: x * 3, cuda_device, name="old")
+    for _ in range(3):
+        old()
+    assert old.captured
+    gone = weakref.ref(old)
+    keep, calls = [old], [0]
+    del old
+
+    def fn():
+        calls[0] += 1
+        if calls[0] == 2:                  # the capture
+            cycle = [keep.pop()]
+            cycle.append(cycle)            # garbage only a collection frees
+            del cycle
+            _ = [[] for _ in range(1000)]  # allocations that start one
+        return x * 2
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        g = graphs.StepGraph(fn, cuda_device, name="new")
+        g()
+        out = g()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert g.captured and calls[0] == 2
+    torch.testing.assert_close(g(), x * 2)
+    torch.testing.assert_close(out, x * 2)
+    gc.collect()
+    assert gone() is None
+
+
+@pytest.mark.cuda
 def test_graphed_resume_after_sigterm_is_bit_exact_on_card(cuda_device,
                                                            tmp_path):
     """BERT (3 blocks, hidden dropout 0.1, bf16) for three epochs of 4
@@ -1605,10 +1689,9 @@ def test_replica_rebuilt_beside_replays_captures_cleanly_on_card(
                 np.testing.assert_array_equal(
                     rep.harvest(rep.dispatch(a))[0], want_ncf)
             (prog,) = ncf._programs.values()
-            shared = torch.cuda.graph.default_capture_stream   # fit's
+            shared = graphs.private_stream(cuda_device, "capture")  # fit's
             assert prog.graph.captured and (
-                shared is None
-                or prog.capture_stream.cuda_stream != shared.cuda_stream)
+                prog.capture_stream.cuda_stream != shared.cuda_stream)
             replays0 = prog.graph.replays
             (rep,) = ncf.replica_forwards(1)   # the slot's rebuild
             np.testing.assert_array_equal(
@@ -2449,3 +2532,145 @@ def test_graphed_evaluate_and_predict_match_eager_on_card(cuda_device):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(pred, want_pred, rtol=0, atol=1e-6)
+
+
+# -- the image slice's layers and the detector --------------------------
+
+def _layer_cases():
+    from analytics_zoo_tpu_torch.nn.layers import convolutional as c
+    from analytics_zoo_tpu_torch.nn.layers import normalization as n
+
+    return [
+        ("deconv_same_s2_tf", lambda: c.Deconvolution2D(
+            6, 3, 3, subsample=(2, 2), border_mode="same"), (2, 9, 7, 5)),
+        ("deconv_valid_s2_th", lambda: c.Deconvolution2D(
+            6, 3, 3, subsample=(2, 2), dim_ordering="th"), (2, 5, 9, 7)),
+        ("locally_connected_1d", lambda: c.LocallyConnected1D(
+            4, 3, subsample_length=2), (3, 11, 5)),
+        ("locally_connected_2d", lambda: c.LocallyConnected2D(
+            4, 3, 2, subsample=(2, 1)), (2, 9, 7, 3)),
+        ("zero_padding_2d", lambda: c.ZeroPadding2D((1, 2)), (2, 5, 6, 3)),
+        ("cropping_2d_th", lambda: c.Cropping2D((1, 0), (2, 1),
+                                                dim_ordering="th"),
+         (2, 3, 6, 7)),
+        ("upsampling_3d", lambda: c.UpSampling3D((1, 2, 2)),
+         (2, 3, 4, 5, 3)),
+        ("resize_shrink", lambda: c.ResizeBilinear(5, 6), (2, 11, 13, 3)),
+        ("resize_grow", lambda: c.ResizeBilinear(17, 19), (2, 6, 7, 3)),
+        ("resize_corners", lambda: c.ResizeBilinear(
+            9, 4, align_corners=True), (2, 5, 7, 3)),
+        ("lrn2d", lambda: n.LRN2D(alpha=0.3, k=1.5, n=4), (2, 5, 6, 7)),
+        ("within_channel_lrn2d", lambda: n.WithinChannelLRN2D(4, 0.8, 0.6),
+         (2, 6, 5, 3)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in _layer_cases()])
+def test_conv_rest_layers_on_card_match_cpu(cuda_device, case):
+    """Deconvolution2D, the locally connected layers, padding, cropping,
+    upsampling, ResizeBilinear and the LRN layers on the card against
+    the port on the CPU: forward and the gradients of the input and every
+    leaf within 1e-5 of the largest value (cuDNN without TF32)."""
+    import copy
+
+    torch.backends.cudnn.allow_tf32 = False
+    _, make, shape = next(c for c in _layer_cases() if c[0] == case)
+    cpu = make()
+    cpu.build(torch.Generator().manual_seed(0), shape)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rs = np.random.RandomState(1)
+    x = rs.randn(*shape).astype(np.float32)
+    outs = []
+    for layer, dev in ((cpu, "cpu"), (card, cuda_device)):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        y = layer(xt)
+        g = torch.from_numpy(rs.randn(*y.shape).astype(np.float32)) \
+            if dev == "cpu" else outs[0][-1].to(dev)
+        (y * g).sum().backward()
+        grads = [xt.grad] + [p.grad for p in layer.parameters()]
+        outs.append([y.detach().cpu()] + [t.cpu() for t in grads] + [g])
+    for a, b in zip(outs[0][:-1], outs[1][:-1]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
+                                   atol=1e-5 * max(1.0, float(
+                                       a.abs().max())))
+
+
+TINY_SSD = {
+    "image_size": 64,
+    "feature_sizes": (8, 4, 2, 1, 1, 1),
+    "min_sizes": (6, 13, 26, 38, 51, 58),
+    "max_sizes": (13, 26, 38, 51, 58, 70),
+    "aspect_ratios": ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,)),
+}
+
+
+def _same_detections(got, want, atol, max_detections):
+    """One image's detections ``got`` and ``want`` (boxes, scores, labels,
+    best first) are the same: the scores agree in order within ``atol``,
+    and every detection of ``want`` has its own in ``got`` with its label,
+    its box and its score within ``atol``.  Two detections whose scores
+    lie within ``atol`` may rank either way round, and where the list is
+    cut at ``max_detections`` one may stand in for another of the cut's
+    score."""
+    (gb, gs, gl), (wb, ws, wl) = got, want
+    assert len(gs) == len(ws)
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=atol)
+    free = np.ones(len(gs), bool)
+    cut = ws.min() if len(ws) == max_detections else -np.inf
+    for b, sc, lab in zip(wb, ws, wl):
+        hit = np.flatnonzero(free & (gl == lab)
+                             & (np.abs(gs - sc) <= atol)
+                             & (np.abs(gb - b).max(axis=1) <= atol))
+        if len(hit):
+            free[hit[0]] = False
+        else:
+            assert sc - cut <= atol, (b, sc, lab)
+    assert (gs[free] - cut <= atol).all()
+
+
+@pytest.mark.cuda
+def test_graphed_detect_matches_eager_and_cpu_on_card(cuda_device):
+    """``detect`` on the card replays one graph per batch signature
+    (forward, decode, softmax, the class NMS) and answers as with graphs
+    off (equal labels, boxes and scores within 1e-6) and as the port on
+    the CPU from the same weights (the same detections, boxes and scores
+    within 1e-4, cuDNN's sums against the CPU's; two whose scores are
+    that close may rank either way round)."""
+    from analytics_zoo_tpu_torch.convert import export_params, export_state
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.models.objectdetection import ObjectDetector
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(0)
+    reset_name_scope()
+    det = ObjectDetector(4, config=TINY_SSD, width_mult=0.25,
+                         device=cuda_device)
+    det.compile("sgd", det.loss())
+    imgs = rs.randn(40, 64, 64, 3).astype(np.float32)
+    boxes = np.tile(np.float32([[[0.1, 0.2, 0.6, 0.7]]]), (40, 1, 1))
+    det.fit_detection(imgs, boxes, np.ones((40, 1), np.int32),
+                      batch_size=8, nb_epoch=2, verbose=False)
+    test = rs.randn(13, 64, 64, 3).astype(np.float32)
+    first = det.detect(test, batch_size=8, score_threshold=0.05)
+    got = det.detect(test, batch_size=8, score_threshold=0.05)
+    progs = list(det._detect_programs.values())
+    assert len(progs) == 1 and progs[0].graph.captured
+    assert progs[0].graph.replays >= 2
+    with graphs.disabled():
+        eager = det.detect(test, batch_size=8, score_threshold=0.05)
+    reset_name_scope()       # the same auto-named weightless layers
+    cpu = ObjectDetector(4, config=TINY_SSD, width_mult=0.25, device="cpu")
+    load_jax_params(cpu.model, export_params(det.model),
+                    export_state(det.model))
+    cpu.compile("sgd", cpu.loss())
+    on_cpu = cpu.detect(test, batch_size=8, score_threshold=0.05)
+    for (gb, gs, gl), (fb, fs, fl), (eb, es, el), (cb, cs, cl) in zip(
+            got, first, eager, on_cpu):
+        np.testing.assert_array_equal(gl, el)
+        np.testing.assert_array_equal(gl, fl)
+        np.testing.assert_allclose(gb, eb, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(gs, es, rtol=0, atol=1e-6)
+        _same_detections((gb, gs, gl), (cb, cs, cl), 1e-4, 100)

@@ -399,7 +399,11 @@ def test_builders_eval_forward_match_jax(builder, args, kw):
 def test_resnet50_width_and_image_classifier():
     """ResNet-50 at ImageNet's width: 25,557,032 parameters and 53,120
     state values; ImageClassifier registers and wraps the builders, and
-    its host image pipeline raises naming the roadmap."""
+    its host image pipeline (``preprocessing``, ``predict_image_set``)
+    answers as the JAX classifier's from the same weights: the same
+    preprocessed pixels within 1e-5 (uint8 images whose short side is
+    the chain's scale, so no resize rounds; float32 images resized
+    within 1e-5) and the same top-2 classes."""
     reset_name_scope()
     net = timage.resnet50()
     assert sum(p.numel() for p in net.parameters()) == 25_557_032
@@ -413,9 +417,39 @@ def test_resnet50_width_and_image_classifier():
     assert _MODEL_REGISTRY["ImageClassifier"] is timage.ImageClassifier
     assert clf.config() == {"model_name": "mobilenet", "class_num": 3,
                             "input_shape": [32, 32, 3]}
-    for fn in (clf.preprocessing, lambda: clf.predict_image_set(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            fn()
+    from analytics_zoo_tpu.data.image import ImageSet as JImageSet
+    from analytics_zoo_tpu.models.image import ImageClassifier as JClf
+    from analytics_zoo_tpu.train.optimizers import SGD as JSGD
+    from analytics_zoo_tpu_torch.data.image import ImageSet
+
+    rs = np.random.RandomState(4)
+    imgs = [rs.randint(0, 256, hw + (3,)).astype(np.uint8)
+            for hw in ((36, 48), (40, 36), (36, 36))]
+    imgs += [(rs.rand(*hw, 3) * 255).astype(np.float32)
+             for hw in ((50, 61), (45, 39))]
+    jax_reset_names()
+    jclf = JClf("mobilenet", class_num=3, input_shape=(32, 32, 3))
+    params, state = _random_weights(clf.model, 5)
+    load_jax_params(clf.model, params, state)
+    ce = "sparse_categorical_crossentropy_with_logits"
+    jclf.model.compile(optimizer=JSGD(0.1), loss=ce)
+    jp, js = jax.eval_shape(lambda k: jclf.model.build(k, (1, 32, 32, 3)),
+                            jax.random.PRNGKey(0))
+    jclf.model.estimator.params = {}
+    jclf.model.estimator.set_initial_weights(
+        {k: params.get(k, {}) for k in jp}, {k: state.get(k, {}) for k in js})
+    clf.compile("sgd", ce)
+    want_x, _ = JImageSet.from_arrays(imgs).transform(
+        jclf.preprocessing()).to_arrays()
+    got_x, _ = ImageSet.from_arrays(imgs).transform(
+        clf.preprocessing()).to_arrays()
+    _close(got_x, want_x, 1e-5, "preprocessed")
+    np.testing.assert_array_equal(got_x[:3], want_x[:3])
+    want = jclf.predict_image_set(JImageSet.from_arrays(imgs), batch_size=4,
+                                  top_k=2)
+    got = clf.predict_image_set(ImageSet.from_arrays(imgs), batch_size=4,
+                                top_k=2)
+    np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="unknown model"):
         timage.ImageClassifier("resnet-18", device="cpu")
 

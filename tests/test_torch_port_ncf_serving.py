@@ -371,7 +371,9 @@ def test_port_imports_no_jax():
     ``server_main``'s model fitted and served), ``from_function``,
     ``load_torch``, the Redis queue, and NCF trained through the STREAM
     tier from ``.npy`` slices with TensorBoard scalars and evaluated
-    with AUC, through the port, load neither jax, ml_dtypes nor the JAX
+    with AUC, and the image slice (the layers, ``data/image.py``, the
+    VOC reader, a small SSD trained and detecting, an image record
+    served), through the port, load neither jax, ml_dtypes nor the JAX
     package."""
     code = (
         "import sys, numpy as np\n"
@@ -468,6 +470,32 @@ def test_port_imports_no_jax():
         "assert summary.read_scalars(d + '/zoo', 'loss')\n"
         "assert 'auc' in ncf.evaluate([u8, u8], np.ones(64, np.int32),"
         " batch_size=16)\n"
+        "from analytics_zoo_tpu_torch.data import image as dimg,"
+        " read_pascal_voc, read_coco\n"
+        "from analytics_zoo_tpu_torch.nn.layers import (Deconvolution2D,"
+        " LRN2D, ResizeBilinear)\n"
+        "from analytics_zoo_tpu_torch.models.objectdetection import ("
+        "ObjectDetector, PascalVocEvaluator, draw_detections)\n"
+        "cfg = dict(image_size=64, feature_sizes=(8, 4, 2, 1, 1, 1),"
+        " min_sizes=(6, 13, 26, 38, 51, 58), max_sizes=(13, 26, 38, 51, 58,"
+        " 70), aspect_ratios=((2,), (2, 3), (2, 3), (2, 3), (2,), (2,)))\n"
+        "od = ObjectDetector(3, config=cfg, width_mult=0.125, device='cpu')\n"
+        "od.compile('sgd', od.loss())\n"
+        "oi = np.zeros((2, 64, 64, 3), np.float32)\n"
+        "od.fit_detection(oi, np.tile(np.float32([[[0.1, 0.1, 0.6, 0.6]]]),"
+        " (2, 1, 1)), np.ones((2, 1), np.int32), batch_size=2, epochs=1,"
+        " verbose=False)\n"
+        "assert len(od.detect(oi, score_threshold=0.0)) == 2\n"
+        "xi, _ = dimg.ImageSet.from_arrays([np.zeros((40, 50, 3),"
+        " np.uint8)]).transform(dimg.RoiResize(30, 30) | dimg.ImageHue())"
+        ".to_arrays()\n"
+        "assert xi.shape == (1, 30, 30, 3)\n"
+        "cs = ClusterServing(InferenceModel(lambda xs: [xs[0].reshape("
+        "len(xs[0]), -1)[:, :2].astype(np.float32)]), q).start()\n"
+        "r = OutputQueue(q).query(InputQueue(q).enqueue_image('i0',"
+        " image=np.ones((4, 5, 3), np.uint8)), timeout=60)\n"
+        "cs.stop()\n"
+        "assert np.asarray(r).shape == (2,), r\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')"
         " or m == 'ml_dtypes']\n"
