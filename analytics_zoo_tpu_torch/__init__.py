@@ -18,9 +18,12 @@ so every module here has one counterpart there:
 - ``train``    — the ``Estimator`` and optax-equivalent optimizers.
 - ``data``     — ``FeatureSet`` (HOST / DEVICE cache levels), MovieLens.
 - ``models``   — NeuralCF and the implicit-feedback samplers.
-- ``tfpark``   — BERTClassifier, BERTNER and BERTSQuAD.
-- ``deploy``   — ``InferenceModel`` (int8/int4 weights) and
-                 ``DynamicBatcher``.
+- ``tfpark``   — BERTClassifier, BERTNER and BERTSQuAD; ``FunctionModel``
+                 (an imported program as a KerasNet), ``TorchModel``,
+                 ``TorchCriterion``.
+- ``onnx``, ``caffe``, ``bigdl`` — the model importers.
+- ``deploy``   — ``InferenceModel`` (int8/int4 weights, ``load_onnx`` with
+                 int8 post-training quantization) and ``DynamicBatcher``.
 - ``convert``  — a JAX-package parameter tree into a port model and back.
 
 Entry points run on the CUDA device unless the caller passes

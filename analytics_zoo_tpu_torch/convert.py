@@ -18,7 +18,16 @@ State trees (BatchNormalization's moving statistics, ``{layer_name:
 {"moving_mean", "moving_var"}}``) load and export the same way, beside
 the parameters; sub-trees without leaves (stateless layers, listed by
 the JAX package as ``{}``) are left out on both sides before they are
-compared."""
+compared.
+
+An imported model (``tfpark.FunctionModel`` over an ONNX or Caffe
+program) has the JAX ``FunctionModel``'s flat tree, ``{onnx_name:
+array}`` with dotted names such as ``layer1.0.conv1.weight``; a
+converted torch ``Sequential`` has ``{torch_{i}_{type}: {leaf}}``.
+``program_params`` takes that tree from a JAX ``FunctionModel`` (its
+trained weights), a program, or an int8 program (its quantized weights
+as ``{"q", "scale"}`` leaves), so JAX-trained or JAX-quantized weights
+load into the port's model by name and serve there."""
 
 from __future__ import annotations
 
@@ -203,3 +212,24 @@ def load_archive_params(model, params, state=None) -> None:
         return out
 
     load_jax_params(model, fill(model.params(), params), state)
+
+
+def program_params(source) -> dict:
+    """The parameter tree of an imported model, ready for
+    ``load_jax_params``: of a ``FunctionModel`` (either package's) its
+    estimator's live weights once built, else its program's; of a
+    program (``OnnxProgram``, ``GraphProgram``, ``QuantizedProgram``) its
+    ``params``, with a quantized program's int8 weights as ``{"q",
+    "scale"}`` leaves under their initializer names; a tree as it is."""
+    est = getattr(source, "_estimator", None)
+    live = getattr(est, "params", None) if est is not None else None
+    if isinstance(live, dict):
+        return live
+    prog = getattr(source, "program", source)
+    tree = getattr(prog, "params", prog)
+    qweights = getattr(prog, "qweights", None)
+    if qweights:
+        tree = dict(tree)
+        tree.update({name: {"q": q, "scale": s}
+                     for name, (q, s) in qweights.items()})
+    return tree

@@ -856,6 +856,37 @@ class InferenceModel:
         m._torch_model = model
         return m
 
+    @classmethod
+    def load_onnx(cls, path: str, int8: bool = False,
+                  calibration_inputs=None, device=None,
+                  **kw) -> "InferenceModel":
+        """Serve an .onnx file (``onnx/loader.py``) on ``device`` (default
+        ``cuda``), through the bucket programs as a native net serves.
+        ``int8=True`` runs post-training quantization: the Gemm / MatMul
+        nodes run int8 x int8 matmuls (``ops/quantization.py``) — with
+        ``calibration_inputs`` (input-arg tuples, run through the f32
+        graph on ``device``) the activation scales are static, otherwise
+        dynamic per batch.  Replaces the reference's OpenVINO int8 path
+        (InferenceModel.scala:443).  The JAX signature, with the port's
+        ``device`` after it."""
+        from analytics_zoo_tpu_torch.onnx import load_onnx
+        from analytics_zoo_tpu_torch.tfpark.model import FunctionModel
+
+        device = resolve_device(device)
+        program = load_onnx(path)
+        if int8:
+            from analytics_zoo_tpu_torch.ops.quantization import \
+                quantize_program
+
+            program = quantize_program(program, calibration_inputs,
+                                       device=device)
+        m = cls(None, **kw)
+        m._net = FunctionModel(program).to(device).eval()
+        m._weight_dtype = "int8" if int8 else "float32"
+        m.device = device
+        m.onnx_program, m._int8 = program, int8
+        return m
+
     # -- replicas ----------------------------------------------------------
     def replica_forwards(self, n: int = 1, devices=None,
                          top_n: Optional[int] = None

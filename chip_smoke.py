@@ -465,7 +465,41 @@
    3's launches in the served run count under ``image_records``.
    ``detection_*`` and ``image_records`` lines carry the numbers with
    the card's name and power limit.
-16. Prints the kernels JSON line and, last, the ok line.
+16. Model-import phase (``model_import_phase``): every file written to
+   a temporary directory by a writer here that uses none of the port's
+   decoders, and removed after.  (a) BERT-Base (``BERT_BASE``, L = 128,
+   2 labels, seeded) written as ONNX in the exporters' vocabulary
+   (Gather embeddings, decomposed LayerNorm, MatMul + Add Dense over
+   (in, out) initializers, Shape -> Gather -> Unsqueeze -> Concat ->
+   Reshape head chains, the mask through Unsqueeze / Cast / Sub / Mul,
+   Softmax, the model's tanh GELU; about 440 MB); ``InferenceModel.
+   load_onnx`` answers as the native ``BERTClassifier`` within 1e-3 on
+   a logit; ``load_onnx(int8=True)`` with 8 calibration batches (at
+   least 74 quantized Dense) behind ``DynamicBatcher`` within 10% of the
+   largest f32 logit; ms a batch at buckets 8 and 32; the int8 product
+   (``torch._int_mm``) at BERT's Dense shapes, exact, beside
+   ``torch.matmul`` in f32 and bf16.  (b) ResNet-50 as a Caffe
+   deploy prototxt (KaimingHe/deep-residual-networks' layers) and
+   caffemodel from a seeded port net of the same form; ``Net.
+   load_caffe`` at batch 32 against that net's plain versions (f32,
+   cuDNN deterministic), centred log-probabilities within 1e-3 of the
+   largest, eager and from a bucket graph; ``to_model`` -> ``fit`` (the loss must
+   fall), graphed against eager over 4 f32 steps within
+   ``GRAPHED_REL``.  (c) VGG-16 as a BigDL ``.model`` (about 553 MB,
+   Analytics Zoo's layer names) from a seeded port ``vgg16``, imported
+   by name into another (equal weights), served int8 at buckets 1, 8
+   and 32 against the plain versions within ``IMPORT_VGG_REL``, kernel 3
+   launched 3 times a replay (``vgg16_int8_serving``); ``GraphNet.
+   new_graph`` at the second 4096 Dense against the source net's
+   intermediate output; a new 10-class head fine-tuned over the frozen
+   backbone.  (d) torchvision's VGG-11 sequence through ``Net.
+   load_torch`` at 224x224 against the module within 1e-4, then 2 steps
+   under ``TorchCriterion(CrossEntropyLoss())``.  Kernel 3 is timed at
+   VGG-16's three Dense shapes (M = 1, 8, 32, int8 and int4) and
+   ``int8_dot(weight_only=True)`` at ResNet-50's head.  ``import_*`` and
+   ``model_import_summary`` lines carry the numbers with the card's name
+   and power limit.
+17. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -6867,6 +6901,1018 @@ def detection_phase(torch, dq, card):
     return {"image_records": records["dequant_matmul_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# model-import phase (phase 16): the ONNX, Caffe, BigDL and torch importers,
+# GraphNet.new_graph and int8 post-training quantization
+
+# BERT-Base (phase 5's) written as ONNX: L = 128, 2 labels; served f32 and
+# int8 (8 calibration batches of 8 rows) from buckets 8 and 32
+IMPORT_BERT = dict(length=128, labels=2, calib_batches=8, calib_rows=8,
+                   requests=64, threads=4, buckets=(8, 32), timed=20)
+# the f32 import against the native model: phase 5's bound on a logit
+IMPORT_BERT_TOL = 1e-3
+# int8 against f32: every Dense quantized (74), activations per tensor
+# from a 99.9th-percentile calibration; held within 10% of the largest
+# f32 logit, the agreement of the two argmaxes printed beside
+IMPORT_INT8_REL = 0.1
+# the int8 product against torch.matmul, BERT-Base's Dense shapes at M=4096
+INT8_MM_SHAPES = ((4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768))
+# KaimingHe/deep-residual-networks ResNet-50-deploy.prototxt's stages
+CAFFE_RESNET = dict(stages=((3, 64), (4, 128), (6, 256), (3, 512)),
+                    batch=32, rows=64, epochs=3, lr=1e-4, graphed_steps=4)
+# the import against the port net it was written from (plain versions,
+# f32, cuDNN deterministic): the softmax outputs' centred log-probabilities
+# (the logits up to a common shift) within 1e-3 of the largest
+IMPORT_RESNET_REL = 1e-3
+# Analytics Zoo's vgg-16 layer names (BigDL ``.model``)
+VGG_REF_NAMES = tuple(f"conv{b + 1}_{r + 1}" for b, reps in
+                      enumerate((2, 2, 3, 3, 3)) for r in range(reps))
+IMPORT_VGG = dict(buckets=(1, 8, 32), head=10, rows=64, batch=32, epochs=2,
+                  lr=1e-3)
+# int8 VGG-16 against the plain versions on the dequantized tree: phase
+# 10's 1e-4 of the largest logit for each of its three Dense layers on
+# kernel 3 in a chain.  fc6 sums K = 25088 products: kernel 3 and
+# cuBLAS part there by 6-7e-5 of the largest output (the kernel leg), as
+# two f32 sums in another order over terms of random sign do, so the
+# chain's answers part by about 1e-4 of the largest logit (0.98e-4 on an
+# H100), which a single 1e-4 would hold only by chance
+IMPORT_VGG_REL = 3 * SERVE_F32_REL
+# torchvision's vgg11 ('A'): the imported program against the module;
+# SGD at 0.05, so that one step on the 16 rows moves the loss by more
+# than the dropout masks do (at 1e-3 they hid it)
+IMPORT_VGG11 = dict(batch=8, train_rows=16, lr=0.05, tol=1e-4)
+# kernel 3 at VGG-16's Dense shapes (fc6, fc7, fc8)
+VGG_DENSE = (("vgg16_fc6", 25088, 4096), ("vgg16_fc7", 4096, 4096),
+             ("vgg16_fc8", 4096, 1000))
+
+
+def pb_varint(v):
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def pb_key(field, wire):
+    return pb_varint((field << 3) | wire)
+
+
+def pb_int(field, v):
+    return pb_key(field, 0) + pb_varint(int(v))
+
+
+def pb_msg(field, payload):
+    return pb_key(field, 2) + pb_varint(len(payload)) + payload
+
+
+ONNX_ELEM = {np.dtype(np.float32): 1, np.dtype(np.int64): 7,
+             np.dtype(np.int32): 6}
+
+
+def onnx_tensor(name, arr):
+    """TensorProto: dims (1), data_type (2), name (8), raw_data (9)."""
+    arr = np.asarray(arr)
+    return b"".join([pb_int(1, d) for d in arr.shape]
+                    + [pb_int(2, ONNX_ELEM[arr.dtype]),
+                       pb_msg(8, name.encode()),
+                       pb_msg(9, arr.tobytes())])
+
+
+def onnx_attr(name, value):
+    """AttributeProto: name (1), f (2), i (3), t (5), ints (8), type (20)."""
+    out = [pb_msg(1, name.encode())]
+    if isinstance(value, float):
+        out += [pb_key(2, 5) + np.float32(value).tobytes(), pb_int(20, 1)]
+    elif isinstance(value, int):
+        out += [pb_int(3, value), pb_int(20, 2)]
+    elif isinstance(value, np.ndarray):
+        out += [pb_msg(5, onnx_tensor(name, value)), pb_int(20, 4)]
+    else:
+        out += [pb_int(8, v) for v in value] + [pb_int(20, 7)]
+    return b"".join(out)
+
+
+class OnnxWriter:
+    """An ONNX graph in the exporters' vocabulary, encoded by hand
+    (ModelProto / GraphProto / NodeProto field numbers of onnx.proto)."""
+
+    def __init__(self):
+        self.nodes, self.inits, self.n = [], [], 0
+
+    def init(self, name, arr):
+        self.inits.append(pb_msg(5, onnx_tensor(name, arr)))
+        return name
+
+    def op(self, op_type, *inputs, **attrs):
+        self.n += 1
+        out = f"{op_type.lower()}_{self.n}"
+        self.nodes.append(pb_msg(1, b"".join(
+            [pb_msg(1, i.encode()) for i in inputs]
+            + [pb_msg(2, out.encode()), pb_msg(3, out.encode()),
+               pb_msg(4, op_type.encode())]
+            + [pb_msg(5, onnx_attr(k, v)) for k, v in attrs.items()])))
+        return out
+
+    def const(self, value, dtype=np.float32):
+        return self.op("Constant", value=np.asarray(value, dtype))
+
+    def encode(self, inputs, output, opset=13):
+        def value_info(name, elem, shape):
+            dims = b"".join(pb_msg(1, pb_msg(2, str(d).encode())
+                                   if isinstance(d, str) else pb_int(1, d))
+                            for d in shape)
+            tensor_type = pb_int(1, elem) + pb_msg(2, dims)
+            return pb_msg(1, name.encode()) + pb_msg(2, pb_msg(1,
+                                                              tensor_type))
+
+        graph = b"".join(
+            self.nodes + [pb_msg(2, b"zoo_import")] + self.inits
+            + [pb_msg(11, value_info(n, 7, ("batch", "seq")))
+               for n in inputs]
+            + [pb_msg(12, value_info(output, 1, ("batch", "labels")))])
+        return b"".join([pb_int(1, 8), pb_msg(2, b"chip_smoke"),
+                         pb_msg(7, graph),
+                         pb_msg(8, pb_msg(1, b"") + pb_int(2, opset))])
+
+
+def bert_onnx_bytes(params, nhead):
+    """BERTClassifier's weights as an ONNX graph in the exporters'
+    vocabulary: Gather embeddings (positions sliced by a Shape chain),
+    LayerNorm decomposed (ReduceMean / Sub / Pow / Sqrt / Div / Mul /
+    Add), every Dense as MatMul + Add over an (in, out) initializer,
+    heads split and merged by Shape -> Gather -> Unsqueeze -> Concat ->
+    Reshape chains and Transpose, the mask through Unsqueeze / Cast / Sub
+    / Mul, Softmax, and the model's GELU (the tanh form, as exported)."""
+    (bname, bert), = [(k, v) for k, v in params.items() if k != "head"]
+    w = OnnxWriter()
+
+    def t(tree, *path):
+        for k in path:
+            tree = tree[k]
+        return tree.detach().cpu().numpy()
+
+    def dense(x, tree, prefix):
+        k = w.init(f"{prefix}.weight", t(tree, "kernel"))
+        b = w.init(f"{prefix}.bias", t(tree, "bias"))
+        return w.op("Add", w.op("MatMul", x, k), b)
+
+    def layer_norm(x, tree, prefix):
+        mean = w.op("ReduceMean", x, axes=[-1])
+        d = w.op("Sub", x, mean)
+        var = w.op("ReduceMean", w.op("Pow", d, w.const(2.0)), axes=[-1])
+        y = w.op("Div", d, w.op("Sqrt", w.op("Add", var, w.const(1e-5))))
+        y = w.op("Mul", y, w.init(f"{prefix}.gamma", t(tree, "gamma")))
+        return w.op("Add", y, w.init(f"{prefix}.beta", t(tree, "beta")))
+
+    def dims(x, *idx):
+        shape = w.op("Shape", x)
+        return [w.op("Unsqueeze", w.op("Gather", shape, w.const(i, np.int64),
+                                       axis=0), axes=[0]) for i in idx]
+
+    hidden = bert["pooler"]["kernel"].shape[0]
+    hd = hidden // nhead
+    word = w.op("Gather", w.init("embeddings.word", t(bert, "word_embed")),
+                "input_ids")
+    typ = w.op("Gather", w.init("embeddings.type", t(bert, "type_embed")),
+               "token_type_ids")
+    max_pos = bert["pos_embed"].shape[0]
+    ids_len, = dims("input_ids", 1)
+    pos_ids = w.op("Slice", w.init("embeddings.position_ids", np.arange(
+        max_pos, dtype=np.int64)[None]), w.const([0], np.int64), ids_len,
+        w.const([1], np.int64))
+    pos = w.op("Gather", w.init("embeddings.position",
+                                t(bert, "pos_embed")), pos_ids)
+    x = layer_norm(w.op("Add", w.op("Add", word, typ), pos),
+                   bert["embed_ln"], "embeddings.ln")
+    mask = w.op("Cast", w.op("Unsqueeze", "attention_mask", axes=[1, 2]),
+                to=1)
+    ext = w.op("Mul", w.op("Sub", w.const(1.0), mask), w.const(-10000.0))
+    for i in range(len([k for k in bert if k.startswith("enc")])):
+        blk, p = bert[f"enc{i}"], f"encoder.layer.{i}"
+        b_dim, l_dim = dims(x, 0, 1)
+        heads = w.op("Concat", b_dim, l_dim, w.const([nhead], np.int64),
+                     w.const([hd], np.int64), axis=0)
+
+        def split(name, perm, blk=blk, heads=heads, p=p, x=x):
+            y = dense(x, blk["attn"][name], f"{p}.attention.{name}")
+            return w.op("Transpose", w.op("Reshape", y, heads), perm=perm)
+
+        q = split("q", [0, 2, 1, 3])
+        k = split("k", [0, 2, 3, 1])
+        v = split("v", [0, 2, 1, 3])
+        scores = w.op("Add", w.op("Div", w.op("MatMul", q, k),
+                                  w.const(float(np.sqrt(hd)))), ext)
+        ctx = w.op("MatMul", w.op("Softmax", scores, axis=-1), v)
+        merged = w.op("Concat", b_dim, l_dim, w.const([hidden], np.int64),
+                      axis=0)
+        ctx = w.op("Reshape", w.op("Transpose", ctx, perm=[0, 2, 1, 3]),
+                   merged)
+        x = layer_norm(w.op("Add", dense(ctx, blk["attn"]["o"],
+                                         f"{p}.attention.o"), x),
+                       blk["ln1"], f"{p}.ln1")
+        h = dense(x, blk["ffn1"], f"{p}.ffn1")
+        inner = w.op("Mul", w.const(float(np.sqrt(2.0 / np.pi))), w.op(
+            "Add", h, w.op("Mul", w.const(0.044715),
+                           w.op("Pow", h, w.const(3.0)))))
+        gelu = w.op("Mul", w.op("Mul", w.const(0.5), h),
+                    w.op("Add", w.const(1.0), w.op("Tanh", inner)))
+        x = layer_norm(w.op("Add", dense(gelu, blk["ffn2"], f"{p}.ffn2"), x),
+                       blk["ln2"], f"{p}.ln2")
+    first = w.op("Gather", x, w.const(0, np.int64), axis=1)
+    pooled = w.op("Tanh", dense(first, bert["pooler"], "pooler"))
+    logits = dense(pooled, params["head"], "classifier")
+    return w.encode(["input_ids", "token_type_ids", "attention_mask"],
+                    logits)
+
+
+def import_bert_requests(n, seed):
+    """(ids, segments, mask) rows at L = 128: random lengths, padded with
+    id 0 and mask 0 (the [CLS] slot is always real)."""
+    rs = np.random.RandomState(seed)
+    length = IMPORT_BERT["length"]
+    rows = []
+    for _ in range(n):
+        real = rs.randint(8, length + 1)
+        ids = rs.randint(1, BERT_BASE["vocab"], (1, length)).astype(np.int32)
+        seg = np.zeros((1, length), np.int32)
+        seg[0, rs.randint(1, real):real] = 1
+        mask = np.zeros((1, length), np.int32)
+        mask[0, :real] = 1
+        ids[0, real:] = 0
+        rows.append([ids, seg, mask])
+    return rows
+
+
+def rows_of(reqs):
+    return [np.concatenate([r[i] for r in reqs]) for i in range(len(reqs[0]))]
+
+
+def served_ms(torch, im, xs, n):
+    """Wall ms per ``predict`` of one captured bucket (copies in and out
+    included) and the device ms of its replay (the graph's own events)."""
+    im.predict(xs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        im.predict(xs)
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    prog = max(im._programs.values(), key=lambda p: (
+        p.inputs[0].shape[0] == xs[0].shape[0], p.graph.replays))
+    return {"wall_ms": wall, "device_ms": prog.replay_s() * 1e3,
+            "rows_per_s": xs[0].shape[0] / wall * 1e3,
+            "replays": prog.graph.replays}
+
+
+def int8_product_cases(torch):
+    """The int8 x int8 -> int32 product (``torch._int_mm`` behind
+    ``int8_matmul``) at BERT-Base's Dense shapes, exact against a float64
+    product, timed beside ``torch.matmul`` in f32 and bf16."""
+    from analytics_zoo_tpu_torch.ops.quantization import int8_matmul
+
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    for m, k, n in INT8_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), device="cuda", generator=g,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), device="cuda", generator=g,
+                          dtype=torch.int8)
+        acc = int8_matmul(a, b)
+        exact = bool(torch.equal(acc.double(), a.double() @ b.double()))
+        af, bf = a.float(), b.float()
+        ah, bh = af.bfloat16(), bf.bfloat16()
+        case = {"m": m, "k": k, "n": n, "exact": exact,
+                "int8_ms": device_ms(torch, lambda: int8_matmul(a, b), 50),
+                "f32_ms": device_ms(torch, lambda: torch.matmul(af, bf), 50),
+                "bf16_ms": device_ms(torch, lambda: torch.matmul(ah, bh),
+                                     50),
+                **bound(2 * m * k + 4 * m * n, 2 * m * n * k,
+                        PEAK_BF16_FLOPS * 2)}
+        out.append(case)
+        if not exact:
+            raise AssertionError(f"int8 product not exact: {case}")
+    return out
+
+
+def onnx_bert_leg(torch, root, card):
+    """(a) BERT-Base written as ONNX from the port's seeded
+    BERTClassifier, served in f32 against the native model, then int8
+    (calibrated, 74 quantized Dense) behind DynamicBatcher."""
+    from analytics_zoo_tpu_torch.deploy import DynamicBatcher, InferenceModel
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    cfg = IMPORT_BERT
+    net = BERTClassifier(cfg["labels"], bert_config=dict(
+        BERT_BASE, hidden_drop=0.0, attn_drop=0.0),
+        generator=torch.Generator().manual_seed(SEED + 161))
+    t0 = time.perf_counter()
+    buf = bert_onnx_bytes(net.params(), BERT_BASE["nhead"])
+    path = os.path.join(root, "bert_base.onnx")
+    with open(path, "wb") as f:
+        f.write(buf)
+    write_s, size = time.perf_counter() - t0, len(buf)
+    del buf
+    native = InferenceModel.from_keras_net(net, batch_buckets=cfg["buckets"],
+                                           name="bert_native")
+    del net
+    t0 = time.perf_counter()
+    im32 = InferenceModel.load_onnx(path, batch_buckets=cfg["buckets"],
+                                    name="bert_onnx_f32")
+    load_s = time.perf_counter() - t0
+    reqs = import_bert_requests(cfg["requests"], SEED + 162)
+    xs = rows_of(reqs[:32])
+    want = native.predict(xs)
+    got32 = im32.predict(xs)
+    err32 = float(np.abs(got32 - want).max())
+    del native
+    free_card(torch)
+    cal = [rows_of(import_bert_requests(cfg["calib_rows"], SEED + 170 + i))
+           for i in range(cfg["calib_batches"])]
+    t0 = time.perf_counter()
+    im8 = InferenceModel.load_onnx(path, int8=True, calibration_inputs=cal,
+                                   batch_buckets=cfg["buckets"],
+                                   name="bert_onnx_int8")
+    quant_s = time.perf_counter() - t0
+    qnodes = len(im8.onnx_program.quantized_nodes)
+    for b in cfg["buckets"]:                    # eager, then captured
+        for _ in range(2):
+            im8.predict(rows_of(reqs[:b]))
+    batcher = DynamicBatcher(im8, max_batch=32, max_latency_ms=2.0)
+    t0 = time.perf_counter()
+    ans8, lat = serve_requests(batcher, reqs, cfg["threads"])
+    wall = time.perf_counter() - t0
+    batcher.close()
+    ref32 = im32.predict(rows_of(reqs))
+    err8 = float(np.abs(ans8 - ref32).max())
+    top = float(np.abs(ref32).max())
+    agree = float(np.mean(ans8.argmax(-1) == ref32.argmax(-1)))
+    timing = {}
+    for name, im in (("f32", im32), ("int8", im8)):
+        for b in cfg["buckets"]:
+            timing[f"{name}_b{b}"] = served_ms(torch, im, rows_of(reqs[:b]),
+                                               cfg["timed"])
+    out = {"card": card, "onnx_bytes": size, "write_s": write_s,
+           "load_s": load_s, "quantize_s": quant_s,
+           "nodes": len(im32.onnx_program.nodes),
+           "f32_max_abs_logit_diff_vs_native": err32,
+           "quantized_nodes": qnodes,
+           "act_scales": len(im8.onnx_program.act_scales),
+           "int8_max_abs_logit_diff_vs_f32": err8, "f32_largest_logit": top,
+           "int8_argmax_agreement": agree,
+           "int8_served": {"requests": len(reqs), "wall_s": wall,
+                           "p50_ms": float(np.percentile(lat, 50)),
+                           "p99_ms": float(np.percentile(lat, 99))},
+           "timing": timing,
+           "int8_programs": programs_of(im8._programs),
+           "int8_product": int8_product_cases(torch)}
+    log("import_onnx_bert", json.dumps(out))
+    if (err32 > IMPORT_BERT_TOL or qnodes < 74
+            or not np.all(np.isfinite(ans8)) or ans8.shape != (
+                len(reqs), cfg["labels"]) or err8 > IMPORT_INT8_REL * top):
+        raise AssertionError(f"ONNX BERT-Base import failed: {out}")
+    del im32, im8
+    free_card(torch)
+    return out
+
+
+def caffe_resnet_native(torch, generator):
+    """The port net whose weights the Caffe files carry: ResNet-50 in the
+    deploy prototxt's form (the 7x7/2 stem on 3 pixels of zero padding,
+    BatchNorm eps 1e-5, stride on the 1x1 branch2a and branch1 of each
+    first block, the ceil-mode 3x3/2 max pool, the 7x7 average pool,
+    fc1000, softmax), layers named as the prototxt's."""
+    from analytics_zoo_tpu_torch.nn import Input, Model
+    from analytics_zoo_tpu_torch.nn.layers import (
+        Activation, BatchNormalization, Convolution2D, Dense,
+        GlobalAveragePooling2D, MaxPooling2D, ZeroPadding2D, merge)
+
+    def conv_bn(x, f, k, stride, conv, bn, relu=True):
+        x = Convolution2D(f, k, k, subsample=(stride, stride),
+                          border_mode="same", bias=False, name=conv)(x)
+        x = BatchNormalization(epsilon=1e-5, name=bn)(x)
+        return Activation("relu")(x) if relu else x
+
+    inp = Input(shape=(224, 224, 3), name="data")
+    x = Convolution2D(64, 7, 7, subsample=(2, 2), border_mode="valid",
+                      bias=False, name="conv1")(ZeroPadding2D((3, 3))(inp))
+    x = Activation("relu")(BatchNormalization(epsilon=1e-5,
+                                              name="bn_conv1")(x))
+    x = MaxPooling2D((3, 3), strides=(2, 2), border_mode="same")(x)
+    for s, (blocks, f) in enumerate(CAFFE_RESNET["stages"]):
+        for b in range(blocks):
+            n = f"{s + 2}{'abcdef'[b]}"
+            stride = 2 if b == 0 and s > 0 else 1
+            short = (conv_bn(x, 4 * f, 1, stride, f"res{n}_branch1",
+                             f"bn{n}_branch1", relu=False) if b == 0 else x)
+            y = conv_bn(x, f, 1, stride, f"res{n}_branch2a",
+                        f"bn{n}_branch2a")
+            y = conv_bn(y, f, 3, 1, f"res{n}_branch2b", f"bn{n}_branch2b")
+            y = conv_bn(y, 4 * f, 1, 1, f"res{n}_branch2c",
+                        f"bn{n}_branch2c", relu=False)
+            x = Activation("relu")(merge([short, y], mode="sum"))
+    x = Dense(1000, name="fc1000")(GlobalAveragePooling2D()(x))
+    model = Model(inp, Activation("softmax")(x), name="resnet50_caffe")
+    model.build(generator)
+    return model
+
+
+def caffe_resnet_files(torch, net, root):
+    """The deploy prototxt (KaimingHe/deep-residual-networks
+    ResNet-50-deploy.prototxt's layers and names) and a caffemodel (V2
+    ``layer`` records) carrying ``net``'s weights: kernels OIHW, BatchNorm
+    blobs (mean, var, scale factor 1) with ``use_global_stats``, Scale
+    (gamma, beta), InnerProduct (out, in)."""
+    params = {k: {n: v.detach().cpu().numpy() for n, v in t.items()}
+              for k, t in net.params().items()}
+    state = {k: {n: v.detach().cpu().numpy() for n, v in t.items()}
+             for k, t in net.state().items()}
+    text = ['name: "ResNet-50"', 'input: "data"', "input_dim: 1",
+            "input_dim: 3", "input_dim: 224", "input_dim: 224"]
+    blobs = []
+
+    def blob(arr):
+        shape = b"".join(pb_int(1, d) for d in arr.shape)
+        return pb_msg(7, shape) + pb_msg(5, np.ascontiguousarray(
+            arr, "<f4").tobytes())
+
+    def layer(name, *arrays):
+        blobs.append(pb_msg(100, pb_msg(1, name.encode()) + b"".join(
+            pb_msg(7, blob(a)) for a in arrays)))
+
+    def conv(name, bottom, top, f, k, stride, pad):
+        text.append(
+            f'layer {{ bottom: "{bottom}" top: "{top}" name: "{name}" '
+            f'type: "Convolution" convolution_param {{ num_output: {f} '
+            f'kernel_size: {k} pad: {pad} stride: {stride} '
+            f'bias_term: false }} }}')
+        layer(name, params[name]["kernel"].transpose(3, 2, 0, 1))
+
+    def bn_scale(bn, scale, top):
+        text.append(f'layer {{ bottom: "{top}" top: "{top}" name: "{bn}" '
+                    f'type: "BatchNorm" batch_norm_param {{ '
+                    f'use_global_stats: true }} }}')
+        text.append(f'layer {{ bottom: "{top}" top: "{top}" name: "{scale}" '
+                    f'type: "Scale" scale_param {{ bias_term: true }} }}')
+        layer(bn, state[bn]["moving_mean"], state[bn]["moving_var"],
+              np.ones(1, np.float32))
+        layer(scale, params[bn]["gamma"], params[bn]["beta"])
+
+    def relu(top):
+        text.append(f'layer {{ bottom: "{top}" top: "{top}" '
+                    f'name: "{top}_relu" type: "ReLU" }}')
+
+    conv("conv1", "data", "conv1", 64, 7, 2, 3)
+    bn_scale("bn_conv1", "scale_conv1", "conv1")
+    relu("conv1")
+    text.append('layer { bottom: "conv1" top: "pool1" name: "pool1" '
+                'type: "Pooling" pooling_param { kernel_size: 3 stride: 2 '
+                'pool: MAX } }')
+    prev = "pool1"
+    for s, (blocks, f) in enumerate(CAFFE_RESNET["stages"]):
+        for b in range(blocks):
+            n = f"{s + 2}{'abcdef'[b]}"
+            stride = 2 if b == 0 and s > 0 else 1
+            if b == 0:
+                conv(f"res{n}_branch1", prev, f"res{n}_branch1", 4 * f, 1,
+                     stride, 0)
+                bn_scale(f"bn{n}_branch1", f"scale{n}_branch1",
+                         f"res{n}_branch1")
+            bottom = prev
+            for part, k, fo, st, pad in (("2a", 1, f, stride, 0),
+                                         ("2b", 3, f, 1, 1),
+                                         ("2c", 1, 4 * f, 1, 0)):
+                top = f"res{n}_branch{part}"
+                conv(top, bottom, top, fo, k, st, pad)
+                bn_scale(f"bn{n}_branch{part}", f"scale{n}_branch{part}",
+                         top)
+                if part != "2c":
+                    relu(top)
+                bottom = top
+            short = f"res{n}_branch1" if b == 0 else prev
+            text.append(f'layer {{ bottom: "{short}" bottom: "{bottom}" '
+                        f'top: "res{n}" name: "res{n}" type: "Eltwise" }}')
+            relu(f"res{n}")
+            prev = f"res{n}"
+    text.append(f'layer {{ bottom: "{prev}" top: "pool5" name: "pool5" '
+                f'type: "Pooling" pooling_param {{ kernel_size: 7 '
+                f'stride: 1 pool: AVE }} }}')
+    text.append('layer { bottom: "pool5" top: "fc1000" name: "fc1000" '
+                'type: "InnerProduct" inner_product_param { '
+                'num_output: 1000 } }')
+    text.append('layer { bottom: "fc1000" top: "prob" name: "prob" '
+                'type: "Softmax" }')
+    layer("fc1000", params["fc1000"]["kernel"].T, params["fc1000"]["bias"])
+    proto_path = os.path.join(root, "ResNet-50-deploy.prototxt")
+    model_path = os.path.join(root, "ResNet-50-model.caffemodel")
+    with open(proto_path, "w") as f:
+        f.write("\n".join(text) + "\n")
+    with open(model_path, "wb") as f:
+        f.write(pb_msg(1, b"ResNet-50") + b"".join(blobs))
+    return proto_path, model_path
+
+
+def seeded_resnet_state(torch, net, seed):
+    """Moving statistics and affine leaves away from the identity, with
+    the residual branches' last gammas small, so the 16 blocks keep their
+    activations in range, and a classifier whose logits spread."""
+    from analytics_zoo_tpu_torch.convert import load_jax_params
+
+    rs = np.random.RandomState(seed)
+    params = {k: dict(v) for k, v in net.params().items()}
+    state = {}
+    for name, leaves in net.state().items():
+        if not leaves:
+            continue
+        c = leaves["moving_mean"].shape[0]
+        state[name] = {"moving_mean": (0.1 * rs.randn(c)).astype(np.float32),
+                       "moving_var": (1 + 0.2 * rs.rand(c)).astype(
+                           np.float32)}
+        gamma = 0.2 if name.endswith("2c") else 1.0
+        params[name] = {"gamma": (gamma * (1 + 0.1 * rs.randn(c))).astype(
+                            np.float32),
+                        "beta": (0.05 * rs.randn(c)).astype(np.float32)}
+    # logits spread over a few units, so the softmax is far from flat
+    fc = params["fc1000"]
+    params["fc1000"] = {"kernel": (0.05 * rs.randn(*fc["kernel"].shape))
+                        .astype(np.float32),
+                        "bias": np.zeros(fc["bias"].shape, np.float32)}
+    load_jax_params(net, params, state)
+
+
+def import_fit(torch, prog, x, y, steps, lr, graphed, optimizer="sgd",
+               epochs=1):
+    """``to_model(prog)`` compiled on the card and fitted ``epochs`` epochs
+    of ``steps`` batches of 32 (no shuffle), graphed or eager; returns
+    (history, final params on the host, the model)."""
+    import contextlib
+
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.onnx import to_model
+    from analytics_zoo_tpu_torch.train import optimizers as opt
+
+    model = to_model(prog)
+    tx = opt.SGD(lr=lr) if optimizer == "sgd" else opt.Adam(lr=lr)
+    model.compile(tx, "sparse_categorical_crossentropy", device="cuda")
+    batch = CAFFE_RESNET["batch"]
+    with contextlib.ExitStack() as stack:
+        if not graphed:
+            stack.enter_context(graphs.disabled())
+        hist = model.fit(x[:steps * batch], y[:steps * batch],
+                         batch_size=batch, nb_epoch=epochs, shuffle=False,
+                         verbose=False)
+    torch.cuda.synchronize()
+    return hist, export_params(model), model
+
+
+def caffe_resnet_leg(torch, root, card):
+    """(b) ResNet-50 written as a Caffe prototxt + caffemodel from a
+    seeded port net, imported with ``Net.load_caffe``, held against the
+    port net (plain versions, f32, cuDNN deterministic) and served from a
+    bucket graph; then ``to_model`` -> ``compile`` -> ``fit``, graphed
+    against eager over 4 f32 steps."""
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.nn.net import Net
+    from analytics_zoo_tpu_torch.onnx import to_model
+    from analytics_zoo_tpu_torch.ops import dispatch
+
+    cfg = CAFFE_RESNET
+    net = caffe_resnet_native(torch, torch.Generator().manual_seed(SEED + 163))
+    seeded_resnet_state(torch, net, SEED + 164)
+    t0 = time.perf_counter()
+    proto_path, model_path = caffe_resnet_files(torch, net, root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = Net.load_caffe(proto_path, model_path)
+    load_s = time.perf_counter() - t0
+    x, y = scene_images(cfg["rows"] * 2, 224, SEED + 165)
+    xc = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+    b = cfg["batch"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref_net = net.cuda().eval()
+        with torch.no_grad(), dispatch.forced("reference"):
+            want = ref_net(torch.from_numpy(x[:b]).cuda()).cpu().numpy()
+        imported = to_model(prog).cuda().eval()
+        with torch.no_grad(), dispatch.forced("reference"):
+            eager = imported(torch.from_numpy(xc[:b]).cuda()).cpu().numpy()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del ref_net, imported
+    free_card(torch)
+    im = InferenceModel.from_keras_net(to_model(prog), batch_buckets=(b,),
+                                       name="resnet50_caffe")
+    im.predict(xc[:b])                           # eager warm-up
+    served = im.predict(xc[:b])                  # captured
+    # the softmax outputs compared as centred log-probabilities: the
+    # logits up to their common shift, so a flat softmax hides nothing
+    def centred(p):
+        lp = np.log(p.astype(np.float64))
+        return lp - lp.mean(axis=-1, keepdims=True)
+
+    top = float(np.abs(centred(want)).max())
+    err_eager = float(np.abs(centred(eager) - centred(want)).max())
+    err_served = float(np.abs(centred(served) - centred(want)).max())
+    serve = served_ms(torch, im, [xc[:b]], 10)
+    del im
+    free_card(torch)
+    hist, _, model = import_fit(torch, prog, xc, y, cfg["rows"] // b,
+                                cfg["lr"], True, optimizer="adam",
+                                epochs=cfg["epochs"])
+    losses = [h["loss"] for h in hist]
+    progs = programs_of(model.estimator._programs)
+    del model
+    free_card(torch)
+    steps = cfg["graphed_steps"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        g_hist, g_params, gm = import_fit(torch, prog, xc, y, steps, 1e-2,
+                                          True)
+        del gm
+        e_hist, e_params, em = import_fit(torch, prog, xc, y, steps, 1e-2,
+                                          False)
+        del em
+    finally:
+        torch.backends.cudnn.deterministic = False
+    init = prog.params
+    moved = np.sqrt(sum(float(np.sum((g_params[k] - init[k]) ** 2))
+                        for k in init))
+    apart = np.sqrt(sum(float(np.sum((g_params[k] - e_params[k]) ** 2))
+                        for k in init))
+    bits = all(np.array_equal(g_params[k], e_params[k]) for k in init)
+    out = {"card": card, "caffemodel_bytes": os.path.getsize(model_path),
+           "layers": len(prog.nodes), "params": len(prog.params),
+           "write_s": write_s, "load_s": load_s,
+           "max_abs_diff_eager_vs_port_plain": err_eager,
+           "max_abs_diff_served_vs_port_plain": err_served,
+           "largest_centred_log_prob": top,
+           "largest_prob": float(want.max()), "top1_agreement": float(np.mean(
+               served.argmax(-1) == want.argmax(-1))),
+           "serve_b32": serve, "fit_losses": losses,
+           "fit_programs": progs,
+           "graphed_vs_eager": {"steps": steps,
+                                "graphed_losses": [h["loss"]
+                                                   for h in g_hist],
+                                "eager_losses": [h["loss"] for h in e_hist],
+                                "l2_apart": apart, "l2_moved": moved,
+                                "bit_equal": bits}}
+    log("import_caffe_resnet50", json.dumps(out))
+    if (max(err_eager, err_served) > IMPORT_RESNET_REL * top
+            or not losses[-1] < losses[0] or not np.isfinite(losses).all()
+            or apart > GRAPHED_REL * moved or moved == 0):
+        raise AssertionError(f"Caffe ResNet-50 import failed: {out}")
+    return out
+
+
+class Pb:
+    """A length-delimited protobuf field built from parts (bytes, arrays
+    or ``Pb``), written to a file without joining its large parts."""
+
+    def __init__(self, field, *parts):
+        self.field = field
+        self.parts = [memoryview(np.ascontiguousarray(p)).cast("B")
+                      if isinstance(p, np.ndarray) else p for p in parts]
+
+    def body_size(self):
+        return sum(p.size() if isinstance(p, Pb) else len(p)
+                   for p in self.parts)
+
+    def size(self):
+        n = self.body_size()
+        return len(pb_key(self.field, 2)) + len(pb_varint(n)) + n
+
+    def write(self, f):
+        f.write(pb_key(self.field, 2) + pb_varint(self.body_size()))
+        for p in self.parts:
+            if isinstance(p, Pb):
+                p.write(f)
+            else:
+                f.write(p)
+
+
+def write_bigdl(path, modules):
+    """A BigDL ``.model`` (the reader's documented wire format) at
+    ``path``: a Sequential of (name, type, weight, bias) modules whose
+    tensors carry ids, the root's ``global_storage`` attribute mapping
+    each id to its data (f32, little-endian)."""
+    subs, entries = [], []
+
+    def tensor(arr, tid, data):
+        storage = [pb_int(9, tid + 100000)]
+        if data:
+            storage.insert(0, Pb(2, arr.astype("<f4")))
+        return [Pb(2, b"".join(pb_varint(d) for d in arr.shape)),
+                pb_int(4, 1), pb_int(6, arr.size), Pb(8, *storage),
+                pb_int(9, tid)]
+
+    tid = 0
+    for name, kind, weight, bias in modules:
+        body = [Pb(1, name.encode())]
+        for field, arr in ((3, weight), (4, bias)):
+            tid += 1
+            entries.append(Pb(2, Pb(1, str(tid).encode()), Pb(
+                2, Pb(10, *tensor(arr, tid, True)))))
+            body.append(Pb(field, *tensor(arr, tid, False)))
+        body.append(Pb(7, f"com.intel.analytics.bigdl.nn.{kind}".encode()))
+        subs.append(Pb(2, *body))
+    storage = Pb(8, Pb(1, b"global_storage"), Pb(
+        2, Pb(14, Pb(1, b"global_storage"), *entries)))
+    with open(path, "wb") as f:
+        for part in [Pb(1, b"vgg-16")] + subs + [
+                Pb(7, b"com.intel.analytics.bigdl.nn.Sequential"), storage]:
+            part.write(f)
+
+
+def vgg_name_map(net):
+    """Analytics Zoo's vgg-16 names -> the port builder's."""
+    dense = [layer.name for layer in net.layers
+             if type(layer).__name__ == "Dense" and layer.name != "fc"]
+    natives = [f"b{b}c{r}" for b, reps in enumerate((2, 2, 3, 3, 3))
+               for r in range(reps)]
+    out = dict(zip(VGG_REF_NAMES, natives))
+    out.update(fc6=dense[0], fc7=dense[1], fc8="fc")
+    return out
+
+
+def bigdl_vgg_leg(torch, dq, root, card):
+    """(c) VGG-16 written as a BigDL ``.model`` from a seeded port
+    ``vgg16``, imported by name into another, served int8 (kernel 3 three
+    times a replay) against the plain versions, then cut at the second
+    4096 Dense (``new_graph``) and fine-tuned with a new 10-class head
+    over the frozen backbone."""
+    from analytics_zoo_tpu_torch.bigdl import import_weights_by_name
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.deploy import DynamicBatcher, InferenceModel
+    from analytics_zoo_tpu_torch.deploy.inference import (dequantize_pytree,
+                                                          quantize_pytree)
+    from analytics_zoo_tpu_torch.models.image import vgg16
+    from analytics_zoo_tpu_torch.nn import Model
+    from analytics_zoo_tpu_torch.nn.layers import Dense
+    from analytics_zoo_tpu_torch.nn.net import GraphNet
+    from analytics_zoo_tpu_torch.train import optimizers as opt
+
+    cfg = IMPORT_VGG
+    src = vgg16(1000, generator=torch.Generator().manual_seed(SEED + 166))
+    names = vgg_name_map(src)
+    inverse = {v: k for k, v in names.items()}
+    mods = []
+    for layer in src.layers:
+        if layer.name not in inverse:
+            continue
+        w = layer.leaf("kernel").detach().numpy()
+        w = (w.transpose(3, 2, 0, 1)[None] if w.ndim == 4 else w.T)
+        mods.append((inverse[layer.name], "SpatialConvolution"
+                     if w.ndim == 5 else "Linear", w,
+                     layer.leaf("bias").detach().numpy()))
+    t0 = time.perf_counter()
+    path = os.path.join(root, "vgg-16.model")
+    write_bigdl(path, mods)
+    write_s = time.perf_counter() - t0
+    del mods
+    net = vgg16(1000, generator=torch.Generator().manual_seed(SEED + 167))
+    names = vgg_name_map(net)           # its Dense layers' own auto names
+    t0 = time.perf_counter()
+    copied = import_weights_by_name(net, path, name_map=names)
+    import_s = time.perf_counter() - t0
+    want_tree, got_tree = export_params(src), export_params(net)
+    same = all(np.array_equal(got_tree[names[inverse[k]]][n], v)
+               for k, t in want_tree.items() if k in inverse
+               for n, v in t.items())
+    del src, want_tree, got_tree
+    x = scene_images(cfg["rows"], 224, SEED + 168)[0]
+    deq = dequantize_pytree(quantize_pytree(net.params(), bits=8))
+    want = served_reference(torch, net, x, deq)
+    im = InferenceModel.from_keras_net(net, weight_dtype="int8",
+                                       batch_buckets=cfg["buckets"],
+                                       name="vgg16_int8")
+    for b in cfg["buckets"]:
+        for _ in range(2):                      # eager, then captured
+            im.predict(x[:b])
+    before = sum(p.graph.replays for p in im._programs.values())
+    dq.LAUNCHES.reset()
+    batcher = DynamicBatcher(im, max_batch=32, max_latency_ms=2.0)
+    singles, _ = serve_rows(batcher, [x[i:i + 1] for i in range(16)], 4)
+    batcher.close()
+    eights = [im.predict(x[16 + 8 * i:24 + 8 * i]) for i in range(2)]
+    full = im.predict(x[32:64])
+    launches = dq.LAUNCHES.value
+    replays = sum(p.graph.replays for p in im._programs.values()) - before
+    got = np.concatenate([singles] + eights + [full])
+    top = float(np.abs(want).max())
+    err = float(np.abs(got - want[:64]).max())
+    progs = programs_of(im._programs)
+    timing = {f"b{b}": served_ms(torch, im, [x[:b]], 10)
+              for b in cfg["buckets"]}
+    del im
+    free_card(torch)
+    # new_graph at the second 4096 Dense, features held against the
+    # source net's intermediate output (a forward hook)
+    cut = names["fc7"]
+    net = net.cuda().eval()
+    seen = []
+    hook = net.subtree(cut).register_forward_hook(
+        lambda m, i, o: seen.append(o.detach().clone()))
+    gn = GraphNet(net).new_graph(cut)
+    feats_model = gn.model.cuda().eval()
+    with torch.no_grad():
+        xt = torch.from_numpy(x[:8]).cuda()
+        net(xt)
+        feats = feats_model(xt)
+    hook.remove()
+    feat_diff = float((feats - seen[0]).abs().max())
+    feat_top = float(seen[0].abs().max())
+    # a new head over the frozen backbone
+    head = Dense(cfg["head"], name="new_head")
+    head.build(torch.Generator().manual_seed(SEED + 169), (2, 4096))
+    tuned = Model(gn.model.inputs, head(gn.model.outputs[0]))
+    tuned._output_shape = tuned.output_shape()
+    backbone = [layer.name for layer in tuned.layers
+                if layer.name != "new_head"]
+    GraphNet(tuned).freeze(backbone)
+    frozen_before = {k: v for k, v in export_params(tuned).items()
+                     if k in backbone}
+    head_before = export_params(tuned)["new_head"]
+    tuned.compile(opt.Adam(lr=cfg["lr"]),
+                  "sparse_categorical_crossentropy_with_logits",
+                  device="cuda")
+    labels = np.random.RandomState(SEED + 170).randint(
+        0, cfg["head"], cfg["rows"]).astype(np.int32)
+    hist = tuned.fit(x, labels, batch_size=cfg["batch"],
+                     nb_epoch=cfg["epochs"], verbose=False)
+    after = export_params(tuned)
+    frozen_kept = all(np.array_equal(after[k][n], v)
+                      for k, t in frozen_before.items() for n, v in t.items())
+    head_moved = any(not np.array_equal(after["new_head"][n], v)
+                     for n, v in head_before.items())
+    losses = [h["loss"] for h in hist]
+    out = {"card": card, "model_bytes": os.path.getsize(path),
+           "write_s": write_s, "import_s": import_s, "copied": len(copied),
+           "import_equal": same, "int8_max_abs_err_vs_plain": err,
+           "largest_logit": top, "dequant_matmul_launches": launches,
+           "replays": replays, "programs": progs, "timing": timing,
+           "new_graph_feature_max_abs_diff": feat_diff,
+           "new_graph_feature_largest": feat_top,
+           "fine_tune_losses": losses, "frozen_kept": frozen_kept,
+           "head_moved": head_moved}
+    log("import_bigdl_vgg16", json.dumps(out))
+    bad = (not same or len(copied) != 16 or err > IMPORT_VGG_REL * top
+           or launches != 3 * replays or replays == 0
+           or any(v["launches_per_replay"] != {"dequant_matmul": 3}
+                  for v in progs.values())
+           or feat_diff > 1e-6 * feat_top or not frozen_kept or not head_moved
+           or not losses[-1] < losses[0])
+    if bad:
+        raise AssertionError(f"BigDL VGG-16 import failed: {out}")
+    del tuned, gn, feats_model, net
+    free_card(torch)
+    return out
+
+
+def torch_vgg11(torch, classes=1000):
+    """torchvision's VGG-11 ('A') layer sequence, seeded: features, the
+    7x7 flatten, the 4096-4096-classes classifier (torchvision's
+    AdaptiveAvgPool2d((7, 7)) is the identity at 224x224 and is left
+    out: it is not in the converter's vocabulary)."""
+    nn = torch.nn
+    torch.manual_seed(SEED + 171)
+    layers, cin = [], 3
+    for v in (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512,
+              "M"):
+        if v == "M":
+            layers.append(nn.MaxPool2d(2, 2))
+        else:
+            layers += [nn.Conv2d(cin, v, 3, padding=1), nn.ReLU()]
+            cin = v
+    layers += [nn.Flatten(), nn.Linear(512 * 7 * 7, 4096), nn.ReLU(),
+               nn.Dropout(0.5), nn.Linear(4096, 4096), nn.ReLU(),
+               nn.Dropout(0.5), nn.Linear(4096, classes)]
+    return nn.Sequential(*layers).eval()
+
+
+def torch_vgg_leg(torch, card):
+    """(d) ``Net.load_torch`` on the VGG-11 sequence at 224x224 against
+    the torch module on the card, then 2 steps under
+    ``TorchCriterion(CrossEntropyLoss())``."""
+    from analytics_zoo_tpu_torch.nn.net import Net
+    from analytics_zoo_tpu_torch.tfpark import TorchCriterion, TorchModel
+    from analytics_zoo_tpu_torch.train import optimizers as opt
+
+    cfg = IMPORT_VGG11
+    vgg = torch_vgg11(torch)
+    t0 = time.perf_counter()
+    tm = Net.load_torch(vgg)
+    convert_s = time.perf_counter() - t0
+    x = scene_images(cfg["train_rows"], 224, SEED + 172)[0]
+    xc = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+    module = vgg.cuda()
+    with torch.no_grad():
+        want = module(xc[:cfg["batch"]].cuda()).cpu().numpy()
+    got = tm.predict(xc[:cfg["batch"]].numpy(), batch_size=cfg["batch"])
+    err = float(np.abs(got - want).max())
+    del module
+    trainer = TorchModel(vgg.cpu(), optimizer=opt.SGD(lr=cfg["lr"]),
+                         loss=TorchCriterion(torch.nn.CrossEntropyLoss()))
+    y = np.arange(cfg["train_rows"], dtype=np.int32) % 1000
+    hist = trainer.fit(xc.numpy(), y, batch_size=cfg["train_rows"],
+                       epochs=2, verbose=False)
+    losses = [h["loss"] for h in hist]
+    out = {"card": card, "convert_s": convert_s,
+           "max_abs_diff_vs_torch": err, "largest": float(np.abs(want).max()),
+           "criterion_losses": losses,
+           "params": sum(v.numel() for v in tm.model.parameters())}
+    log("import_torch_vgg11", json.dumps(out))
+    if (err > cfg["tol"] or got.shape != want.shape
+            or not np.all(np.isfinite(losses)) or not losses[1] < losses[0]):
+        raise AssertionError(f"torch VGG-11 import failed: {out}")
+    del tm, trainer
+    free_card(torch)
+    return out
+
+
+def int8_dot_case(torch, dq, m, k, n, iters=200):
+    """``int8_dot(weight_only=True)`` (kernel 3) at ``(m, k, n)`` against
+    ``dequant_matmul``'s plain version, timed beside it."""
+    from analytics_zoo_tpu_torch.ops.quantization import int8_dot
+
+    rs = np.random.RandomState(SEED + m + k)
+    q, scale = dq.quantize_weights(torch.from_numpy(
+        rs.randn(k, n).astype(np.float32)), bits=8)
+    q, scale = q.cuda(), scale.cuda()
+    x = torch.from_numpy(rs.randn(m, k).astype(np.float32)).cuda()
+    out = int8_dot(x, q, scale, weight_only=True)
+    ref = dq.dequant_matmul_reference(x, q, scale)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    top = float(ref.abs().max())
+    w_lib = q.float() * scale
+    case = {"case": "int8_dot_weight_only", "m": m, "k": k, "n": n,
+            "bits": 8, "dtype": "float32", "out_dtype": "float32",
+            "max_abs_err": err, "max_rel_err": err / max(top, 1e-30),
+            **dq_bound(torch, torch.float32, 4 * m * k + k * n + 4 * n
+                       + 4 * m * n, 2 * m * n * k),
+            "library_call": "torch.matmul(x, dequant(q))",
+            **timings(torch, {
+                "kernel": lambda: int8_dot(x, q, scale, weight_only=True),
+                "plain": lambda: dq.dequant_matmul_reference(x, q, scale),
+                "library": lambda: torch.matmul(x, w_lib)}, iters)}
+    if err > 1e-4 * top:
+        raise AssertionError(f"int8_dot(weight_only) disagrees: {case}")
+    return case
+
+
+def import_kernel_cases(torch, dq):
+    """Kernel 3 at VGG-16's Dense shapes (M = 1, 8, 32; int8 and int4;
+    f32 x) and ``int8_dot(weight_only=True)`` at ResNet-50's head."""
+    cases = []
+    for label, k, n in VGG_DENSE:
+        for bits in (8, 4):
+            for m in (1, 8, 32):
+                cases.append(dq_case(torch, dq, label, m, k, n, bits,
+                                     iters=20 if k > 4096 else 50))
+    for m in (1, 32):
+        cases.append(int8_dot_case(torch, dq, m, 2048, 1000, iters=50))
+    for c in cases:
+        log("kernel_case", json.dumps(c))
+    return cases
+
+
+def model_import_phase(torch, dq, card):
+    """Phase 16: model import and int8 post-training quantization on the
+    card, every file written to a temporary directory and removed after;
+    returns kernel 3's launches on the VGG-16 int8 serving path."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="zoo_import_")
+    try:
+        bert = onnx_bert_leg(torch, root, card)
+        caffe = caffe_resnet_leg(torch, root, card)
+        vgg = bigdl_vgg_leg(torch, dq, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tvgg = torch_vgg_leg(torch, card)
+    summary = {
+        "card": card, "seconds": time.perf_counter() - t_phase,
+        "bert_f32_vs_native": bert["f32_max_abs_logit_diff_vs_native"],
+        "bert_quantized_nodes": bert["quantized_nodes"],
+        "bert_int8_vs_f32": bert["int8_max_abs_logit_diff_vs_f32"],
+        "bert_int8_argmax_agreement": bert["int8_argmax_agreement"],
+        "bert_ms_per_batch": {k: v["device_ms"]
+                              for k, v in bert["timing"].items()},
+        "resnet50_caffe_vs_port": caffe["max_abs_diff_served_vs_port_plain"],
+        "resnet50_caffe_losses": caffe["fit_losses"],
+        "vgg16_int8_err": vgg["int8_max_abs_err_vs_plain"],
+        "vgg16_launches": [vgg["dequant_matmul_launches"], vgg["replays"]],
+        "vgg16_fine_tune_losses": vgg["fine_tune_losses"],
+        "vgg11_vs_torch": tvgg["max_abs_diff_vs_torch"]}
+    log("model_import_summary", json.dumps(summary))
+    return {"vgg16_int8_serving": vgg["dequant_matmul_launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -6921,6 +7967,7 @@ def main() -> int:
         bag_cases += more[0]
         bwd_cases += more[1]
         dq_cases += more[2]
+    dq_cases += import_kernel_cases(torch, dq)
     fl_cases = flash_cases(torch, fa)
     lse_cases, bwd_dq_cases, bwd_dkv_cases = flash_train_cases(torch, fa)
     for c in fl_cases + lse_cases + bwd_dq_cases + bwd_dkv_cases:
@@ -6948,6 +7995,8 @@ def main() -> int:
     surface = training_surface_phase(torch, eb, dq, fa, card)
     reset_counts(eb, dq, fa)
     detection = detection_phase(torch, dq, card)
+    reset_counts(eb, dq, fa)
+    imported = model_import_phase(torch, dq, card)
     rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
                  "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
@@ -6975,6 +8024,7 @@ def main() -> int:
                   "loadgen": loadgen["dequant_matmul"],
                   "resnet50_serving": image["dequant_matmul"],
                   "image_records": detection["image_records"],
+                  "vgg16_int8_serving": imported["vgg16_int8_serving"],
                   **{p: rec[p]["dequant_matmul"] for p in rec_paths
                      if p.endswith("_serving")},
                   **{p: v["dequant_matmul"] for p, v in text.items()

@@ -2674,3 +2674,97 @@ def test_graphed_detect_matches_eager_and_cpu_on_card(cuda_device):
         np.testing.assert_allclose(gb, eb, rtol=0, atol=1e-6)
         np.testing.assert_allclose(gs, es, rtol=0, atol=1e-6)
         _same_detections((gb, gs, gl), (cb, cs, cl), 1e-4, 100)
+
+
+# -- model import and int8 post-training quantization -----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 768, 2), (8, 768, 768),
+                                   (17, 24, 12), (300, 3072, 768)])
+def test_int8_matmul_padded_shapes_on_card(cuda_device, m, k, n):
+    """``torch._int_mm`` needs more than 16 rows and K, N multiples of 8:
+    the operands are padded with zeros, which is exact, and the product
+    equals the CPU's int32 product."""
+    from analytics_zoo_tpu_torch.ops.quantization import int8_matmul
+
+    rs = np.random.RandomState(m + k + n)
+    a = torch.from_numpy(rs.randint(-127, 128, (m, k)).astype(np.int8))
+    b = torch.from_numpy(rs.randint(-127, 128, (k, n)).astype(np.int8))
+    got = int8_matmul(a.to(cuda_device), b.to(cuda_device))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    torch.testing.assert_close(got.cpu(), int8_matmul(a, b), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_dot_on_card_matches_cpu(cuda_device, static):
+    """The dynamic scale stays on the card (no host read) and the answer
+    is the CPU's: the accumulation is exact and the rescale the same f32
+    operations."""
+    from analytics_zoo_tpu_torch.ops.quantization import (int8_dot,
+                                                          quantize_tensor)
+
+    rs = np.random.RandomState(3)
+    wq, ws = quantize_tensor(torch.from_numpy(
+        rs.randn(64, 40).astype(np.float32)), axis=-1)
+    x = torch.from_numpy(rs.randn(2, 9, 64).astype(np.float32))
+    scale = 0.02 if static else None
+    want = int8_dot(x, wq, ws.reshape(-1), x_scale=scale)
+    got = int8_dot(x.to(cuda_device), wq.to(cuda_device),
+                   ws.reshape(-1).to(cuda_device), x_scale=scale)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_dot_weight_only_runs_kernel_3_on_card(cuda_device):
+    """``int8_dot(weight_only=True)`` at VGG-16's fc8 shape launches the
+    dequantize-matmul kernel and matches its plain version: max |err|
+    within 1e-4 of max |plain|, the smoke's rule for f32 x (K = 4096
+    f32 sums in another order)."""
+    from analytics_zoo_tpu_torch.ops.quantization import int8_dot
+
+    x, q, s = _dq_inputs(cuda_device, 8, 4096, 1000, 8, torch.float32, 5)
+    n0 = tdq.LAUNCHES.value
+    got = int8_dot(x, q, s, weight_only=True)
+    torch.cuda.synchronize()
+    assert tdq.LAUNCHES.value == n0 + 1
+    want = tdq.dequant_matmul_reference(x, q, s)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_onnx_shape_chain_captures_on_card(cuda_device, tmp_path):
+    """A Shape -> Gather -> Unsqueeze -> Concat -> Reshape chain served
+    from a bucket graph: its values stay on the host, so the capture
+    succeeds and replays answer as the eager run did."""
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.onnx import proto
+
+    rs = np.random.RandomState(4)
+    nodes = [proto.Node("Shape", "s", ["x"], ["s"]),
+             proto.Node("Gather", "g0", ["s", "zero"], ["b"]),
+             proto.Node("Unsqueeze", "u", ["b"], ["bu"], {"axes": [0]}),
+             proto.Node("Concat", "c", ["bu", "tail"], ["shape"],
+                        {"axis": 0}),
+             proto.Node("Reshape", "r", ["x", "shape"], ["flat"]),
+             proto.Node("MatMul", "m", ["flat", "w"], ["y"])]
+    inits = {"zero": np.asarray(0, np.int64), "tail": np.asarray([-1],
+                                                                 np.int64),
+             "w": rs.randn(12, 5).astype(np.float32)}
+    g = proto.Graph(
+        name="chain", nodes=nodes,
+        initializers=[proto.tensor_from_array(k, v)
+                      for k, v in inits.items()],
+        inputs=[proto.ValueInfo("x", 1, (None, 3, 4))],
+        outputs=[proto.ValueInfo("y", 1, (None, 5))])
+    path = tmp_path / "chain.onnx"
+    path.write_bytes(proto.encode_model(proto.Model(graph=g)))
+    im = InferenceModel.load_onnx(str(path), batch_buckets=(4,))
+    x = rs.randn(4, 3, 4).astype(np.float32)
+    first = im.predict(x)                     # eager warm-up
+    again = im.predict(x)                     # captured, replayed
+    prog = next(iter(im._programs.values()))
+    assert prog.graph.captured and prog.graph.replays >= 1
+    np.testing.assert_array_equal(first, again)
+    np.testing.assert_allclose(first, x.reshape(4, 12) @ inits["w"],
+                               rtol=1e-5, atol=1e-5)
