@@ -8,6 +8,9 @@ _LAZY = {
     "resolve_device": "analytics_zoo_tpu_torch.core.context",
     "set_zoo_context": "analytics_zoo_tpu_torch.core.context",
 }
+_LAZY.update({name: "analytics_zoo_tpu_torch.core.triggers" for name in (
+    "And", "EveryEpoch", "MaxEpoch", "MaxIteration", "MaxScore", "MinLoss",
+    "Or", "SeveralIteration", "Trigger", "TriggerState")})
 
 
 def __getattr__(name):

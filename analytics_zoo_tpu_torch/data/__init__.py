@@ -25,6 +25,10 @@ from analytics_zoo_tpu_torch.data.image import (  # noqa: F401
     ImagePreprocessing,
     ImageSet,
 )
+from analytics_zoo_tpu_torch.data.zipf import (  # noqa: F401
+    zipf_weights,
+    zipfian_ids,
+)
 from analytics_zoo_tpu_torch.data.text import (  # noqa: F401
     TextFeature,
     TextSet,

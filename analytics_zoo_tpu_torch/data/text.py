@@ -221,26 +221,16 @@ class TextSet:
 def load_glove_embeddings(path: str, word_index: Dict[str, int],
                           dim: Optional[int] = None) -> np.ndarray:
     """An embedding matrix (1-based ids, row 0 the pad / unknown word,
-    zeros) from a GloVe text file, its dimension the file's: the rows of
-    the vocabulary's words, zeros for words the file lacks.  Raises when
-    no vocabulary word is in the file, or when ``dim`` is given and the
-    file's differs."""
-    found = None
-    vectors = {}
-    with open(path, encoding="utf-8") as f:
-        for line in f:
-            parts = line.rstrip().split(" ")
-            if parts[0] in word_index:
-                vec = np.asarray(parts[1:], dtype=np.float32)
-                found = len(vec)
-                vectors[parts[0]] = vec
-    if found is None:
-        raise ValueError(f"no vocabulary words found in {path}")
-    table = np.zeros((max(word_index.values()) + 1, found), np.float32)
-    for word, idx in word_index.items():
-        if word in vectors:
-            table[idx] = vectors[word]
-    if dim is not None and found != dim:
+    zeros) from a GloVe text file, its dimension the file's.
+
+    Delegates to ``WordEmbedding.from_glove``, the single GloVe parser,
+    which raises when no vocabulary word is in the file; raises too when
+    ``dim`` is given and the file's differs."""
+    from analytics_zoo_tpu_torch.nn.layers.embedding import WordEmbedding
+
+    table = np.asarray(WordEmbedding.from_glove(path, word_index).pretrained,
+                       np.float32)
+    if dim is not None and table.shape[1] != dim:
         raise ValueError(
-            f"GloVe file {path} has dim {found}, expected {dim}")
+            f"GloVe file {path} has dim {table.shape[1]}, expected {dim}")
     return table

@@ -1,6 +1,17 @@
-from analytics_zoo_tpu_torch.nn.module import Layer, reset_name_scope  # noqa: F401
+from analytics_zoo_tpu_torch.nn.module import (  # noqa: F401
+    Layer,
+    StatelessLayer,
+    reset_name_scope,
+)
 from analytics_zoo_tpu_torch.nn.topology import KerasNet, Model, Sequential  # noqa: F401
 from analytics_zoo_tpu_torch.nn.net import GraphNet  # noqa: F401
-from analytics_zoo_tpu_torch.nn.autograd import Input, Variable  # noqa: F401
-from analytics_zoo_tpu_torch.nn import activations, initializers  # noqa: F401
+from analytics_zoo_tpu_torch.nn.autograd import Input, Parameter, Variable  # noqa: F401
+from analytics_zoo_tpu_torch.nn import (  # noqa: F401
+    activations,
+    autograd,
+    initializers,
+    metrics,
+    objectives,
+    regularizers,
+)
 from analytics_zoo_tpu_torch.nn.layers import *  # noqa: F401,F403

@@ -36,6 +36,7 @@ from analytics_zoo_tpu_torch.nn.layers.core import Dense, Dropout
 from analytics_zoo_tpu_torch.nn.layers.normalization import LayerNorm
 from analytics_zoo_tpu_torch.nn.module import Layer, is_qleaf
 from analytics_zoo_tpu_torch.ops.attention import dot_product_attention
+from analytics_zoo_tpu_torch.ops.dequant_matmul import unpack_int4
 
 
 def _dense(owner, key, d_out, init):
@@ -212,7 +213,10 @@ def _stack(trees):
         return {k: _stack([t[k] for t in trees]) for k in first}
     if is_qleaf(first):
         if "q4" in first:
-            raise NotImplementedError("int4 leaves in a stacked block tree")
+            raise NotImplementedError(
+                "a block holding an int4 leaf has no stacked form: int4 "
+                "packs a leaf's rows, and a stacked leaf's rows are its "
+                "blocks")
         scale = first["scale"]
         if not all(torch.equal(t["scale"], scale) for t in trees):
             raise ValueError("the blocks of a stack hold different scales "
@@ -223,13 +227,21 @@ def _stack(trees):
 
 
 def _unstack(value, i):
-    """Block ``i``'s leaf from a stacked leaf (a copy)."""
+    """Block ``i``'s leaf from a stacked leaf (a copy).
+
+    Under the JAX package's int4 rule (``quantize_pytree``) a stacked
+    kernel (3-D) stays int8, but a stacked bias or LayerNorm leaf, 2-D
+    ``(n_block, d)`` with an even block count, is packed int4: its nibble
+    pairs are pairs of blocks.  Block ``i`` then takes its row, unpacked,
+    as an int8 leaf over the shared column scales: the same values the
+    JAX rule dequantizes."""
     if is_qleaf(value):
         if "q4" in value:
-            raise NotImplementedError(
-                "int4 leaves in a stacked block tree: int4 packs rows, and "
-                "a stacked leaf's rows are its blocks; serve a stacked "
-                "model in float32 or int8")
+            q4 = torch.as_tensor(value["q4"])
+            rows = unpack_int4(q4, 2 * q4.shape[0])
+            return {"q": rows[i].clone(),
+                    "scale": torch.as_tensor(value["scale"]).reshape(-1)
+                    .clone()}
         scale = torch.as_tensor(value["scale"])
         if scale.ndim == 0 or scale.shape[0] != 1:
             raise ValueError(f"a stacked quantized leaf needs a scale shared "

@@ -105,6 +105,8 @@ class Dropout(Layer):
     ``1 / (1 - p)``) but are not ``jax.random``'s bits.
     """
 
+    draws_from_generator = True
+
     def __init__(self, p: float, **kw):
         super().__init__(**kw)
         self.rate = float(p)
@@ -256,6 +258,8 @@ class GaussianSampler(Layer):
     drawn from ``generator`` (an explicit ``torch.Generator``, which the
     Estimator installs for ``fit`` as it does for ``Dropout``), not
     ``jax.random``'s bits."""
+
+    draws_from_generator = True
 
     def __init__(self, **kw):
         super().__init__(**kw)

@@ -1,16 +1,20 @@
-"""Merge layers over multiple inputs: concat, sum, mul."""
+"""Merge layers over multiple inputs: concat, sum, mul, ave, max, min,
+dot and cos, and the Keras-2 classes over them (the JAX package's
+``nn/layers/merge.py``)."""
 
 from __future__ import annotations
 
 import torch
 
-from analytics_zoo_tpu_torch.nn.module import Layer
+from analytics_zoo_tpu_torch.nn.module import StatelessLayer
 
-MODES = ("concat", "sum", "mul")
+MODES = ("concat", "sum", "mul", "ave", "average", "max", "min", "dot",
+         "cos")
 
 
-class Merge(Layer):
-    """Merge a list of inputs. ``mode``: concat|sum|mul."""
+class Merge(StatelessLayer):
+    """Merge a list of inputs. ``mode``: concat|sum|mul|ave|max|min|dot|cos
+    (``dot`` and ``cos`` take two inputs and keep a last axis of 1)."""
 
     def __init__(self, mode: str = "sum", concat_axis: int = -1, **kw):
         super().__init__(**kw)
@@ -20,6 +24,8 @@ class Merge(Layer):
         self.concat_axis = concat_axis
 
     def output_shape(self, *input_shapes):
+        if self.mode in ("dot", "cos"):
+            return tuple(input_shapes[0][:-1]) + (1,)
         if self.mode != "concat":
             return tuple(input_shapes[0])
         out = list(input_shapes[0])
@@ -27,14 +33,58 @@ class Merge(Layer):
         return tuple(out)
 
     def forward(self, *inputs):
-        if self.mode == "concat":
+        m = self.mode
+        if m == "concat":
             return torch.cat(inputs, dim=self.concat_axis)
+        if m in ("dot", "cos"):
+            a, b = inputs
+            if m == "cos":
+                a = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+                         + 1e-12)
+                b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+                         + 1e-12)
+            return torch.sum(a * b, dim=-1, keepdim=True)
+        step = {"sum": torch.add, "ave": torch.add, "average": torch.add,
+                "mul": torch.mul, "max": torch.maximum,
+                "min": torch.minimum}[m]
         out = inputs[0]
         for x in inputs[1:]:
-            out = out + x if self.mode == "sum" else out * x
+            out = step(out, x)
+        if m in ("ave", "average"):
+            out = out / len(inputs)
         return out
 
 
 def merge(inputs, mode="sum", concat_axis=-1, name=None):
     """Functional merge over autograd Variables."""
     return Merge(mode=mode, concat_axis=concat_axis, name=name)(*inputs)
+
+
+class Concatenate(Merge):
+    def __init__(self, axis: int = -1, **kw):
+        super().__init__(mode="concat", concat_axis=axis, **kw)
+
+
+class Add(Merge):
+    def __init__(self, **kw):
+        super().__init__(mode="sum", **kw)
+
+
+class Multiply(Merge):
+    def __init__(self, **kw):
+        super().__init__(mode="mul", **kw)
+
+
+class Average(Merge):
+    def __init__(self, **kw):
+        super().__init__(mode="ave", **kw)
+
+
+class Maximum(Merge):
+    def __init__(self, **kw):
+        super().__init__(mode="max", **kw)
+
+
+class Minimum(Merge):
+    def __init__(self, **kw):
+        super().__init__(mode="min", **kw)

@@ -296,3 +296,16 @@ class Layer(nn.Module):
         if args and all(isinstance(a, Variable) for a in args):
             return apply_layer(self, args)
         return super().__call__(*args, **kw)
+
+
+class StatelessLayer(Layer):
+    """A layer that holds no state leaves (the JAX package's base of the
+    same name; here every layer is a ``Layer``, and this one only adds
+    the output shape).  Its output shape comes from running ``forward`` on
+    meta tensors of the input shapes, so a shape-changing layer needs no
+    shape rule of its own; a layer whose forward reads its leaves or
+    draws from a generator gives its own."""
+
+    def output_shape(self, *input_shapes):
+        metas = [torch.empty(s, device="meta") for s in input_shapes]
+        return tuple(self.forward(*metas).shape)

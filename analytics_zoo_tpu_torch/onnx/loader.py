@@ -772,20 +772,19 @@ class OnnxProgram:
                   for i, x in enumerate(xs)]
         return fn(xs, training, rng)
 
-    def call(self, params, state, *inputs, training=False, rng=None):
-        """Run the graph: ``params`` a ``{name: tensor or array}`` dict,
-        ``inputs`` tensors (or numpy arrays, which run on the host),
-        ``rng`` the dropout ``torch.Generator``.  Returns ``(output or
-        list of outputs, state)``."""
-        if len(inputs) != len(self.input_names):
-            raise ValueError(f"expected {len(self.input_names)} inputs "
-                             f"({self.input_names}), got {len(inputs)}")
-        env: Dict[str, Any] = dict(self.consts)
-        env.update(params)
-        env.update(zip(self.input_names, inputs))
-        for n, fn in self.nodes:
-            out = self.run_node(n, fn, _resolve_inputs(env, n.inputs),
-                                training, rng)
+    def run_nodes(self, env: Dict[str, Any], training=False, rng=None,
+                  hook=None) -> Dict[str, Any]:
+        """Run every node in order over ``env`` (value by name), binding
+        each node's outputs there; returns ``env``.  ``hook(index, node,
+        env)``, where given, sees each node first and may return its value
+        in its place (None: the node runs as the graph says) — the one
+        loop behind ``call``, the quantized program's call and the
+        calibration pass."""
+        for idx, (n, fn) in enumerate(self.nodes):
+            out = None if hook is None else hook(idx, n, env)
+            if out is None:
+                out = self.run_node(n, fn, _resolve_inputs(env, n.inputs),
+                                    training, rng)
             if isinstance(out, tuple) and len(n.outputs) == len(out):
                 # true multi-output op (Split): one value per output —
                 # including the degenerate single-output Split, whose
@@ -798,6 +797,20 @@ class OnnxProgram:
                 for extra in n.outputs[1:]:
                     if extra:        # e.g. Dropout mask output — unused
                         env[extra] = out
+        return env
+
+    def call(self, params, state, *inputs, training=False, rng=None):
+        """Run the graph: ``params`` a ``{name: tensor or array}`` dict,
+        ``inputs`` tensors (or numpy arrays, which run on the host),
+        ``rng`` the dropout ``torch.Generator``.  Returns ``(output or
+        list of outputs, state)``."""
+        if len(inputs) != len(self.input_names):
+            raise ValueError(f"expected {len(self.input_names)} inputs "
+                             f"({self.input_names}), got {len(inputs)}")
+        env: Dict[str, Any] = dict(self.consts)
+        env.update(params)
+        env.update(zip(self.input_names, inputs))
+        env = self.run_nodes(env, training, rng)
         outs = [env[o] for o in self.output_names]
         return (outs[0] if len(outs) == 1 else outs), state
 

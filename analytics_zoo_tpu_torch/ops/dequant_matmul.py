@@ -211,3 +211,7 @@ class _DequantMatmul(torch.autograd.Function):
             w = _dequant(q, scale, ctx.bits, ctx.k)
             dx = torch.matmul(g.to(torch.float32), w.t()).to(g.dtype)
         return dx, None, None, None, None
+
+
+# ``ops.dequant_matmul(...)`` calls the function, as in the JAX package
+dispatch.callable_module(__name__)

@@ -37,7 +37,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import sys
 import threading
+import types
 from typing import Iterator, Optional
 
 import torch
@@ -218,3 +220,20 @@ class LaunchCount:
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+
+
+class _CallableModule(types.ModuleType):
+    """A kernel's module that is also its function.  The JAX package's
+    ``ops`` exports the functions ``embedding_bag``, ``dequant_matmul``
+    and ``flash_attention`` under the names of their modules; here the
+    module keeps its name and attributes (``ops.embedding_bag.bag_layout``,
+    ``import analytics_zoo_tpu_torch.ops.embedding_bag``) and a call runs
+    its namesake function (``ops.embedding_bag(table, ids)``)."""
+
+    def __call__(self, *args, **kw):
+        return getattr(self, self.__name__.rsplit(".", 1)[1])(*args, **kw)
+
+
+def callable_module(name: str) -> None:
+    """Make module ``name`` callable as its namesake function."""
+    sys.modules[name].__class__ = _CallableModule

@@ -447,3 +447,7 @@ def embedding_gather(table, ids):
         knob=_knob())
     out = _apply(table, ids.reshape(-1, 1), "sum", None, path)
     return out.reshape(tuple(ids.shape) + (table.shape[1],))
+
+
+# ``ops.embedding_bag(...)`` calls the function, as in the JAX package
+dispatch.callable_module(__name__)

@@ -388,3 +388,7 @@ def flash_attention(q, k, v, causal: bool = False,
     save = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     return _Flash.apply(q, k, v, causal, _scale(q, sm_scale), path, save)
+
+
+# ``ops.flash_attention(...)`` calls the function, as in the JAX package
+dispatch.callable_module(__name__)

@@ -269,41 +269,34 @@ class QuantizedProgram:
              qweights=None):
         """``qweights`` overrides the program's own ``{name: (q, scale)}``
         (``FunctionModel`` passes its device copies)."""
-        from analytics_zoo_tpu_torch.onnx.loader import _resolve_inputs
-
         qweights = self.qweights if qweights is None else qweights
+
+        def quantized(idx, n, env):
+            if idx not in self._qnode_idx:
+                return None
+            wname = n.inputs[1]
+            x = env[n.inputs[0]]
+            if not isinstance(x, torch.Tensor):         # a host value
+                x = torch.from_numpy(np.array(x, np.float32))
+            w_q, w_scale = qweights[wname]
+            x_scale = self.act_scales.get(n.name or wname)
+            if x_scale is not None:
+                x_scale = self.base.device_value(np.float32(x_scale),
+                                                 x.device)
+            y = int8_dot(x, w_q, w_scale.reshape(-1), x_scale=x_scale)
+            if n.op_type == "Gemm":
+                y = float(n.attrs.get("alpha", 1.0)) * y
+                if len(n.inputs) > 2 and n.inputs[2]:
+                    bias = env[n.inputs[2]]
+                    if not isinstance(bias, torch.Tensor):
+                        bias = self.base.device_value(bias, y.device)
+                    y = y + float(n.attrs.get("beta", 1.0)) * bias
+            return y
+
         env: Dict[str, Any] = dict(self.consts)
         env.update(params)
         env.update(zip(self.input_names, inputs))
-        for idx, (n, fn) in enumerate(self.base.nodes):
-            if idx in self._qnode_idx:
-                wname = n.inputs[1]
-                x = env[n.inputs[0]]
-                if not isinstance(x, torch.Tensor):     # a host value
-                    x = torch.from_numpy(np.array(x, np.float32))
-                w_q, w_scale = qweights[wname]
-                key = n.name or wname
-                x_scale = self.act_scales.get(key)
-                if x_scale is not None:
-                    x_scale = self.base.device_value(
-                        np.float32(x_scale), x.device)
-                y = int8_dot(x, w_q, w_scale.reshape(-1), x_scale=x_scale)
-                if n.op_type == "Gemm":
-                    y = float(n.attrs.get("alpha", 1.0)) * y
-                    if len(n.inputs) > 2 and n.inputs[2]:
-                        bias = env[n.inputs[2]]
-                        if not isinstance(bias, torch.Tensor):
-                            bias = self.base.device_value(bias, y.device)
-                        y = y + float(n.attrs.get("beta", 1.0)) * bias
-                out = y
-            else:
-                out = self.base.run_node(n, fn,
-                                         _resolve_inputs(env, n.inputs),
-                                         training, rng)
-            env[n.outputs[0]] = out
-            for extra in n.outputs[1:]:
-                if extra:
-                    env[extra] = out
+        env = self.base.run_nodes(env, training, rng, hook=quantized)
         outs = [env[o] for o in self.output_names]
         return (outs[0] if len(outs) == 1 else outs), state
 
@@ -319,7 +312,6 @@ def quantize_program(program, calibration_inputs: Optional[Sequence] = None,
     activation scales; without, activation quantization is dynamic.
     """
     from analytics_zoo_tpu_torch.core.context import resolve_device
-    from analytics_zoo_tpu_torch.onnx.loader import _resolve_inputs
 
     act_scales: Optional[Dict[str, float]] = None
     if calibration_inputs is not None:
@@ -336,6 +328,10 @@ def quantize_program(program, calibration_inputs: Optional[Sequence] = None,
                     n.name or n.inputs[1])
         params = {k: torch.as_tensor(np.asarray(v)).to(dev)
                   for k, v in program.params.items()}
+        def observe(idx, n, env):
+            for key in (watch.get(n.inputs[0], ()) if n.inputs else ()):
+                cal.observe(key, env[n.inputs[0]])
+
         with torch.no_grad():
             for args in calibration_inputs:
                 args = args if isinstance(args, (list, tuple)) else (args,)
@@ -344,16 +340,7 @@ def quantize_program(program, calibration_inputs: Optional[Sequence] = None,
                 env.update(zip(program.input_names,
                                [torch.as_tensor(np.asarray(a)).to(dev)
                                 for a in args]))
-                for n, fn in program.nodes:
-                    xs = _resolve_inputs(env, n.inputs)
-                    if n.inputs and n.inputs[0] in watch:
-                        for key in watch[n.inputs[0]]:
-                            cal.observe(key, xs[0])
-                    out = program.run_node(n, fn, xs)
-                    env[n.outputs[0]] = out
-                    for extra in n.outputs[1:]:
-                        if extra:
-                            env[extra] = out
+                program.run_nodes(env, hook=observe)
         del params
         watched_keys = {k for keys in watch.values() for k in keys}
         act_scales = {name: cal.scale(name)

@@ -906,8 +906,6 @@ class Estimator:
         ``TrainingPreempted``.
         """
         from analytics_zoo_tpu_torch.data.featureset import FeatureSet
-        from analytics_zoo_tpu_torch.nn.layers.core import (Dropout,
-                                                            GaussianSampler)
 
         cfg = self.ctx.config
         if cfg.nan_policy not in NAN_POLICIES:
@@ -920,9 +918,10 @@ class Estimator:
             self._host_rng = np.random.RandomState(cfg.seed)
             self._pending_resume = None
         self._preempt.clear()
-        # the layers that draw from the fit's generator
+        # the layers that draw from the fit's generator (Dropout,
+        # GaussianSampler, the noise layers)
         dropouts = [m for m in self.model.modules()
-                    if isinstance(m, (Dropout, GaussianSampler))]
+                    if getattr(m, "draws_from_generator", False)]
         restore_sig = self._install_preempt_handler()
         # the fit's root span and metric mark: epoch and step spans chain
         # under it, and training_report() deltas the registry from the mark

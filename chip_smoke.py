@@ -32,6 +32,8 @@
    odd-K int4, and bf16 and f16 x with int8), BERT-Base's Dense layers
    at M = 4096 ((768, 768), (768, 3072), (3072, 768) int8, (768, 3072)
    int4) and M = 4,194,305 at K = N = 40 (past the former grid limit).
+   Phase 16 and 17 add theirs (VGG-16's Dense layers; BERT-Base's block
+   shapes at M = 1024 and in int4 at 4096).
    ``*_ms`` is device time
    (the calls captured in a CUDA graph and replayed, timed by CUDA
    events); ``*_call_ms`` is time per call from a host loop, launch
@@ -498,8 +500,39 @@
    VGG-16's three Dense shapes (M = 1, 8, 32, int8 and int4) and
    ``int8_dot(weight_only=True)`` at ResNet-50's head.  ``import_*`` and
    ``model_import_summary`` lines carry the numbers with the card's name
-   and power limit.
-17. Prints the kernels JSON line and, last, the ok line.
+   and power limit.  Kernel 3 at fc6 (M = 1, 8, 32) and its plain
+   version are each held against an f64 product of the same dequantized
+   weights beside the summation bound K * 2^-24 * sum |x| |w|
+   (``c4_fc6_f64``): the kernel over the bound where the plain version
+   is within it fails.
+17. Quantized BERT-Base and the layer vocabulary (``vocabulary_phase``).
+   (a) ``BERTClassifier(2, BERT_BASE)`` from a seed, served at L = 128 in
+   f32, int8 and int4 through ``InferenceModel.from_keras_net`` (buckets
+   1, 8, 32): int8 and int4 behind a ``DynamicBatcher`` (64 single
+   requests from 4 threads), every quantized Dense on kernel 3 (74 a
+   replay: q, k, v, o, ffn1, ffn2 of 12 blocks, the pooler, the head)
+   and attention on kernel 4 (12 a replay), within ``QBERT_PLAIN_TOL``
+   of the plain versions; against the f32 model (max abs logit over the
+   largest, argmax agreement); ``weight_nbytes()``; device ms a replay
+   at buckets 8 and 32 beside the f32 model's; the device ms of
+   dequantizing the three embedding tables; 512 records through a
+   ``ClusterServing`` of the phase's own over a ``ShmQueue``.  Kernel 3
+   is timed alone at BERT-Base's block shapes, M = 1024 (int8, int4) and
+   4096 (int4).  (b) ``SparseEmbedding`` at V = 2^20, D = 64, B = 4096,
+   32 ids a bag, pad id 0, with sum, mean and sqrtn: forward and table
+   gradient through kernels 1 and 2 against the plain versions, timed;
+   then trained through ``compile`` / ``fit`` (one launch of each a
+   step, the loss falling).  (c) A seeded GloVe-format file of 5001
+   words x 200 read by ``WordEmbedding.from_glove`` into a frozen table
+   feeding the TextClassifier's layers: after ``fit`` the table equals
+   the file bit for bit, kernel 1 launched once a step, kernel 2 never.
+   (d) One net of keras2 names, every merge mode, the advanced
+   activations and torch-style layers (``vocabulary_net``) served int8:
+   graphed equal to eager bit for bit, both within ``SERVE_F32_REL`` of
+   the plain versions.  ``quantized_bert``, ``sparse_embedding``,
+   ``glove_text``, ``vocabulary_net`` and ``vocabulary_summary`` lines
+   carry the numbers with the card's name and power limit.
+18. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -7913,6 +7946,610 @@ def model_import_phase(torch, dq, card):
     return {"vgg16_int8_serving": vgg["dequant_matmul_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: int8 / int4 BERT-Base served from the native model, and the
+# layer vocabulary (SparseEmbedding, WordEmbedding, the merge modes,
+# advanced activations, torch-style layers, keras2) on the card
+
+QBERT = dict(length=128, buckets=(1, 8, 32), requests=64, threads=4,
+             cluster_records=512)
+# the quantized model through the kernels against the same model through
+# the plain versions (dispatch.forced("reference")), max abs logit:
+# phase 3's bound for f32 BERT-Base (K-long f32 sums in another order,
+# carried through 12 blocks)
+QBERT_PLAIN_TOL = 1e-3
+# Dense layers of one BERT-Base forward on kernel 3: q, k, v, o, ffn1 and
+# ffn2 in each block, the pooler and the head (768 x 2 = 1536 elements,
+# over quantize_pytree's 1,024-element floor)
+QBERT_DQ_PER_FORWARD = 6 * BERT_BASE["n_block"] + 2
+# SparseEmbedding at kernel 1's bench shape: a 256 MB table (a CTR
+# feature's size), 32 ids a bag, about a quarter of them the pad id
+SPARSE = dict(vocab=1 << 20, dim=64, bags=4096, nnz=32, pad_id=0,
+              steps=8, epochs=3, lr=1e-2)
+# a GloVe-format file at the TextClassifier's reference width, feeding
+# its layers with the table frozen
+GLOVE = dict(words=5001, dim=200, rows=1024, batch=128, epochs=2, lr=1e-3)
+VOCAB_NET = dict(rows=32, buckets=(8, 32), vocab=1000, width=32)
+
+
+def qbert_kernel_cases(torch, dq):
+    """Kernel 3 at BERT-Base's block shapes ((768, 768) for q, k, v and o;
+    (768, 3072) ffn1; (3072, 768) ffn2): M = 1024 in int8 and int4, and
+    M = 4096 in int4 where the kernel phase times int8 only."""
+    cases = []
+    for m in (1024, 4096):
+        for k, n in ((768, 768), (768, 3072), (3072, 768)):
+            for bits in (8, 4):
+                if m == 4096 and (bits == 8 or (k, n) == (768, 3072)):
+                    continue                    # in the kernel phase
+                cases.append(dq_case(torch, dq, "bert_block", m, k, n, bits,
+                                     iters=50))
+    for c in cases:
+        log("kernel_case", json.dumps(c))
+    return cases
+
+
+def fc6_f64_case(torch, dq):
+    """VGG-16's fc6 (K = 25088, N = 4096, int8, f32 x of post-ReLU sign)
+    at M = 1, 8, 32 through kernel 3 and through its plain version, each
+    against an f64 product of the same dequantized weights, beside the
+    summation bound K * 2^-24 * sum_k |x_ik| |w_kj| of an f32 sum of K
+    rounded products in any order.  A kernel over the bound where the
+    plain version is within it is the kernel's fault."""
+    k, n = 25088, 4096
+    rs = np.random.RandomState(SEED + 251)
+    q, scale = dq.quantize_weights(torch.from_numpy(
+        (rs.randn(k, n) * 0.01).astype(np.float32)), bits=8)
+    q, scale = q.cuda(), scale.cuda()
+    w64 = q.double() * scale.double().reshape(1, -1)
+    rows = []
+    for m in (1, 8, 32):
+        x = torch.from_numpy(np.abs(rs.randn(m, k)).astype(np.float32)).cuda()
+        exact = x.double() @ w64
+        limit = k * 2.0 ** -24 * (x.double().abs() @ w64.abs())
+        row = {"m": m, "largest": float(exact.abs().max()),
+               "bound_max": float(limit.max())}
+        for name, got in (("kernel", dq.dequant_matmul(x, q, scale)),
+                          ("plain", dq.dequant_matmul_reference(x, q, scale))):
+            err = (got.double() - exact).abs()
+            row[f"{name}_max_abs_err"] = float(err.max())
+            row[f"{name}_max_err_over_bound"] = float((err / limit).max())
+        rows.append(row)
+    del w64
+    torch.cuda.empty_cache()
+    fault = any(r["kernel_max_err_over_bound"] > 1.0
+                and r["plain_max_err_over_bound"] <= 1.0 for r in rows)
+    out = {"case": "vgg16_fc6_vs_f64", "k": k, "n": n, "bits": 8,
+           "rows": rows, "kernel_fault": fault,
+           "both_within_bound": all(r["kernel_max_err_over_bound"] <= 1.0
+                                    and r["plain_max_err_over_bound"] <= 1.0
+                                    for r in rows)}
+    log("c4_fc6_f64", json.dumps(out))
+    if fault:
+        raise AssertionError(f"kernel 3 at fc6 is over the summation bound "
+                             f"where its plain version is not: {out}")
+    return out
+
+
+def cluster_records_leg(torch, name, im, recs, ref, card):
+    """``recs`` (one row a record) behind one ``ClusterServing`` worker
+    over a ``ShmQueue`` from a client thread of this process; every
+    record's top-2 held against ``ref``, the plain path's scores
+    (``cluster_check``).  Returns the leg's numbers."""
+    from analytics_zoo_tpu_torch.deploy import (ClusterServing, InputQueue,
+                                                OutputQueue, ServingConfig,
+                                                ShmQueue)
+    from analytics_zoo_tpu_torch.observe.metrics import METRICS
+
+    n = len(recs)
+    queue = ShmQueue(name=f"smoke_{name}", slots=1024, slot_bytes=1 << 12,
+                     result_slots=1024, result_slot_bytes=1 << 10)
+    cfg = ServingConfig(postprocess_top_n=CLUSTER_TOP_N, batch_size=32,
+                        max_batch_delay_ms=2.0, decode_workers=4)
+    cs = ClusterServing({name: im}, queue, cfg)
+    iq, oq = InputQueue(queue), OutputQueue(queue)
+    answers = {}
+    try:
+        cs.start()
+        window = METRICS.snapshot()
+        t0 = time.perf_counter()
+        pusher = threading.Thread(target=lambda: [
+            iq.enqueue(uri=f"{name}{r}", model=name, x=recs[r])
+            for r in range(n)])
+        pusher.start()
+        deadline = time.monotonic() + 120
+        while len(answers) < n and time.monotonic() < deadline:
+            answers.update(oq.dequeue(timeout=0.5))
+        wall = time.perf_counter() - t0
+        pusher.join(timeout=60)
+        delta = METRICS.delta(window)
+    finally:
+        cs.stop(timeout=30)
+        del cs
+        queue.stop()
+    idx = np.full((n, CLUSTER_TOP_N), -1, np.int64)
+    val = np.full((n, CLUSTER_TOP_N), np.nan, np.float64)
+    for r in range(n):
+        a = answers.get(f"{name}{r}")
+        if isinstance(a, list) and len(a) == CLUSTER_TOP_N:
+            idx[r] = [p[0] for p in a]
+            val[r] = [p[1] for p in a]
+    check = cluster_check("bert", idx, val, ref)
+    out = {"card": card, "records": n, "answered": len(answers),
+           "wall_s": wall, "records_per_s": n / wall, "check": check,
+           "stages": stage_rollup(delta).get(name),
+           "device_busy": device_busy(delta, wall)}
+    if len(answers) != n or not check["ok"]:
+        raise AssertionError(f"{name} ClusterServing failed: {out}")
+    return out
+
+
+def qbert_leg(torch, eb, dq, fa, card):
+    """(a) ``BERTClassifier(2, BERT_BASE)`` from a seed, served at L = 128
+    in f32, int8 and int4 through ``InferenceModel.from_keras_net``
+    (buckets 1, 8, 32, one CUDA graph each).  For int8 and int4: 64
+    single requests behind a ``DynamicBatcher`` from 4 threads, every
+    quantized Dense on kernel 3 (74 a replay) and attention on kernel 4
+    (12 a replay); the answers against the plain versions within
+    ``QBERT_PLAIN_TOL`` and against the f32 model; weight bytes; device
+    ms a replay at buckets 8 and 32 beside the f32 model's; the device ms
+    of dequantizing the three embedding tables, which a replay runs; and
+    512 records through ``ClusterServing`` over a ``ShmQueue``."""
+    from analytics_zoo_tpu_torch.core.context import init_zoo_context
+    from analytics_zoo_tpu_torch.deploy import DynamicBatcher, InferenceModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops.dequant_matmul import dequantize_leaf
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    cfg = QBERT
+    init_zoo_context()
+    reset_name_scope()
+    net = BERTClassifier(num_classes=2, bert_config=BERT_BASE,
+                         generator=torch.Generator().manual_seed(SEED + 171))
+    reqs = bert_requests(cfg["requests"], cfg["length"], SEED + 172)
+    xs = batch_of(reqs)
+    models, out = {}, {"card": card, "model": {
+        **BERT_BASE, "num_classes": 2, "length": cfg["length"]}}
+    for wd in ("float32", "int8", "int4"):
+        t0 = time.perf_counter()
+        im = InferenceModel.from_keras_net(net, device="cuda",
+                                           weight_dtype=wd,
+                                           batch_buckets=cfg["buckets"],
+                                           name=f"bert_{wd}")
+        for b in cfg["buckets"]:
+            for _ in range(2):                  # eager, then captured
+                im.predict([x[:b] for x in xs])
+        models[wd] = im
+        out[wd] = {"setup_s": time.perf_counter() - t0,
+                   "weight_nbytes": im.weight_nbytes()}
+    del net
+    f32 = models["float32"].predict(xs)
+    out["float32"]["timing"] = {f"b{b}": served_ms(
+        torch, models["float32"], [x[:b] for x in xs], 10) for b in (8, 32)}
+    recs = np.random.RandomState(SEED + 173).randint(
+        0, BERT_BASE["vocab"], (cfg["cluster_records"], cfg["length"])
+    ).astype(np.int32)
+    launches = {}
+    for wd in ("int8", "int4"):
+        im, rec = models[wd], out[wd]
+        # one replay at bucket 32
+        reset_counts(eb, dq, fa)
+        im.predict([x[:32] for x in xs])
+        rec["per_replay"] = {"dequant_matmul": dq.LAUNCHES.value,
+                             "flash_attention": fa.LAUNCHES.value}
+        # the main path: single requests through the batcher
+        before = sum(p.graph.replays for p in im._programs.values())
+        reset_counts(eb, dq, fa)
+        batcher = DynamicBatcher(im, max_batch=32, max_latency_ms=2.0)
+        t0 = time.perf_counter()
+        ans, lat = serve_requests(batcher, reqs, cfg["threads"])
+        wall = time.perf_counter() - t0
+        batcher.close()
+        torch.cuda.synchronize()
+        replays = sum(p.graph.replays for p in im._programs.values()) - before
+        launches[wd] = {"dequant_matmul": dq.LAUNCHES.value,
+                        "flash_attention": fa.LAUNCHES.value,
+                        "embedding_bag": eb.LAUNCHES.value}
+        with forced(PATH_REFERENCE):
+            plain = im.predict(xs)
+        top = float(np.abs(f32).max())
+        rec.update({
+            "requests": len(lat), "batcher_wall_s": wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "replays": replays, "launches": launches[wd],
+            "programs": programs_of(im._programs),
+            "max_abs_logit_diff_vs_plain": float(np.abs(ans - plain).max()),
+            "max_abs_logit_diff_vs_f32": float(np.abs(ans - f32).max()),
+            "largest_f32_logit": top,
+            "argmax_agreement_vs_f32": float(np.mean(
+                ans.argmax(1) == f32.argmax(1))),
+            "timing": {f"b{b}": served_ms(torch, im, [x[:b] for x in xs], 10)
+                       for b in (8, 32)}})
+        rec["rel_logit_diff_vs_f32"] = (rec["max_abs_logit_diff_vs_f32"]
+                                        / max(top, 1e-30))
+        bert = im._net.bert
+        tables = [bert.qleaf(t) for t in ("word_embed", "pos_embed",
+                                          "type_embed")]
+        rec["table_kinds"] = [sorted(set(t) - {"scale"}) for t in tables]
+        rec["embedding_dequantize_ms"] = device_ms(
+            torch, lambda: [dequantize_leaf(t) for t in tables], 20)
+        with forced(PATH_REFERENCE):
+            ref = np.concatenate([im.predict(recs[s:s + 32])
+                                  for s in range(0, len(recs), 32)])
+        rec["cluster_serving"] = cluster_records_leg(
+            torch, f"bert_{wd}", im, recs, ref, card)
+        ok = (rec["per_replay"] == {"dequant_matmul": QBERT_DQ_PER_FORWARD,
+                                    "flash_attention": BERT_BASE["n_block"]}
+              and replays > 0
+              and launches[wd]["dequant_matmul"]
+              == QBERT_DQ_PER_FORWARD * replays
+              and launches[wd]["flash_attention"]
+              == BERT_BASE["n_block"] * replays
+              and not launches[wd]["embedding_bag"]
+              and all(v["launches_per_replay"] == {
+                  "dequant_matmul": QBERT_DQ_PER_FORWARD,
+                  "flash_attention": BERT_BASE["n_block"]}
+                  for v in rec["programs"].values())
+              and ans.shape == (len(reqs), 2)
+              and bool(np.all(np.isfinite(ans)))
+              and rec["max_abs_logit_diff_vs_plain"] <= QBERT_PLAIN_TOL
+              and None not in tables)
+        log("quantized_bert", json.dumps({"weight_dtype": wd, **rec}))
+        if not ok:
+            raise AssertionError(f"{wd} BERT-Base serving failed: {rec}")
+    log("quantized_bert_f32", json.dumps(out["float32"]))
+    del models, im
+    free_card(torch)
+    return out, launches
+
+
+def sparse_ids(torch, g, bags=SPARSE["bags"]):
+    cfg = SPARSE
+    ids = torch.randint(0, cfg["vocab"], (bags, cfg["nnz"]), device="cuda",
+                        generator=g, dtype=torch.int32)
+    ids[torch.rand(ids.shape, device="cuda", generator=g) < 0.25] = \
+        cfg["pad_id"]
+    ids[0] = cfg["pad_id"]                      # an all-pad bag
+    return ids
+
+
+def sparse_embedding_leg(torch, eb, card):
+    """(b) ``SparseEmbedding`` at kernel 1's bench shape (V = 2^20, D =
+    64, B = 4096, 32 ids a bag, pad id 0) with sum, mean and sqrtn: the
+    layer's forward and its table gradient through kernels 1 and 2
+    against the plain versions (forward within 1e-5 + 1e-5 |plain|, the
+    gradient within 1e-6 + 1e-5 of each element's summed magnitude, as
+    the kernel phase holds them), each timed; then a CTR-shaped net
+    (``SparseEmbedding(mean)`` -> ``Dense(1, sigmoid)``) trained through
+    ``compile`` / ``fit`` (graphed steps), one launch of each kernel a
+    step, the loss falling."""
+    from analytics_zoo_tpu_torch.nn import Sequential, reset_name_scope
+    from analytics_zoo_tpu_torch.nn.layers import Dense, SparseEmbedding
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = SPARSE
+    v, d, pad = cfg["vocab"], cfg["dim"], cfg["pad_id"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 181)
+    ids = sparse_ids(torch, g)
+    grad_out = torch.randn(cfg["bags"], d, device="cuda", generator=g)
+    out = {"card": card, **cfg, "layer": {}}
+    fwd_cases, bwd_cases = [], []
+    for combiner in ("sum", "mean", "sqrtn"):
+        reset_name_scope()
+        layer = SparseEmbedding(v, d, combiner=combiner, pad_id=pad)
+        layer.build(torch.Generator().manual_seed(SEED + 182),
+                    (cfg["bags"], cfg["nnz"]))
+        layer = layer.cuda()
+        table = layer.leaf("table")
+
+        def run():
+            table.grad = None
+            y = layer(ids)
+            (y * grad_out).sum().backward()
+            return y.detach(), table.grad.detach().clone()
+
+        eb.LAUNCHES.reset()
+        eb.BWD_LAUNCHES.reset()
+        y_k, g_k = run()
+        launched = [eb.LAUNCHES.value, eb.BWD_LAUNCHES.value]
+        with forced(PATH_REFERENCE):
+            y_p, g_p = run()
+        mass = eb.embedding_bag_backward_reference(v, ids, grad_out.abs(),
+                                                   combiner, pad)
+        fwd_err = (y_k - y_p).abs()
+        bwd_err = (g_k - g_p).abs()
+        fwd_ok = bool(torch.all(fwd_err <= 1e-5 + 1e-5 * y_p.abs()))
+        bwd_ok = bool(torch.all(bwd_err <= 1e-6 + 1e-5 * mass))
+        row = {"launches": launched,
+               "fwd_max_abs_err": float(fwd_err.max()),
+               "bwd_max_abs_err": float(bwd_err.max()),
+               "pad_row_grad": float(g_k[pad].abs().max())}
+        del g_k, g_p, mass, bwd_err
+        with torch.no_grad():
+            row.update(timings(torch, {
+                "kernel": lambda: layer(ids),
+                "plain": lambda: eb.embedding_bag_reference(
+                    table, ids, combiner, pad)}, 50))
+        out["layer"][combiner] = row
+        table.grad = None
+        del layer, table
+        torch.cuda.empty_cache()
+        if not (fwd_ok and bwd_ok and launched == [1, 1]
+                and row["pad_row_grad"] == 0.0):
+            raise AssertionError(f"SparseEmbedding {combiner}: {row}")
+        # the kernels alone on these ids (each case pads a further
+        # quarter of the slots): bound, plain version and library call
+        label = f"sparse_embedding_{combiner}"
+        fwd_cases.append(bag_case(torch, eb, label, v, d, cfg["bags"],
+                                  cfg["nnz"], combiner, pad, iters=50,
+                                  ids=ids.clone()))
+        bwd_cases.append(bag_bwd_case(torch, eb, label, v, d, cfg["bags"],
+                                      cfg["nnz"], combiner, pad, iters=50,
+                                      ids=ids.clone()))
+    for c in fwd_cases + bwd_cases:
+        log("kernel_case", json.dumps(c))
+    # trained through compile / fit
+    rows = cfg["steps"] * cfg["bags"]
+    x = sparse_ids(torch, torch.Generator(device="cuda").manual_seed(
+        SEED + 183), rows).cpu().numpy()
+    hidden = np.random.RandomState(SEED + 184).randn(v).astype(np.float32)
+    live = x != pad
+    score = (hidden[x] * live).sum(1) / np.maximum(live.sum(1), 1)
+    y = (score > 0).astype(np.float32)[:, None]
+    reset_name_scope()
+    net = Sequential([SparseEmbedding(v, d, combiner="mean", pad_id=pad,
+                                      input_shape=(cfg["nnz"],),
+                                      name="ctr_feature"),
+                      Dense(1, activation="sigmoid", name="ctr_head")])
+    net.build(torch.Generator().manual_seed(SEED + 185))
+    net.compile(Adam(lr=cfg["lr"]), "binary_crossentropy", device="cuda")
+    eb.LAUNCHES.reset()
+    eb.BWD_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    hist = net.fit(x, y, batch_size=cfg["bags"], nb_epoch=cfg["epochs"],
+                   shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = cfg["steps"] * cfg["epochs"]
+    launched = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                "embedding_bag_bwd": eb.BWD_LAUNCHES.value}
+    losses = [h["loss"] for h in hist]
+    out["cases"] = (fwd_cases, bwd_cases)
+    out["fit"] = {"steps": steps, "wall_s": fit_s, "losses": losses,
+                  "launches": launched,
+                  "programs": programs_of(net.estimator._programs)}
+    log("sparse_embedding", json.dumps(
+        {k: v for k, v in out.items() if k != "cases"}))
+    del net
+    free_card(torch)
+    if (launched != {"embedding_bag_fwd": steps, "embedding_bag_bwd": steps}
+            or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]):
+        raise AssertionError(f"SparseEmbedding training: {out['fit']}")
+    return out, launched
+
+
+def glove_leg(torch, eb, card):
+    """(c) A seeded GloVe-format file of 5001 words x 200 (the
+    TextClassifier's reference width; ids 1 .. 5000 in the vocabulary,
+    the last word not) read by ``WordEmbedding.from_glove`` into a
+    frozen table that feeds the TextClassifier's layers; a few graphed
+    steps train the rest.  The table must come out of ``fit`` equal to
+    the file's vectors bit for bit, with kernel 1 launched once a step
+    and kernel 2 never."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.nn import Sequential, reset_name_scope
+    from analytics_zoo_tpu_torch.nn.layers import (Convolution1D, Dense,
+                                                   GlobalMaxPooling1D,
+                                                   WordEmbedding)
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = GLOVE
+    rs = np.random.RandomState(SEED + 191)
+    vectors = (rs.randn(cfg["words"], cfg["dim"]) * 0.3).astype(np.float32)
+    words = [f"w{i}" for i in range(cfg["words"])]
+    word_index = {w: i + 1 for i, w in enumerate(words[:-1])}
+    root = tempfile.mkdtemp(prefix="zoo_glove_")
+    try:
+        path = os.path.join(root, f"glove.6B.{cfg['dim']}d.txt")
+        t0 = time.perf_counter()
+        lines = [w + " " + " ".join(f"{a:.6f}" for a in vec)
+                 for w, vec in zip(words, vectors)]
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        write_s = time.perf_counter() - t0
+        reset_name_scope()
+        t0 = time.perf_counter()
+        emb = WordEmbedding.from_glove(
+            path, word_index, name="glove_embed",
+            input_shape=(TEXT_CONFIG["sequence_length"],))
+        read_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the file's vectors as numpy reads them; the last word is not in
+    # the vocabulary, and row 0 is the pad
+    want = np.zeros((cfg["words"], cfg["dim"]), np.float32)
+    want[1:] = np.asarray([ln.split(" ")[1:] for ln in lines[:-1]],
+                          np.float32)
+    net = Sequential([emb, Convolution1D(256, 5, activation="relu"),
+                      GlobalMaxPooling1D(), Dense(128, activation="relu"),
+                      Dense(TEXT_CONFIG["class_num"])])
+    net.build(torch.Generator().manual_seed(SEED + 192))
+    net.compile(Adam(lr=cfg["lr"]), TEXT_LOSS, device="cuda")
+    x, y = text_corpus(cfg["rows"], SEED + 193)
+    before = emb.leaf("table").detach().cpu().clone()
+    eb.LAUNCHES.reset()
+    eb.BWD_LAUNCHES.reset()
+    hist = net.fit(x, y, batch_size=cfg["batch"], nb_epoch=cfg["epochs"],
+                   verbose=False)
+    torch.cuda.synchronize()
+    launched = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                "embedding_bag_bwd": eb.BWD_LAUNCHES.value}
+    after = emb.leaf("table").detach().cpu()
+    steps = cfg["epochs"] * cfg["rows"] // cfg["batch"]
+    losses = [h["loss"] for h in hist]
+    out = {"card": card, "words": cfg["words"], "dim": cfg["dim"],
+           "file_bytes": file_bytes, "write_s": write_s, "read_s": read_s,
+           "table_equals_file": bool(np.array_equal(before.cpu().numpy(),
+                                                    want)),
+           "table_unchanged_by_fit": bool(torch.equal(after, before)),
+           "steps": steps, "losses": losses, "launches": launched}
+    log("glove_text", json.dumps(out))
+    del net, emb
+    free_card(torch)
+    if (not out["table_equals_file"] or not out["table_unchanged_by_fit"]
+            or launched != {"embedding_bag_fwd": steps,
+                            "embedding_bag_bwd": 0}
+            or not np.all(np.isfinite(losses))):
+        raise AssertionError(f"WordEmbedding.from_glove leg: {out}")
+    return out, launched
+
+
+def vocabulary_net(torch):
+    """One graph net over the new vocabulary: keras2 Dense / Add /
+    Maximum / Minimum / Average / Multiply / Concatenate / Reshape, every
+    merge mode, the advanced activations (the noise layers at inference)
+    and torch-style layers, over two float inputs and a bag of ids."""
+    import analytics_zoo_tpu_torch.nn.keras2 as k2
+    from analytics_zoo_tpu_torch.nn import Input, Model, reset_name_scope
+    from analytics_zoo_tpu_torch.nn import layers as L
+
+    cfg = VOCAB_NET
+    w = cfg["width"]
+    reset_name_scope()
+    a, b = Input((w,)), Input((w,))
+    ids = Input((8,), dtype=torch.int32)
+    e = L.ELU(0.5)(L.SparseEmbedding(cfg["vocab"], w, combiner="mean")(ids))
+    h1 = L.SReLU()(k2.Dense(w, activation="relu")(a))
+    h2 = L.PReLU()(L.GaussianNoise(0.1)(k2.Dense(w)(b)))
+    merged = [L.merge([h1, h2, e], mode=m)
+              for m in ("concat", "sum", "mul", "ave", "max", "min")]
+    merged += [L.merge([h1, h2], mode="dot"), L.merge([h1, e], mode="cos"),
+               k2.Add()(h1, e), k2.Maximum()(h2, e), k2.Minimum()(h1, h2),
+               k2.Average()(h1, h2), k2.Multiply()(h2, e)]
+    z = k2.Concatenate(axis=-1)(*merged)         # 3w + 5w + 1 + 1 + 5w
+    width = 13 * w + 2
+    z = L.HardTanh(-3.0, 3.0)(L.CAdd((width,))(L.CMul((width,))(z)))
+    z = L.Narrow(1, 0, 13 * w)(z)
+    z = L.LeakyReLU(0.1)(L.Scale((13 * w,))(z))
+    z = L.RReLU()(L.SoftShrink(0.01)(L.GaussianDropout(0.2)(z)))
+    seq = k2.Dense(64, activation="tanh")(L.SpatialDropout1D(0.2)(
+        k2.Reshape((13, w))(z)))                 # (B, 13, 64)
+    z = L.Log()(L.Sqrt()(L.AddConstant(0.5)(L.Square()(
+        L.Select(1, 0)(seq)))))
+    z = L.Negative()(L.MulConstant(2.0)(L.Identity()(z)))
+    z = L.HardShrink(0.001)(L.Threshold(-5.0, 0.0)(z))
+    z = L.Mul()(L.Power(2.0, scale=0.5, shift=1.0)(L.ThresholdedReLU(
+        -10.0)(z)))
+    peaks = L.Squeeze(2)(L.Max(2)(seq))          # (B, 13)
+    out = k2.Dense(4)(k2.Concatenate()(L.Exp()(L.MulConstant(-0.1)(z)),
+                                       peaks))
+    model = Model([a, b, ids], out)
+    model.build(torch.Generator().manual_seed(SEED + 201))
+    return model
+
+
+def vocabulary_net_leg(torch, eb, dq, card):
+    """(d) ``vocabulary_net`` served int8 (its Dense kernels on kernel 3,
+    the bag table on kernel 1) from bucket graphs: graphed equal to eager
+    (``graphs.disabled()``) bit for bit, both within ``SERVE_F32_REL`` of
+    the largest output of the plain versions."""
+    from analytics_zoo_tpu_torch.core import graphs
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+
+    cfg = VOCAB_NET
+    net = vocabulary_net(torch)
+    rs = np.random.RandomState(SEED + 202)
+    xs = [rs.randn(cfg["rows"], cfg["width"]).astype(np.float32),
+          rs.randn(cfg["rows"], cfg["width"]).astype(np.float32),
+          rs.randint(0, cfg["vocab"], (cfg["rows"], 8)).astype(np.int32)]
+    xs[2][:, 6:] = 0
+    im = InferenceModel.from_keras_net(net, device="cuda",
+                                       weight_dtype="int8",
+                                       batch_buckets=cfg["buckets"],
+                                       name="vocabulary_net")
+    for b in cfg["buckets"]:
+        for _ in range(2):
+            im.predict([x[:b] for x in xs])
+    eb.LAUNCHES.reset()
+    dq.LAUNCHES.reset()
+    graphed = np.concatenate([im.predict([x[s:s + 8] for x in xs])
+                              for s in range(0, cfg["rows"], 8)]
+                             + [im.predict(xs)])
+    launched = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                "dequant_matmul": dq.LAUNCHES.value}
+    with graphs.disabled():
+        eager = np.concatenate([im.predict([x[s:s + 8] for x in xs])
+                                for s in range(0, cfg["rows"], 8)]
+                               + [im.predict(xs)])
+    with forced(PATH_REFERENCE):
+        plain = np.concatenate([im.predict([x[s:s + 8] for x in xs])
+                                for s in range(0, cfg["rows"], 8)]
+                               + [im.predict(xs)])
+    top = float(np.abs(plain).max())
+    progs = programs_of(im._programs)
+    out = {"card": card, "layers": len(net.layers),
+           "graphed_equals_eager": bool(np.array_equal(graphed, eager)),
+           "max_abs_diff_vs_plain": float(np.abs(graphed - plain).max()),
+           "largest": top, "launches": launched, "programs": progs,
+           "finite": bool(np.all(np.isfinite(graphed)))}
+    log("vocabulary_net", json.dumps(out))
+    replays = cfg["rows"] // 8 + 1
+    if (not out["graphed_equals_eager"] or not out["finite"]
+            or out["max_abs_diff_vs_plain"] > SERVE_F32_REL * top
+            or launched["embedding_bag_fwd"] != replays
+            or launched["dequant_matmul"] != 3 * replays):
+        raise AssertionError(f"vocabulary net: {out}")
+    del im, net
+    free_card(torch)
+    return out, launched
+
+
+def vocabulary_phase(torch, eb, dq, fa, card):
+    """Phase 17: int8 / int4 BERT-Base from the native model, and the
+    layer vocabulary on the card; returns each leg's launches by
+    kernel."""
+    t_phase = time.perf_counter()
+    bert, bert_launches = qbert_leg(torch, eb, dq, fa, card)
+    reset_counts(eb, dq, fa)
+    sparse, sparse_launches = sparse_embedding_leg(torch, eb, card)
+    reset_counts(eb, dq, fa)
+    glove, glove_launches = glove_leg(torch, eb, card)
+    reset_counts(eb, dq, fa)
+    vnet, vnet_launches = vocabulary_net_leg(torch, eb, dq, card)
+    summary = {
+        "card": card, "seconds": time.perf_counter() - t_phase,
+        "bert_weight_nbytes": {wd: bert[wd]["weight_nbytes"]
+                               for wd in ("float32", "int8", "int4")},
+        "bert_device_ms": {wd: {b: t["device_ms"]
+                                for b, t in bert[wd]["timing"].items()}
+                           for wd in ("float32", "int8", "int4")},
+        "bert_vs_plain": {wd: bert[wd]["max_abs_logit_diff_vs_plain"]
+                          for wd in ("int8", "int4")},
+        "bert_vs_f32": {wd: [bert[wd]["rel_logit_diff_vs_f32"],
+                             bert[wd]["argmax_agreement_vs_f32"]]
+                        for wd in ("int8", "int4")},
+        "bert_records_per_s": {
+            wd: bert[wd]["cluster_serving"]["records_per_s"]
+            for wd in ("int8", "int4")},
+        "bert_embedding_dequantize_ms": {
+            wd: bert[wd]["embedding_dequantize_ms"]
+            for wd in ("int8", "int4")},
+        "sparse_fit_losses": sparse["fit"]["losses"],
+        "glove_table_unchanged": glove["table_unchanged_by_fit"],
+        "vocabulary_net_vs_plain": vnet["max_abs_diff_vs_plain"]}
+    log("vocabulary_summary", json.dumps(summary))
+    return {"bert": bert_launches, "sparse": sparse_launches,
+            "glove": glove_launches, "vocabulary_net": vnet_launches,
+            "bag_cases": sparse["cases"][0], "bwd_cases": sparse["cases"][1]}
+
+
 def main() -> int:
     import torch
 
@@ -7968,6 +8605,8 @@ def main() -> int:
         bwd_cases += more[1]
         dq_cases += more[2]
     dq_cases += import_kernel_cases(torch, dq)
+    dq_cases += qbert_kernel_cases(torch, dq)
+    fc6_f64_case(torch, dq)
     fl_cases = flash_cases(torch, fa)
     lse_cases, bwd_dq_cases, bwd_dkv_cases = flash_train_cases(torch, fa)
     for c in fl_cases + lse_cases + bwd_dq_cases + bwd_dkv_cases:
@@ -7997,6 +8636,10 @@ def main() -> int:
     detection = detection_phase(torch, dq, card)
     reset_counts(eb, dq, fa)
     imported = model_import_phase(torch, dq, card)
+    reset_counts(eb, dq, fa)
+    vocab = vocabulary_phase(torch, eb, dq, fa, card)
+    bag_cases += vocab["bag_cases"]
+    bwd_cases += vocab["bwd_cases"]
     rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
                  "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
@@ -8008,7 +8651,12 @@ def main() -> int:
                    **{p: rec[p]["embedding_bag_fwd"] for p in rec_paths},
                    **{p: v["embedding_bag_fwd"] for p, v in text.items()},
                    **{p: v["embedding_bag_fwd"] for p, v in surface.items()
-                      if p != "training_surface_bert_eval"}}
+                      if p != "training_surface_bert_eval"},
+                   "sparse_embedding_training": vocab["sparse"][
+                       "embedding_bag_fwd"],
+                   "glove_text_training": vocab["glove"]["embedding_bag_fwd"],
+                   "vocabulary_net": vocab["vocabulary_net"][
+                       "embedding_bag_fwd"]}
     bwd_by_path = {"training": trained["embedding_bag_bwd"],
                    "training_surface_stream": surface[
                        "training_surface_stream"]["embedding_bag_bwd"],
@@ -8016,7 +8664,9 @@ def main() -> int:
                    **{p: rec[p]["embedding_bag_bwd"] for p in rec_paths
                       if p.endswith("_training")},
                    **{p: v["embedding_bag_bwd"] for p, v in text.items()
-                      if "embedding_bag_bwd" in v}}
+                      if "embedding_bag_bwd" in v},
+                   "sparse_embedding_training": vocab["sparse"][
+                       "embedding_bag_bwd"]}
     dq_by_path = {"serving": served["dequant_matmul"],
                   "training": trained["dequant_matmul"],
                   "bert_serving": bert["dequant_matmul"],
@@ -8028,7 +8678,10 @@ def main() -> int:
                   **{p: rec[p]["dequant_matmul"] for p in rec_paths
                      if p.endswith("_serving")},
                   **{p: v["dequant_matmul"] for p, v in text.items()
-                     if "dequant_matmul" in v}}
+                     if "dequant_matmul" in v},
+                  "bert_int8_serving": vocab["bert"]["int8"]["dequant_matmul"],
+                  "bert_int4_serving": vocab["bert"]["int4"]["dequant_matmul"],
+                  "vocabulary_net": vocab["vocabulary_net"]["dequant_matmul"]}
     kernels = [
         headline(bag_cases, "embedding_bag_fwd", "cuda", BAG_SRC, BAG_TPU,
                  sum(fwd_by_path.values()),
@@ -8057,7 +8710,9 @@ def main() -> int:
                  "cluster_serving": cluster["flash_attention_fwd"],
                  "loadgen": loadgen["flash_attention_fwd"],
                  "training_surface_bert_eval": surface[
-                     "training_surface_bert_eval"]["flash_attention_fwd"]}
+                     "training_surface_bert_eval"]["flash_attention_fwd"],
+                 **{f"bert_{wd}_serving": vocab["bert"][wd]["flash_attention"]
+                    for wd in ("int8", "int4")}}
     flash_rows = [
         (fl_cases, "flash_attention_fwd", FLASH_SRC, FLASH_TPU, fwd_paths,
          "bert_l128"),

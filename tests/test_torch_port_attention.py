@@ -608,6 +608,53 @@ def test_quantized_bert_serving_matches_jax(weight_dtype):
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
+@pytest.mark.parametrize("weight_dtype,stacked", [
+    ("int8", False), ("int4", False), ("int4", True)])
+def test_quantized_bert_base_width_matches_jax(weight_dtype, stacked):
+    """int8 / int4 ``BERTClassifier`` at BERT-Base widths (vocab 30522,
+    hidden 768, 12 heads, intermediate 3072) with 2 blocks, B = 2,
+    L = 128: the served logits equal (atol 5e-5) the JAX float model run
+    on the JAX ``quantize_pytree`` tree, dequantized (reference fault 4).
+    ``stacked=True`` in int4 follows the JAX rule: the 3-D stacked
+    kernels stay int8, the 2-D stacked biases and LayerNorm leaves are
+    packed int4 across blocks, and each block serves its row of them."""
+    from analytics_zoo_tpu.deploy.inference import (
+        dequantize_pytree as jax_dequant, quantize_pytree as jax_quant)
+
+    cfg = dict(BASE, stacked=stacked)
+    jnet, tnet, params = _bert_models("BERTClassifier", cfg, L=128,
+                                      num_classes=2)
+    bits = 4 if weight_dtype == "int4" else 8
+    qtree = jax_quant(params, bits=bits)
+    if stacked:
+        blocks = qtree["bertclassifier_1_bert"]["blocks"]
+        assert set(blocks["ffn1"]["kernel"]) == {"q", "scale"}
+        assert set(blocks["ffn1"]["bias"]) == {"q4", "scale"}
+        assert set(blocks["ln1"]["gamma"]) == {"q4", "scale"}
+    xs = _inputs(30522, 2, 128, seed=4)
+    want = JaxIM.from_keras_net(jnet, _jnp(jax_dequant(qtree)),
+                                {}).predict(xs)
+    tm = InferenceModel.from_keras_net(tnet, params, device="cpu",
+                                       weight_dtype=weight_dtype)
+    got = tm.predict(xs)
+    assert got.shape == (2, 2) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=5e-5)
+    # every Dense of the blocks, the pooler and the head holds its kernel
+    # quantized, so the dequantize-matmul serves it
+    from analytics_zoo_tpu_torch.nn.layers import Dense
+
+    dense = [m for m in tm._net.modules() if isinstance(m, Dense)]
+    assert len(dense) == 6 * 2 + 2
+    assert all(m.qleaf("kernel") is not None for m in dense)
+    kinds = {next(iter(set(m.qleaf("kernel")) - {"scale"})) for m in dense}
+    if bits == 8:
+        assert kinds == {"q"}
+    elif stacked:               # the stacked kernels stay int8
+        assert kinds == {"q", "q4"}
+    else:
+        assert kinds == {"q4"}
+
+
 def test_bert_batcher_matches_direct_predict():
     """Single requests from threads through the DynamicBatcher, at two
     sequence lengths (two batch groups): equal to one direct predict."""

@@ -2768,3 +2768,78 @@ def test_onnx_shape_chain_captures_on_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(first, again)
     np.testing.assert_allclose(first, x.reshape(4, 12) @ inits["w"],
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", teb.COMBINERS)
+def test_sparse_embedding_on_card_matches_plain(cuda_device, combiner):
+    """``SparseEmbedding`` on the card: the forward launches kernel 1 and
+    the table's gradient kernel 2, once each, and both match the plain
+    versions (forward rtol 1e-5 / atol 1e-5; gradient within 1e-6 +
+    1e-5 of each element's summed magnitude); the pad row gets no
+    gradient."""
+    from analytics_zoo_tpu_torch.nn.layers import SparseEmbedding
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+
+    layer = SparseEmbedding(5003, 24, combiner=combiner, pad_id=0)
+    layer.build(torch.Generator().manual_seed(0), (300, 7))
+    layer = layer.to(cuda_device)
+    table = layer.leaf("table")
+    _, ids = _bag_inputs(5003, 24, 300, 7, 0, seed=4)
+    ids = torch.from_numpy(ids).to(cuda_device)
+    g = torch.from_numpy(np.random.RandomState(5).randn(300, 24)
+                         .astype(np.float32)).to(cuda_device)
+
+    def run():
+        table.grad = None
+        y = layer(ids)
+        (y * g).sum().backward()
+        return y.detach(), table.grad.clone()
+
+    n0, b0 = teb.LAUNCHES.value, teb.BWD_LAUNCHES.value
+    y, gt = run()
+    torch.cuda.synchronize()
+    assert (teb.LAUNCHES.value - n0, teb.BWD_LAUNCHES.value - b0) == (1, 1)
+    with forced(PATH_REFERENCE):
+        y_ref, gt_ref = run()
+    torch.testing.assert_close(y, y_ref, rtol=RTOL, atol=1e-5)
+    mass = teb.embedding_bag_backward_reference(5003, ids, g.abs(),
+                                                combiner, 0)
+    assert bool(torch.all((gt - gt_ref).abs() <= 1e-6 + 1e-5 * mass))
+    assert float(gt[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_dtype", ["int8", "int4"])
+def test_quantized_bert_base_launch_counts_on_card(cuda_device,
+                                                   weight_dtype):
+    """int8 / int4 ``BERTClassifier`` at BERT-Base widths (2 blocks)
+    served on the card: every Dense of a block, the pooler and the head
+    on kernel 3 (6 x 2 + 2 = 14 a forward) and attention on kernel 4 (2
+    a forward), in a captured bucket graph too; the answers within 1e-3
+    of the plain versions."""
+    from analytics_zoo_tpu_torch.deploy import InferenceModel
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.ops import flash_attention as tfa
+    from analytics_zoo_tpu_torch.ops.dispatch import PATH_REFERENCE, forced
+    from analytics_zoo_tpu_torch.tfpark import BERTClassifier
+
+    reset_name_scope()
+    net = BERTClassifier(2, bert_config=dict(
+        vocab=30522, hidden_size=768, n_block=2, nhead=12,
+        intermediate_size=3072), generator=torch.Generator().manual_seed(3))
+    im = InferenceModel.from_keras_net(net, device=cuda_device,
+                                       weight_dtype=weight_dtype,
+                                       batch_buckets=(4,))
+    rs = np.random.RandomState(6)
+    xs = [rs.randint(0, 30522, (4, 128)).astype(np.int32),
+          rs.randint(0, 2, (4, 128)).astype(np.int32)]
+    for _ in range(3):                  # eager, captured, replayed
+        d0, f0 = tdq.LAUNCHES.value, tfa.LAUNCHES.value
+        got = im.predict(xs)
+        torch.cuda.synchronize()
+        assert (tdq.LAUNCHES.value - d0, tfa.LAUNCHES.value - f0) == (14, 2)
+    with forced(PATH_REFERENCE):
+        want = im.predict(xs)
+    assert got.shape == (4, 2) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)

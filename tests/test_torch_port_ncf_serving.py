@@ -496,6 +496,15 @@ def test_port_imports_no_jax():
         " image=np.ones((4, 5, 3), np.uint8)), timeout=60)\n"
         "cs.stop()\n"
         "assert np.asarray(r).shape == (2,), r\n"
+        "import analytics_zoo_tpu_torch.nn as tnn, analytics_zoo_tpu_torch"
+        ".nn.keras2 as k2, analytics_zoo_tpu_torch.ops as ops\n"
+        "v = tnn.Sequential([tnn.SparseEmbedding(9, 4, input_shape=(3,)),"
+        " k2.Dense(4), tnn.PReLU(), tnn.Narrow(1, 1, 2), tnn.CAdd((2,))])\n"
+        "v.build(torch.Generator().manual_seed(0), (2, 3))\n"
+        "assert v(torch.ones(2, 3, dtype=torch.int32)).shape == (2, 2)\n"
+        "assert ops.embedding_bag(torch.ones(5, 2), torch.ones(2, 3,"
+        " dtype=torch.int32)).shape == (2, 2)\n"
+        "assert ops.int8_dot is not None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'analytics_zoo_tpu' or m.startswith('analytics_zoo_tpu.')"
         " or m == 'ml_dtypes']\n"
@@ -512,6 +521,13 @@ def test_port_sources_name_no_jax():
     files = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "flash_bwd_shapes.py"]
     assert len(files) > 10
+    layers = ROOT / "analytics_zoo_tpu_torch" / "nn" / "layers"
+    for new in (layers / "advanced_activations.py",
+                layers / "torch_style.py", layers / "merge.py",
+                layers / "embedding.py",
+                ROOT / "analytics_zoo_tpu_torch" / "nn" / "keras2.py",
+                ROOT / "analytics_zoo_tpu_torch" / "ops" / "__init__.py"):
+        assert new in files, new
     for f in files:
         text = f.read_text()
         for bad in ("import jax", "from jax", "analytics_zoo_tpu.",

@@ -339,3 +339,59 @@ def test_jax_jit_cannot_serve_a_shape_chain(tmp_path, zoo_ctx):
     got = InferenceModel.load_onnx(str(path), batch_buckets=(8,),
                                    device="cpu").predict(xs)
     assert got.shape == (8, 2) and np.all(np.isfinite(got))
+
+
+def _split_bytes(split: bool):
+    """x(16) -> MatMul(12) -> two halves -> Add: the halves by one Split
+    node (two outputs), or by two Slices of the same product."""
+    rs = np.random.RandomState(3)
+    w = (rs.randn(16, 12) * 0.2).astype(np.float32)
+    inits = [proto.tensor_from_array("w", w)]
+    nodes = [proto.Node("MatMul", "m", ["x", "w"], ["h"])]
+    if split:
+        nodes.append(proto.Node("Split", "s", ["h"], ["a", "b"],
+                                {"axis": 1, "split": [6, 6]}))
+    else:
+        for name, lo, hi in (("a", 0, 6), ("b", 6, 12)):
+            for k, v in (("starts", lo), ("ends", hi), ("axes", 1)):
+                inits.append(proto.tensor_from_array(
+                    f"{name}_{k}", np.asarray([v], np.int64)))
+            nodes.append(proto.Node(
+                "Slice", f"slice_{name}",
+                ["h", f"{name}_starts", f"{name}_ends", f"{name}_axes"],
+                [name]))
+    nodes.append(proto.Node("Add", "add", ["a", "b"], ["y"]))
+    g = proto.Graph(name="split", nodes=nodes, initializers=inits,
+                    inputs=[proto.ValueInfo("x", 1, (None, 16))],
+                    outputs=[proto.ValueInfo("y", 1, (None, 6))])
+    return proto.encode_model(proto.Model(graph=g))
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_quantized_split_binds_each_output(calibrated):
+    """A quantized program binds a multi-output node's values one per
+    output, as the f32 program does: MatMul -> Split -> Add, quantized
+    with and without calibration, equals (bit for bit) the same graph
+    with the Split written as two Slices.  The JAX package stores the
+    Split's tuple under its first output (its fault 9), so it has no
+    answer to match here."""
+    rs = np.random.RandomState(5)
+    cal = ([rs.randn(8, 16).astype(np.float32) for _ in range(3)]
+           if calibrated else None)
+    x = torch.from_numpy(rs.randn(8, 16).astype(np.float32))
+    got, want = [], []
+    for split, out in ((True, got), (False, want)):
+        prog = load_onnx_bytes(_split_bytes(split))
+        f32, _ = prog.call(prog.params, prog.state, x)
+        qp = tq.quantize_program(prog, cal, min_size=1, device="cpu")
+        assert qp.quantized_nodes == ["m"]
+        assert bool(qp.act_scales) == calibrated
+        with torch.no_grad():
+            q, _ = qp.call(qp.params, qp.state, x)
+            served = to_model(qp).eval()(x)
+        out += [f32, q, served]
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (8, 6)
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    # int8 against f32: within the quantization's error, not equal
+    assert 0 < float((got[1] - got[0]).abs().max()) < 0.05
