@@ -12,7 +12,11 @@ it sits.
 Every leaf travels by key path and shape, so a layer's leaves need no
 code here: ``Deconvolution2D``'s kernel (kh, kw, in, out), the locally
 connected layers' per-position kernels ((positions, patch, out)) and
-biases, SSD's convolution and BN leaves load as ResNet-50's do.
+biases, SSD's convolution and BN leaves load as ResNet-50's do, and so
+do the AutoML blocks' nested trees: ``MTNetBlock``'s ``mem`` / ``ctx`` /
+``query`` encoders with their ``gru{i}`` sub-trees, heads and AR leaves,
+and the encoder-decoder's ``enc`` / ``dec`` sub-trees (a wrong shape or a
+missing leaf names its path, e.g. ``mtnetblock_1.mem.gru0.wh``).
 
 State trees (BatchNormalization's moving statistics, ``{layer_name:
 {"moving_mean", "moving_var"}}``) load and export the same way, beside

@@ -1,15 +1,17 @@
 """Unified typed configuration.
 
 A single dataclass is the source of truth; env vars with the ``ZOO_``
-prefix override fields.  This is the JAX package's ``ZooConfig`` cut to
-the knobs the ported modules read.
+prefix override fields; ``from_dict`` / ``from_yaml`` / ``to_dict`` read
+and write it as a dict or a yaml file.  This is the JAX package's
+``ZooConfig`` cut to the knobs the ported modules read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 _ENV_PREFIX = "ZOO_"
@@ -171,6 +173,11 @@ class ZooConfig:
     # p99s, healthy replicas); None = off.
     tensorboard_dir: Optional[str] = None
 
+    # -- misc ---------------------------------------------------------------
+    # Keys of a dict or yaml config that name no field (from_dict keeps
+    # them here, as the JAX package does).
+    extra: Dict[str, Any] = field(default_factory=dict)
+
     @classmethod
     def from_env(cls, **overrides: Any) -> "ZooConfig":
         """Build a config from defaults <- ZOO_* env vars <- overrides."""
@@ -182,8 +189,47 @@ class ZooConfig:
         kwargs.update(overrides)
         return cls(**kwargs)
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ZooConfig":
+        """Fields from ``d``'s keys that name one; the other keys go to
+        ``extra``."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        known = {k: v for k, v in d.items() if k in names}
+        extra = {k: v for k, v in d.items() if k not in names}
+        cfg = cls(**known)
+        cfg.extra.update(extra)
+        return cfg
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "ZooConfig":
+        """A yaml file (JSON where ``yaml`` is not installed); nested
+        sections flatten into ``section_key`` names."""
+        try:
+            import yaml  # type: ignore
+
+            with open(path) as f:
+                d = yaml.safe_load(f) or {}
+        except ImportError:
+            with open(path) as f:
+                d = json.load(f)
+        return cls.from_dict(_flatten(d))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
     def replace(self, **kw: Any) -> "ZooConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _flatten(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in d.items():
+        key = f"{prefix}{k}" if not prefix else f"{prefix}_{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
 
 
 def _coerce(raw: str, typ: Any) -> Any:

@@ -42,10 +42,9 @@ def crc32c(data: bytes) -> int:
     return crc ^ 0xFFFFFFFF
 
 
-def _masked_crc(data: bytes) -> int:
-    """TFRecord / TB-event masked checksum."""
-    crc = crc32c(data)
-    return ((crc >> 15) | (crc << 17)) + 0xA282EAD8 & 0xFFFFFFFF
+# native.masked_crc32c takes the C++ library when it builds and this
+# table otherwise (the table stays its fallback and golden reference)
+from analytics_zoo_tpu_torch.native import masked_crc32c as _masked_crc  # noqa: E402
 
 
 # ---------------------------------------------------------------------------

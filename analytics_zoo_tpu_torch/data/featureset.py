@@ -26,6 +26,19 @@ import torch
 MemoryType = str  # "DRAM" | "DISK_AND_DRAM" | "DIRECT"
 
 
+def _gather(a: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Batch assembly: the native parallel row gather (``native``) for a
+    C-contiguous array whose batch is 1 MiB or more, numpy fancy
+    indexing otherwise (the same rows either way)."""
+    row_bytes = a.dtype.itemsize * int(np.prod(a.shape[1:], dtype=int))
+    if row_bytes * len(idx) >= (1 << 20) and a.flags["C_CONTIGUOUS"]:
+        from analytics_zoo_tpu_torch.native import available, gather_rows
+
+        if available():
+            return gather_rows(a, idx)
+    return np.asarray(a[idx])
+
+
 def npy_header(path: str) -> Tuple[Tuple[int, ...], np.dtype]:
     """(shape, dtype) of a .npy file from its header only: no data is
     read or mapped, so the tier router can size a dataset larger than
@@ -236,7 +249,7 @@ class FeatureSet:
         for s in range(steps):
             idx = order[s * bs:(s + 1) * bs]
             yield _apply(self.transforms,
-                         tuple(np.asarray(a[idx]) for a in self.arrays))
+                         tuple(_gather(a, idx) for a in self.arrays))
 
     def read_rows(self, start: int, stop: int) -> List[np.ndarray]:
         """Row span [start, stop) of every backing array (views for DRAM
@@ -369,7 +382,8 @@ class SlicedFeatureSet(FeatureSet):
             rows = self._rng.permutation(n) if shuffle else np.arange(n)
             for s in range(n // bs):
                 idx = rows[s * bs:(s + 1) * bs]
-                yield _apply(self.transforms, tuple(a[idx] for a in arrays))
+                yield _apply(self.transforms,
+                             tuple(_gather(a, idx) for a in arrays))
             rem = rows[(n // bs) * bs:]
             if len(rem):
                 carry = [a[rem] for a in arrays]

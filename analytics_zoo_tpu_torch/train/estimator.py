@@ -764,6 +764,18 @@ class Estimator:
             self._programs.clear()
             self._programs_key = key
 
+    def release_graphs(self) -> None:
+        """Drop every captured program (training, evaluate, predict) and
+        the memory pools their graphs hold; the weights and optimizer
+        state stay, and the next ``fit`` / ``evaluate`` / ``predict``
+        captures afresh.  A search that keeps each trial's model calls
+        this for the trials that lost."""
+        self._programs.clear()
+        self._eval_programs.clear()
+        self._feed = None
+        self._pool = None
+        self._eval_pool = None
+
     def _graph_pool(self, eval_pool: bool = False):
         """The step programs' shared graph memory pool, or with
         ``eval_pool`` the evaluate and predict programs' (None off the

@@ -532,7 +532,41 @@
    the plain versions.  ``quantized_bert``, ``sparse_embedding``,
    ``glove_text``, ``vocabulary_net`` and ``vocabulary_summary`` lines
    carry the numbers with the card's name and power limit.
-18. Prints the kernels JSON line and, last, the ok line.
+18. AutoML forecasting and the host data modules
+   (``automl_host_phase``).  (a) ``native``: crc32c MB/s over 4 MB, the
+   C++ library against the Python table (equal values); ``gather_rows``
+   against numpy fancy indexing at a 4 MiB batch (GB/s, equal bytes);
+   the library must build.  (b) 100,000 ML-1M-shaped ratings (6,040
+   users, 3,706 items) written as ``tf.Example`` TFRecords (write and
+   read records/s), read back by ``TFDataset.from_tfrecord_file`` and
+   trained 2 epochs through ``TFEstimator`` on phase 4's NeuralCF and
+   Adam at batch 2048: the losses equal ``Estimator.fit``'s on the same
+   arrays from the same init and order bit for bit, with kernel 1 and 2
+   launched 4 + 4 times a step.  (c) ``SyntheticGiantTable(10**8, 2,
+   seed=11)`` (0.8 GB, one shard) filled on the card in chunks through
+   pinned buffers (fill seconds); kernel 1 on 8,192 seeded ids (N = 1)
+   against its plain version, its bound and ``F.embedding_bag``; the rows
+   equal ``rows()`` on the host bit for bit.  (d) A seeded series of
+   10,320 half-hourly points (nyc_taxi's length) with one extra feature,
+   rolled into windows with numpy: ``MTNetGridRandomRecipe()`` at its
+   defaults through ``SearchEngine(max_parallel=4, backend="thread")``
+   with a trainable of ``TimeSequencePredictor.fit``'s form, then
+   ``BayesRecipe(num_samples=8)`` (TPE over ``VanillaLSTM``,
+   ``max_parallel=2``): per-trial wall, trials/s and the card's busy
+   share (``nvidia-smi``'s utilization, sampled); the best validation
+   MSE below a last-value persistence forecast on the same windows; the
+   losers' graphs released; the best model saved, restored and
+   predicting equal bit for bit.  (e) 64 configs of a small MLP
+   trainable (lr x init scale, 60 full-batch steps) as one
+   ``backend="vmap"`` call against the same 64 one by one: scores
+   within 1e-4 relative, both walls.  (f) Where pandas imports:
+   ``TimeSequencePredictor(...).fit(df, recipe=MTNetSmokeRecipe())`` ->
+   ``predict`` -> ``save`` -> ``load_ts_pipeline`` -> ``predict``, equal
+   bit for bit.  ``native``, ``tfrecord_estimator``, ``giant_table``,
+   ``automl_search``, ``vmap_population``, ``automl_dataframe`` and
+   ``automl_host_summary`` lines carry the numbers with the card's name
+   and power limit.
+19. Prints the kernels JSON line and, last, the ok line.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -8550,6 +8584,557 @@ def vocabulary_phase(torch, eb, dq, fa, card):
             "bag_cases": sparse["cases"][0], "bwd_cases": sparse["cases"][1]}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: AutoML forecasting and the host data modules
+
+# (b) ML-1M-shaped ratings as TFRecords; ml-1m has 1,000,209 ratings,
+# cut to 100,000 for time
+TFREC = dict(records=100_000, epochs=2, batch=TRAIN_BATCH)
+# (c) the giant table: JAX bench.py's giant leg at one shard
+GIANT = dict(rows=10 ** 8, dim=2, seed=11, ids=8192, chunk_rows=1 << 22)
+# (d) nyc_taxi's length at half-hour resolution, with one extra feature
+SERIES = dict(points=10_320, val_share=0.1)
+BAYES_SAMPLES, BAYES_PARALLEL, MTNET_PARALLEL = 8, 2, 4
+# (e) the vmap population: an 8 x 8 grid of (lr, init scale)
+POPULATION = dict(rows=4096, features=16, hidden=64, steps=60,
+                  lrs=(1e-3, 2e-3, 5e-3, 1e-2, 2e-2, 5e-2, 1e-1, 2e-1),
+                  scales=(0.05, 0.08, 0.11, 0.14, 0.17, 0.2, 0.25, 0.3))
+VMAP_RTOL = 1e-4
+
+
+def native_leg(card):
+    """(a) The native library: crc32c over 4 MB, and gather_rows at 1,
+    4, 16 and 64 MiB batches of 256-byte rows (its own thread count, and
+    1 / 2 / 4 / 8 threads) against their Python and numpy versions."""
+    from analytics_zoo_tpu_torch import native
+    from analytics_zoo_tpu_torch.core.summary import crc32c as table_crc
+
+    if not native.available():
+        raise AssertionError("the native library did not build (g++)")
+    rs = np.random.RandomState(SEED + 181)
+    data = rs.bytes(4 << 20)
+    t0 = time.perf_counter()
+    want = table_crc(data)
+    py_s = time.perf_counter() - t0
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        got = native.crc32c(data)
+    native_s = (time.perf_counter() - t0) / reps
+    src = rs.randn(1 << 20, 64).astype(np.float32)      # 256 MB, 256 B rows
+    variants = [("native", native.gather_rows),
+                ("numpy", lambda a, i: a[i])] + [
+        (f"threads_{t}", lambda a, i, t=t: native.gather_rows(
+            a, i, n_threads=t)) for t in (1, 2, 4, 8)]
+    gathers = {}
+    equal = True
+    for mib in (1, 4, 16, 64):                           # batch MiB
+        idx = rs.randint(0, len(src), (mib << 20) // 256)
+        n_rep = reps if mib < 64 else 5
+        for _, fn in variants:
+            fn(src, idx)                                 # warm
+        # three rounds in rotated order, the best of each: the first
+        # variant timed in a round reads slower, whichever it is
+        best = {}
+        for r in range(3):
+            for name, fn in variants[r:] + variants[:r]:
+                t0 = time.perf_counter()
+                for _ in range(n_rep):
+                    fn(src, idx)
+                t = (time.perf_counter() - t0) / n_rep
+                best[name] = min(best.get(name, t), t)
+        equal = equal and bool(np.array_equal(native.gather_rows(src, idx),
+                                              src[idx]))
+        gathers[f"{mib}MiB"] = {k: len(idx) * 256 / v / 1e9
+                                for k, v in best.items()}
+    out = {"card": card, "host_cpus": os.cpu_count(),
+           "crc_bytes": len(data), "crc_equal": got == want,
+           "crc_native_mb_per_s": len(data) / native_s / 1e6,
+           "crc_python_mb_per_s": len(data) / py_s / 1e6,
+           "gather_gb_per_s": gathers, "gather_equal": equal,
+           "gather_native_gb_per_s": gathers["4MiB"]["native"],
+           "gather_numpy_gb_per_s": gathers["4MiB"]["numpy"],
+           "host_clock": True}
+    log("native", json.dumps(out))
+    if not (out["crc_equal"] and equal):
+        raise AssertionError(f"native leg: {out}")
+    return out
+
+
+def tfrecord_estimator_leg(torch, eb, card):
+    """(b) ML-1M-shaped ratings through TFRecords into ``TFEstimator``:
+    the losses equal ``Estimator.fit``'s from the same init and order,
+    4 + 4 kernel launches a step."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.data.tfrecord import (make_example,
+                                                       write_tfrecords)
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import (EstimatorSpec, TFDataset,
+                                                TFEstimator)
+    from analytics_zoo_tpu_torch.train.estimator import Estimator
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    cfg = TFREC
+    rs = np.random.RandomState(SEED + 182)
+    n = cfg["records"]
+    u = rs.randint(1, USERS + 1, n)
+    it = rs.randint(1, ITEMS + 1, n)
+    y = rs.randint(0, 5, n)
+    root = tempfile.mkdtemp(prefix="zoo_tfrecord_")
+    try:
+        path = os.path.join(root, "ratings.tfrecord")
+        t0 = time.perf_counter()
+        write_tfrecords(path, [make_example(
+            {"user": [int(a)], "item": [int(b)], "label": [int(c)]})
+            for a, b, c in zip(u, it, y)])
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ds = TFDataset.from_tfrecord_file(path, ["user", "item"], "label",
+                                          batch_size=cfg["batch"])
+        read_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    data_equal = (np.array_equal(ds.features[0][:, 0], u)
+                  and np.array_equal(ds.features[1][:, 0], it)
+                  and np.array_equal(ds.y, y))
+
+    def ncf():
+        reset_name_scope()
+        return NeuralCF(USERS, ITEMS, class_num=5, user_embed=20,
+                        item_embed=20, hidden_layers=(40, 20, 10),
+                        mf_embed=20, device="cuda")
+
+    model = ncf()
+    init = export_params(model.model)
+
+    def model_fn(features, labels, mode, params):
+        return EstimatorSpec(mode, model=model.model,
+                             loss="sparse_categorical_crossentropy",
+                             optimizer=Adam(lr=1e-3), metrics=["accuracy"])
+
+    est = TFEstimator(model_fn)
+    eb.LAUNCHES.reset()
+    eb.BWD_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    est.train(lambda: ds, batch_size=cfg["batch"], epochs=cfg["epochs"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launched = {"embedding_bag_fwd": eb.LAUNCHES.value,
+                "embedding_bag_bwd": eb.BWD_LAUNCHES.value}
+    steps = est.estimator.global_step
+    losses = [h["loss"] for h in est.estimator.history]
+    ref = ncf()
+    plain = Estimator(ref.model, optimizer=Adam(lr=1e-3),
+                      loss="sparse_categorical_crossentropy",
+                      metrics=["accuracy"])
+    plain.set_initial_weights(init)
+    plain.fit(ds.features, ds.y, batch_size=cfg["batch"],
+              epochs=cfg["epochs"], verbose=False)
+    ref_losses = [h["loss"] for h in plain.history]
+    evaluated = est.evaluate(lambda: (ds.features, ds.y),
+                             batch_size=cfg["batch"])
+    out = {"card": card, "records": n, "file_bytes": file_bytes,
+           "write_records_per_s": n / write_s,
+           "read_records_per_s": n / read_s, "data_equal": data_equal,
+           "steps": steps, "train_s": train_s,
+           "samples_per_s": steps * cfg["batch"] / train_s,
+           "losses": losses, "fit_losses": ref_losses,
+           "losses_equal_fit": losses == ref_losses,
+           "evaluate": evaluated, "launches": launched,
+           "launches_per_step": {k: v / steps for k, v in launched.items()}}
+    log("tfrecord_estimator", json.dumps(out))
+    del est, plain, model, ref
+    free_card(torch)
+    if (not data_equal or not out["losses_equal_fit"]
+            or launched != {"embedding_bag_fwd": 4 * steps,
+                            "embedding_bag_bwd": 4 * steps}
+            or not np.all(np.isfinite(losses))):
+        raise AssertionError(f"TFRecord -> TFEstimator leg: {out}")
+    return out, launched
+
+
+def giant_table_leg(torch, eb, card):
+    """(c) ``SyntheticGiantTable(10**8, 2)`` filled on the card through
+    pinned buffers, looked up by kernel 1 (its case beside the plain
+    version, the bound and ``F.embedding_bag``); the rows equal the
+    host's bit for bit."""
+    import concurrent.futures as cf
+
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.data import SyntheticGiantTable
+
+    cfg = GIANT
+    table = SyntheticGiantTable(cfg["rows"], cfg["dim"], seed=cfg["seed"])
+    dev = torch.empty(table.shape, dtype=torch.float32, device="cuda")
+    step = cfg["chunk_rows"]
+    spans = [(lo, min(lo + step, cfg["rows"]))
+             for lo in range(0, cfg["rows"], step)]
+    pinned = [torch.empty((step, cfg["dim"]), dtype=torch.float32)
+              .pin_memory() for _ in range(2)]
+    done = [None, None]
+    copy_stream = torch.cuda.Stream()
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for k, ((lo, hi), rows) in enumerate(zip(
+                spans, pool.map(lambda sp: table.rows(*sp), spans))):
+            slot = k % 2
+            if done[slot] is not None:
+                done[slot].synchronize()
+            buf = pinned[slot][:hi - lo]
+            buf.copy_(torch.from_numpy(rows))
+            with torch.cuda.stream(copy_stream):
+                dev[lo:hi].copy_(buf, non_blocking=True)
+                done[slot] = torch.cuda.Event()
+                done[slot].record(copy_stream)
+    copy_stream.synchronize()
+    fill_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 183)
+    ids = torch.randint(0, cfg["rows"], (cfg["ids"], 1), device="cuda",
+                        generator=g, dtype=torch.int32)
+    eb.LAUNCHES.reset()
+    got = eb.embedding_bag(dev, ids, "sum", None)
+    torch.cuda.synchronize()
+    launched = {"embedding_bag_fwd": eb.LAUNCHES.value}
+    host_ids = ids[:, 0].cpu().numpy()
+    want = np.stack([table.row(int(i)) for i in host_ids])
+    rows_equal = bool(np.array_equal(got.cpu().numpy(), want))
+    ref = eb.embedding_bag_reference(dev, ids, "sum", None)
+    err = (got.double() - ref.double()).abs()
+    distinct = int(torch.unique(ids).numel())
+    nbytes = 4 * (distinct * cfg["dim"] + cfg["ids"] * cfg["dim"]) \
+        + 4 * cfg["ids"]
+    flops = cfg["ids"] * cfg["dim"] * 2
+    lids = ids.long()
+    case = {
+        "case": "giant_table_1e8", "vocab": cfg["rows"], "dim": cfg["dim"],
+        "bags": cfg["ids"], "nnz": 1, "combiner": "sum", "pad_id": None,
+        "clip": False, "zipf": False, "given_ids": True, "dtype": "float32",
+        "piece_bytes": eb.piece_bytes(4, cfg["dim"], dev.data_ptr()),
+        "distinct_rows": distinct, "table_bytes": table.nbytes,
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float(err.max() / ref.abs().max().clamp_min(1e-30)),
+        **bound(nbytes, flops),
+        **timings(torch, {
+            "kernel": lambda: eb.embedding_bag(dev, ids, "sum", None),
+            "plain": lambda: eb.embedding_bag_reference(dev, ids, "sum",
+                                                        None),
+            "library": lambda: F.embedding_bag(lids, dev, mode="sum")},
+            200),
+        "rows_hot_in_l2": True}
+    out = {"card": card, "rows": cfg["rows"], "dim": cfg["dim"],
+           "table_bytes": table.nbytes, "fill_s": fill_s,
+           "fill_gb_per_s": table.nbytes / fill_s / 1e9,
+           "rows_equal_host": rows_equal, "launches": launched,
+           "case": case}
+    log("giant_table", json.dumps(out))
+    del dev, pinned, ref, got
+    free_card(torch)
+    if not rows_equal or launched != {"embedding_bag_fwd": 1} or float(
+            err.max()) != 0.0:
+        raise AssertionError(f"giant table leg: {out}")
+    return out, launched
+
+
+def taxi_series():
+    """A seeded series of nyc_taxi's length and resolution: daily and
+    weekly cycles with noise, and one extra feature (a rain flag), as
+    the (target, feature) matrix min-max scaled over the whole series,
+    as the feature transformer scales it."""
+    rs = np.random.RandomState(SEED + 184)
+    t = np.arange(SERIES["points"])
+    day, week = 2 * np.pi * t / 48.0, 2 * np.pi * t / (48.0 * 7)
+    rain = (rs.rand(len(t)) < 0.1).astype(np.float64)
+    value = (15000 + 7000 * np.sin(day - 1.2) + 2500 * np.sin(week)
+             - 1500 * rain + 1200 * rs.randn(len(t)))
+    mat = np.stack([value, rain], -1)
+    lo, hi = mat.min(0), mat.max(0)
+    return ((mat - lo) / np.where(hi > lo, hi - lo, 1.0)).astype(np.float32)
+
+
+def series_windows(mat, config):
+    """(x, y) windows for a trial's config, split 90 / 10 in time order
+    as ``TimeSequencePredictor.fit`` splits them."""
+    from analytics_zoo_tpu_torch.automl.feature.time_sequence import (
+        TimeSequenceFeatureTransformer)
+
+    cols = [0] + ([1] if "rain" in config.get("selected_features", ["rain"])
+                  else [])
+    x, y = TimeSequenceFeatureTransformer._roll(
+        mat[:, cols], int(config.get("past_seq_len", 2)), 1)
+    split = max(1, int(len(x) * (1.0 - SERIES["val_share"])))
+    return (x[:split], y[:split]), (x[split:], y[split:])
+
+
+class UtilSampler:
+    """``nvidia-smi``'s utilization.gpu (the share of each sample period
+    in which a kernel ran), sampled every 100 ms beside a window."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        vals = [float(v) for v in out.split() if v.strip().isdigit()]
+        return {"utilization_gpu_mean_pct": float(np.mean(vals))
+                if vals else None, "samples": len(vals)}
+
+
+def search_run(torch, card, label, engine, trainable, mat):
+    """One search: per-trial wall, trials/s, the card's utilization, the
+    best trial against persistence on its validation windows, and the
+    losers' graphs released."""
+    util = UtilSampler()
+    t0 = time.perf_counter()
+    try:
+        results = engine.run(trainable)
+    finally:
+        wall = time.perf_counter() - t0
+        busy = util.stop()
+    failed = [r.extra.get("error") for r in results if "error" in r.extra]
+    best = engine.best()
+    (_, _), (vx, vy) = series_windows(mat, best.config)
+    persistence = float(np.mean((vx[:, -1, 0] - vy[:, 0]) ** 2))
+    before = torch.cuda.memory_reserved()
+    for r in results:
+        if r is not best and "model" in r.extra:
+            r.extra["model"].model.estimator.release_graphs()
+    free_card(torch)
+    out = {"card": card, "search": label, "trials": len(results),
+           "failed": failed, "wall_s": wall,
+           "trials_per_s": len(results) / wall,
+           "trial_wall_s": [r.extra.get("wall_s") for r in results],
+           "trial_mse": [r.metric for r in results],
+           "best_config": {k: v for k, v in best.config.items()
+                           if k != "selected_features"},
+           "best_mse": best.metric, "persistence_mse": persistence,
+           "beats_persistence": best.metric < persistence,
+           "reserved_bytes_before_release": before,
+           "reserved_bytes_after_release": torch.cuda.memory_reserved(),
+           **busy}
+    return out, best
+
+
+def automl_search_leg(torch, card, mat):
+    """(d) ``MTNetGridRandomRecipe()`` at its defaults in 4 threads, then
+    ``BayesRecipe(num_samples=8)`` over VanillaLSTM in 2; the best model
+    saved, restored and predicting equal bit for bit."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.automl import (BayesRecipe,
+                                                MTNetGridRandomRecipe,
+                                                SearchEngine)
+    from analytics_zoo_tpu_torch.automl.model.mtnet import MTNet
+    from analytics_zoo_tpu_torch.automl.model.time_sequence import (
+        VanillaLSTM)
+
+    def trainable_of(make):
+        def trainable(config):
+            t0 = time.perf_counter()
+            train, val = series_windows(mat, config)
+            model = make()
+            score = model.fit_eval(train[0], train[1], validation_data=val,
+                                   metric="mse", **config)
+            return score, {"model": model,
+                           "wall_s": time.perf_counter() - t0}
+        return trainable
+
+    legs = {}
+    recipe = MTNetGridRandomRecipe()
+    engine = SearchEngine(recipe.search_space(["rain"]), metric_mode="min",
+                          num_samples=recipe.num_samples,
+                          max_parallel=MTNET_PARALLEL, backend="thread")
+    legs["mtnet"], best = search_run(torch, card, "mtnet_grid_random",
+                                     engine, trainable_of(MTNet), mat)
+    model = best.extra["model"]
+    (_, _), (vx, _) = series_windows(mat, best.config)
+    root = tempfile.mkdtemp(prefix="zoo_automl_")
+    try:
+        path = os.path.join(root, "mtnet.npz")
+        model.save(path)
+        again = MTNet()
+        again.restore(path, vx.shape[1:], 1, best.config)
+        restored_equal = bool(np.array_equal(again.predict(vx),
+                                             model.predict(vx)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    legs["mtnet"]["restored_predicts_equal"] = restored_equal
+    del model, again, best, engine
+    free_card(torch)
+    recipe = BayesRecipe(num_samples=BAYES_SAMPLES)
+    engine = SearchEngine(recipe.search_space(["rain"]), metric_mode="min",
+                          num_samples=recipe.num_samples,
+                          max_parallel=BAYES_PARALLEL, search_alg="tpe",
+                          n_startup=recipe.n_startup)
+    legs["lstm"], _ = search_run(torch, card, "bayes_lstm", engine,
+                                 trainable_of(VanillaLSTM), mat)
+    del engine
+    free_card(torch)
+    for name, leg in legs.items():
+        log("automl_search", json.dumps(leg))
+    m = legs["mtnet"]
+    if (m["failed"] or legs["lstm"]["failed"] or not restored_equal
+            or not m["beats_persistence"]):
+        raise AssertionError(f"AutoML search leg: {legs}")
+    return legs
+
+
+def vmap_population_leg(torch, card):
+    """(e) 64 (lr, init scale) configs of a small MLP trained full batch
+    for 60 steps: one ``backend="vmap"`` call against the same 64 run one
+    by one."""
+    from torch.func import grad
+
+    from analytics_zoo_tpu_torch.automl import SearchEngine
+    from analytics_zoo_tpu_torch.automl.search import GridSearch
+
+    cfg = POPULATION
+    rs = np.random.RandomState(SEED + 185)
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    x = dev(rs.randn(cfg["rows"], cfg["features"]))
+    y = x @ dev(rs.randn(cfg["features"], 1))
+    w1 = dev(rs.randn(cfg["features"], cfg["hidden"]))
+    w2 = dev(rs.randn(cfg["hidden"], 1))
+
+    def loss_fn(params):
+        return torch.mean((torch.tanh(x @ params[0]) @ params[1] - y) ** 2)
+
+    def trainable(c, **shared):
+        params = (c["scale"] * w1, c["scale"] * w2)
+        for _ in range(c["steps"]):
+            g = grad(loss_fn)(params)
+            params = tuple(p - c["lr"] * gg for p, gg in zip(params, g))
+        return loss_fn(params)
+
+    space = {"lr": GridSearch(list(cfg["lrs"])),
+             "scale": GridSearch(list(cfg["scales"])), "steps": cfg["steps"]}
+    walls = {}
+    runs = {}
+    for backend in ("vmap", "thread"):
+        eng = SearchEngine(space, metric_mode="min", num_samples=1,
+                           backend=backend, max_parallel=1, seed=SEED)
+        eng.run(trainable)                       # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[backend] = eng.run(trainable)
+        torch.cuda.synchronize()
+        walls[backend] = time.perf_counter() - t0
+    got = np.array([r.metric for r in runs["vmap"]])
+    want = np.array([r.metric for r in runs["thread"]])
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                        1e-30)))
+    out = {"card": card, "configs": len(got), "steps": cfg["steps"],
+           "vmap_wall_s": walls["vmap"], "one_by_one_wall_s":
+           walls["thread"], "speedup": walls["thread"] / walls["vmap"],
+           "max_rel_diff": rel,
+           "errors": [r.extra.get("error") for r in runs["vmap"]
+                      if "error" in r.extra],
+           "best_vmap": min(got.tolist()), "best_one_by_one":
+           min(want.tolist())}
+    log("vmap_population", json.dumps(out))
+    if (out["errors"] or rel > VMAP_RTOL
+            or [r.config for r in runs["vmap"]]
+            != [r.config for r in runs["thread"]]):
+        raise AssertionError(f"vmap population leg: {out}")
+    return out
+
+
+def automl_dataframe_leg(torch, card, mat):
+    """(f) The DataFrame front end, where pandas imports: fit with
+    ``MTNetSmokeRecipe``, predict, save, load, predict again."""
+    import shutil
+    import tempfile
+
+    import pandas as pd
+
+    from analytics_zoo_tpu_torch.automl import (MTNetSmokeRecipe,
+                                                TimeSequencePredictor,
+                                                load_ts_pipeline)
+
+    n = len(mat)
+    df = pd.DataFrame({
+        "datetime": pd.date_range("2014-07-01", periods=n, freq="30min"),
+        "value": mat[:, 0], "rain": mat[:, 1]})
+    t0 = time.perf_counter()
+    tsp = TimeSequencePredictor(future_seq_len=1, extra_features_col=["rain"])
+    pipeline = tsp.fit(df, metric="mse", recipe=MTNetSmokeRecipe())
+    fit_s = time.perf_counter() - t0
+    tail = df.iloc[-480:]
+    first = tsp.predict(tail)
+    root = tempfile.mkdtemp(prefix="zoo_pipeline_")
+    try:
+        pipeline.save(root)
+        second = load_ts_pipeline(root).predict(tail)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    equal = bool(first.equals(second))
+    out = {"card": card, "rows": n, "fit_s": fit_s,
+           "predictions": len(first), "reloaded_equal": equal,
+           "mse": pipeline.evaluate(df.iloc[-2000:])}
+    log("automl_dataframe", json.dumps(out))
+    free_card(torch)
+    if not equal or not np.isfinite(out["mse"]):
+        raise AssertionError(f"AutoML DataFrame leg: {out}")
+    return out
+
+
+def automl_host_phase(torch, eb, dq, fa, card):
+    """Phase 18: the host data modules and AutoML forecasting on the
+    card; returns each leg's kernel launches and kernel 1's giant-table
+    case."""
+    t_phase = time.perf_counter()
+    native_out = native_leg(card)
+    reset_counts(eb, dq, fa)
+    tfrec, tfrec_launches = tfrecord_estimator_leg(torch, eb, card)
+    reset_counts(eb, dq, fa)
+    giant, giant_launches = giant_table_leg(torch, eb, card)
+    mat = taxi_series()
+    searches = automl_search_leg(torch, card, mat)
+    vmap = vmap_population_leg(torch, card)
+    try:
+        import pandas
+        pandas_version = pandas.__version__
+    except ImportError:
+        pandas_version = None
+    log("pandas:", pandas_version or "absent", card)
+    frame = (automl_dataframe_leg(torch, card, mat) if pandas_version
+             else None)
+    summary = {
+        "card": card, "seconds": time.perf_counter() - t_phase,
+        "pandas": pandas_version or "absent",
+        "crc_native_mb_per_s": native_out["crc_native_mb_per_s"],
+        "gather_native_gb_per_s": native_out["gather_native_gb_per_s"],
+        "tfrecord_read_records_per_s": tfrec["read_records_per_s"],
+        "tfestimator_losses_equal_fit": tfrec["losses_equal_fit"],
+        "giant_fill_s": giant["fill_s"],
+        "giant_kernel_ms": giant["case"]["ms"],
+        "giant_bound_ms": giant["case"]["bound_ms"],
+        "mtnet_best_mse": searches["mtnet"]["best_mse"],
+        "mtnet_persistence_mse": searches["mtnet"]["persistence_mse"],
+        "lstm_best_mse": searches["lstm"]["best_mse"],
+        "search_trials_per_s": {k: v["trials_per_s"]
+                                for k, v in searches.items()},
+        "vmap_speedup": vmap["speedup"],
+        "dataframe_reloaded_equal": frame["reloaded_equal"] if frame
+        else None}
+    log("automl_host_summary", json.dumps(summary))
+    return {"tfestimator": tfrec_launches, "giant": giant_launches,
+            "giant_case": giant["case"]}
+
+
 def main() -> int:
     import torch
 
@@ -8640,6 +9225,9 @@ def main() -> int:
     vocab = vocabulary_phase(torch, eb, dq, fa, card)
     bag_cases += vocab["bag_cases"]
     bwd_cases += vocab["bwd_cases"]
+    reset_counts(eb, dq, fa)
+    host = automl_host_phase(torch, eb, dq, fa, card)
+    bag_cases.append(host["giant_case"])
     rec_paths = ("wide_and_deep_training", "wide_and_deep_serving",
                  "session_training", "session_serving")
     fwd_by_path = {"serving": served["embedding_bag"],
@@ -8656,7 +9244,10 @@ def main() -> int:
                        "embedding_bag_fwd"],
                    "glove_text_training": vocab["glove"]["embedding_bag_fwd"],
                    "vocabulary_net": vocab["vocabulary_net"][
-                       "embedding_bag_fwd"]}
+                       "embedding_bag_fwd"],
+                   "tfestimator_ncf": host["tfestimator"][
+                       "embedding_bag_fwd"],
+                   "giant_table_lookup": host["giant"]["embedding_bag_fwd"]}
     bwd_by_path = {"training": trained["embedding_bag_bwd"],
                    "training_surface_stream": surface[
                        "training_surface_stream"]["embedding_bag_bwd"],
@@ -8666,6 +9257,8 @@ def main() -> int:
                    **{p: v["embedding_bag_bwd"] for p, v in text.items()
                       if "embedding_bag_bwd" in v},
                    "sparse_embedding_training": vocab["sparse"][
+                       "embedding_bag_bwd"],
+                   "tfestimator_ncf": host["tfestimator"][
                        "embedding_bag_bwd"]}
     dq_by_path = {"serving": served["dequant_matmul"],
                   "training": trained["dequant_matmul"],

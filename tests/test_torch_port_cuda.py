@@ -2843,3 +2843,100 @@ def test_quantized_bert_base_launch_counts_on_card(cuda_device,
         want = im.predict(xs)
     assert got.shape == (4, 2) and np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_vmap_population_on_card_matches_one_by_one(cuda_device):
+    """``backend="vmap"`` stacks the population's leaves on the card and
+    runs the trainable once under ``torch.func.vmap``: each score is the
+    trainable's own, run alone (f32 sums in other orders: rtol 1e-4)."""
+    from torch.func import grad
+
+    from analytics_zoo_tpu_torch.automl import search
+    from analytics_zoo_tpu_torch.core import context
+
+    rs = np.random.RandomState(11)
+    x = torch.from_numpy(rs.randn(128, 8).astype(np.float32)).to(cuda_device)
+    y = x @ torch.from_numpy(rs.randn(8, 1).astype(np.float32)).to(
+        cuda_device)
+    w1 = torch.from_numpy(rs.randn(8, 16).astype(np.float32)).to(cuda_device)
+    w2 = torch.from_numpy(rs.randn(16, 1).astype(np.float32)).to(cuda_device)
+
+    def loss_fn(params):
+        return torch.mean((torch.tanh(x @ params[0]) @ params[1] - y) ** 2)
+
+    def trainable(cfg, **shared):
+        params = (cfg["scale"] * w1, cfg["scale"] * w2)
+        for _ in range(cfg["steps"]):
+            g = grad(loss_fn)(params)
+            params = tuple(p - cfg["lr"] * gg for p, gg in zip(params, g))
+        return loss_fn(params)
+
+    context.init_zoo_context(device="cuda")
+    try:
+        eng = search.SearchEngine(
+            {"lr": search.LogUniform(1e-3, 3e-1),
+             "scale": search.Uniform(0.05, 0.3), "steps": 30},
+            num_samples=16, backend="vmap", seed=3)
+        res = eng.run(trainable)
+    finally:
+        context.set_zoo_context(None)
+    assert all("error" not in r.extra for r in res), res[0].extra
+    for r in res[:4]:
+        np.testing.assert_allclose(float(trainable(r.config)), r.metric,
+                                   rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tfestimator_step_on_card_runs_kernels_1_and_2(cuda_device,
+                                                       tmp_path):
+    """NCF read from TFRecords trains through ``TFEstimator`` on the card:
+    4 embedding-bag forward and 4 backward launches a step, and the
+    losses equal ``Estimator.fit``'s from the same init and order."""
+    from analytics_zoo_tpu_torch.convert import export_params
+    from analytics_zoo_tpu_torch.data.tfrecord import (make_example,
+                                                       write_tfrecords)
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.nn import reset_name_scope
+    from analytics_zoo_tpu_torch.tfpark import (EstimatorSpec, TFDataset,
+                                                TFEstimator)
+    from analytics_zoo_tpu_torch.train.estimator import Estimator
+    from analytics_zoo_tpu_torch.train.optimizers import Adam
+
+    rs = np.random.RandomState(0)
+    path = str(tmp_path / "r.tfrecord")
+    write_tfrecords(path, [make_example(
+        {"user": [int(rs.randint(1, 101))], "item": [int(rs.randint(1, 81))],
+         "label": [int(rs.randint(0, 5))]}) for _ in range(512)])
+    ds = TFDataset.from_tfrecord_file(path, ["user", "item"], "label")
+    reset_name_scope()
+    ncf = NeuralCF(100, 80, device="cuda")
+    init = export_params(ncf.model)
+
+    def model_fn(features, labels, mode, params):
+        return EstimatorSpec(mode, model=ncf.model,
+                             loss="sparse_categorical_crossentropy",
+                             optimizer=Adam(lr=1e-3))
+
+    est = TFEstimator(model_fn)
+    f0, b0 = teb.LAUNCHES.value, teb.BWD_LAUNCHES.value
+    est.train(lambda: ds, batch_size=64, epochs=2)
+    torch.cuda.synchronize()
+    steps = est.estimator.global_step
+    assert steps == 16
+    assert teb.LAUNCHES.value - f0 == 4 * steps
+    assert teb.BWD_LAUNCHES.value - b0 == 4 * steps
+    reset_name_scope()
+    ref = NeuralCF(100, 80, device="cuda")
+    plain = Estimator(ref.model, optimizer=Adam(lr=1e-3),
+                      loss="sparse_categorical_crossentropy")
+    plain.set_initial_weights(init)
+    plain.fit(ds.features, ds.y, batch_size=64, epochs=2, verbose=False)
+    assert [h["loss"] for h in est.estimator.history] == \
+        [h["loss"] for h in plain.history]
+    # released graphs: the weights stay, the next predict captures afresh
+    before = est.estimator.predict(ds.features, batch_size=128)
+    est.estimator.release_graphs()
+    assert not est.estimator._programs and not est.estimator._eval_programs
+    np.testing.assert_array_equal(
+        est.estimator.predict(ds.features, batch_size=128), before)

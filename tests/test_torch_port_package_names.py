@@ -33,23 +33,14 @@ NOT_PORTED = {
     "analytics_zoo_tpu.nn.layers": {"ShardedEmbeddingTable": "A9",
                                     "SparseMoE": "A9",
                                     "moe_aux_loss": "A9"},
-    "analytics_zoo_tpu.data": {"Preprocessing": "A10",
-                               "ChainedPreprocessing": "A10",
-                               "FeatureLabelPreprocessing": "A10",
-                               "SeqToTensor": "A10",
-                               "SyntheticGiantTable": "A10"},
     "analytics_zoo_tpu.tfpark": {name: "A10" for name in (
-        "convert_keras_model", "EstimatorSpec", "ModeKeys", "TFEstimator",
-        "GANEstimator", "KerasModel", "TFGraphOptimizer", "TFNet",
-        "TFOptimizer", "TFDataset")},
+        "convert_keras_model", "GANEstimator", "KerasModel",
+        "TFGraphOptimizer", "TFNet", "TFOptimizer")},
 }
 # JAX packages with no port package yet, by their ROADMAP A item
 PACKAGES_NOT_PORTED = {
     "analytics_zoo_tpu.parallel": "A9",
-    "analytics_zoo_tpu.automl": "A10",
     "analytics_zoo_tpu.nnframes": "A10",
-    "analytics_zoo_tpu.native": "A10",
-    "analytics_zoo_tpu.utils": "A10",
     "analytics_zoo_tpu.analysis": "A10",
 }
 
